@@ -28,6 +28,11 @@ if _platform == "cpu":
 jax.config.update("jax_enable_x64", True)
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card; skips without one")
+
+
 # --- auto-retry tests whose xdist WORKER crashed -------------------------
 #
 # This host's XLA:CPU compiler segfaults flakily deep into long processes
