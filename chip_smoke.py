@@ -7,15 +7,28 @@ Run from the root of the repository on a machine with a CUDA card. Phases:
 
 1. device: the card's name and power limit (nvidia-smi) and CUDA version;
 2. build: the CUDA kernels from tpu_qe_torch/csrc and the C++ core;
-3. kernels: B1 (block histogram), B2 (exclusive scan) and B3 (stable rank,
-   and rank + scatter) on the card, bit-exact against their plain PyTorch
-   twins on the same card and against the C++ oracles, at 2^22 and
+3. radix kernels: B1 (block histogram), B2 (exclusive scan) and B3 (stable
+   rank, and rank + scatter) on the card, bit-exact against their plain
+   PyTorch twins on the same card and against the C++ oracles, at 2^22 and
    2^22 + 777 keys over several digit positions and a skewed input; then
-   each kernel's time beside its twin's at the main path's shapes;
-4. main path: `verify` at 2^24 triangles for the 8x8-bit and the 6x11-bit
+   each kernel's time beside its twin's at the main path's shapes, on
+   outputs that are compared again;
+4. B4 (morton LUT encode; quirk on and off, ragged n),
+   B5 (bitonic chunk sort; rows 8 and 64 and a chunk wider than shared
+   memory, heavy ties, 0, 1 and 3 payloads) and B6 (tensor-core rank;
+   random and skewed digits, blocks 1024, 2048 and 4096), bit-exact against
+   their twins and oracles; then each kernel's time beside its twin's, on
+   outputs that are compared again;
+5. main path: `verify` at 2^24 triangles for the 8x8-bit and the 6x11-bit
    schedules, bit-exact against the C++ pipeline oracle, with the kernel
    launch counts of the run;
-5. headline: 2^26 random u64 keys + u32 payload sorted by the radix kernels,
+6. LUT encode path: `morton.encode(use_lut=True)` and `(quirk_lut=True)`
+   on the verify scene (2^24 triangles), bit-exact against the C++ encoder,
+   with B4's launches counted;
+7. self-check: `python -m tpu_qe_torch.selfcheck`'s main() must return 0;
+   B5's and B6's launches are counted there;
+8. bench-kernels at 2^24: one JSON row per kernel;
+9. headline: 2^26 random u64 keys + u32 payload sorted by the radix kernels,
    bit-exact against a stable torch.sort, with both CUDA-event times.
 
 Then it prints the kernel summary as one JSON line, the nvidia-smi line, and
@@ -62,12 +75,15 @@ def main() -> int:
     except ImportError as e:
         fail(f"run from the root of the repository ({e})")
 
-    from tpu_qe_torch import kernels, native
+    from tpu_qe_torch import kernels, morton, native, selfcheck
     from tpu_qe_torch.__main__ import main as cli
     from tpu_qe_torch.bench import headline
     from tpu_qe_torch.bits import U64, widen
     from tpu_qe_torch.constants import BLOCK
+    from tpu_qe_torch.kernels import bitonic as bk
     from tpu_qe_torch.kernels import histogram as hk
+    from tpu_qe_torch.kernels import morton as mk
+    from tpu_qe_torch.kernels import rank_mxu as rk
     from tpu_qe_torch.kernels import scan as sk
     from tpu_qe_torch.utils.timing import cuda_time
 
@@ -76,7 +92,7 @@ def main() -> int:
 
     # -- 1. device
     smi = nvidia_smi_line()
-    log(f"[1/5] device: {smi}; torch {torch.__version__}, "
+    log(f"[1/9] device: {smi}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.device_count()} card(s)")
 
     # -- 2. build
@@ -85,11 +101,10 @@ def main() -> int:
     t1 = time.perf_counter()
     native.pipeline_oracle(10, 10, 7)
     t2 = time.perf_counter()
-    log(f"[2/5] build: CUDA kernels {t1 - t0:.1f} s, C++ core {t2 - t1:.1f} s")
+    log(f"[2/9] build: CUDA kernels {t1 - t0:.1f} s, C++ core {t2 - t1:.1f} s")
 
     # -- 3. kernels against their twins and the C++ oracles
-    err = {"block_histogram": 0, "exclusive_scan": 0,
-           "block_rank_and_histogram": 0, "rank_and_scatter": 0}
+    err = {name: 0 for name in kernels.LAUNCHES}
 
     def compare(name: str, got: torch.Tensor, *wants) -> None:
         g = widen(got.reshape(-1))
@@ -104,6 +119,18 @@ def main() -> int:
             err[name] = max(err[name], d)
             if d:
                 fail(f"{name}: differs from its reference by up to {d}")
+
+    def tensors(out) -> list:     # a kernel's outputs, flattened in order
+        if isinstance(out, torch.Tensor):
+            return [out]
+        return [t for o in out for t in tensors(o)]
+
+    def compare_outputs(name: str, kern, plain) -> None:
+        got, want = tensors(kern()), tensors(plain())
+        if len(got) != len(want):
+            fail(f"{name}: {len(got)} outputs, its twin {len(want)}")
+        for g, w in zip(got, want):
+            compare(name, g, w)
 
     rng = np.random.default_rng(7)
     u64 = np.uint64
@@ -163,8 +190,10 @@ def main() -> int:
                 (np.cumsum(x) - x) & u64(0xFFFFFFFF))
         log(f"      n={n} exclusive_scan with u32 wrap-around: bit-exact")
     torch.cuda.synchronize()
-    log(f"[3/5] kernels bit-exact against twins and C++ oracles; "
-        f"max_abs_err {json.dumps(err)}")
+    log("[3/9] radix kernels bit-exact against twins and C++ oracles; "
+        "max_abs_err " + json.dumps({k: err[k] for k in (
+            "block_histogram", "exclusive_scan", "block_rank_and_histogram",
+            "rank_and_scatter")}))
 
     # Times at the main path's shapes: 2^24 keys, 8-bit digit, one payload.
     n = 1 << 24
@@ -180,6 +209,9 @@ def main() -> int:
             lambda: hk.block_histogram_plain(key.lo, key.hi, 0, 8)),
         "exclusive_scan": (lambda: sk.exclusive_scan(flat),
                            lambda: sk.exclusive_scan_plain(flat)),
+        "block_rank_and_histogram": (
+            lambda: hk.block_rank_and_histogram(key.lo, key.hi, 0, 8),
+            lambda: hk.block_rank_and_histogram_plain(key.lo, key.hi, 0, 8)),
         "rank_and_scatter": (
             lambda: hk.rank_and_scatter(key.lo, key.hi, [pay], base, 0, 8),
             lambda: hk.rank_and_scatter_plain(key.lo, key.hi, [pay], base,
@@ -187,6 +219,7 @@ def main() -> int:
     }
     ms = {}
     for name, (kern, plain) in timed.items():
+        compare_outputs(name, kern, plain)
         k1 = cuda_time(kern, iters=20)
         p1 = cuda_time(plain, iters=5)
         k2 = cuda_time(kern, iters=20)
@@ -195,7 +228,150 @@ def main() -> int:
             f"{ms[name][1]:.4f} ms (2^24 keys, 8-bit digit, block {BLOCK})")
     del key, pay, hist, flat, base
 
-    # -- 4. main path
+    # -- 4. B4, B5 and B6 against their twins and oracles
+    def planes(a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.uint32).view(
+            np.int32)).to(dev)
+
+    def words(codes: np.ndarray):     # u64 oracle codes -> (lo, hi) words
+        return codes & u64(0xFFFFFFFF), codes >> u64(32)
+
+    _, _, smin, smax = native.scene_generate(100, 300, 7)
+    gen = native.MortonGen(smin, smax)
+    params = morton.MortonParams.from_native(gen, dev)
+    params_cpu = morton.MortonParams.from_native(gen, "cpu")
+    for n in (0, 1, 1023, (1 << 22) + 777):
+        q = rng.integers(0, 1 << 20, (n, 3), dtype=np.uint32)
+        j = rng.integers(0, 1 << 12, n, dtype=np.uint32)
+        qt, jt = planes(q), planes(j)
+        for quirk in (False, True):
+            got = mk.encode_quantized_lut(qt, jt, params.lut_lo,
+                                          params.lut_hi, quirk)
+            plain = mk.encode_quantized_lut_plain(qt, jt, params.lut_lo,
+                                                  params.lut_hi, quirk)
+            # the size-LUT formulation on the CPU
+            ref = morton.encode_quantized_lut(qt.cpu(), jt.cpu(), params_cpu,
+                                              quirk)
+            compare("encode_quantized_lut", got.lo, plain.lo, ref.lo.to(dev))
+            compare("encode_quantized_lut", got.hi, plain.hi, ref.hi.to(dev))
+            if not quirk:
+                wlo, whi = words(native.morton_encode_direct(
+                    np.concatenate([q, j[:, None]], axis=1)))
+                compare("encode_quantized_lut", got.lo, wlo)
+                compare("encode_quantized_lut", got.hi, whi)
+        log(f"      n={n}: B4 (quirk off and on) bit-exact")
+
+    def spread(p0: np.ndarray) -> np.ndarray:   # payloads derived from p0
+        return (p0.astype(np.uint64) * u64(2654435761)) & u64(0xFFFFFFFF)
+
+    for n_pay in (0, 1, 3):
+        wide = 4 * bk.shared_tile(1 << 30, 2 + n_pay, dev) // 128
+        for rows in (8, 64, wide):
+            nb = max(1, (1 << 21) // (rows * 128))
+            for ties in (False, True):
+                shape = (nb, rows * 128)
+                if ties:
+                    lo = rng.integers(0, 4, shape, dtype=np.uint32)
+                    hi = rng.integers(0, 2, shape, dtype=np.uint32)
+                else:
+                    lo = rng.integers(0, 1 << 32, shape, dtype=np.uint64)
+                    hi = rng.integers(0, 1 << 32, shape, dtype=np.uint64)
+                p0 = np.arange(nb * rows * 128, dtype=np.uint32).reshape(shape)
+                pays = ([p0] + [spread(p0 + i) for i in range(1, n_pay)]
+                        if n_pay else [])
+                ins = [planes(a) for a in (lo, hi, *pays)]
+                outs = bk.sort_chunks(*ins, rows=rows)
+                twin = bk.sort_chunks_plain(*ins, rows=rows)
+                for o, w in zip(outs, twin):
+                    compare("sort_chunks", o, w)
+                key = (lo.astype(np.uint64)
+                       | (hi.astype(np.uint64) << u64(32)))
+                olo, ohi, *opay = (o.cpu().numpy().view(np.uint32)
+                                   for o in outs)
+                okey = olo.astype(np.uint64) | (ohi.astype(np.uint64)
+                                                << u64(32))
+                if not np.array_equal(okey, np.sort(key, axis=1)):
+                    fail("sort_chunks: chunks not sorted like numpy")
+                if n_pay:
+                    # every payload travels with its key
+                    op0 = opay[0]
+                    order_in = np.lexsort((p0, key), axis=-1)
+                    order_out = np.lexsort((op0, okey), axis=-1)
+                    if not np.array_equal(
+                            np.take_along_axis(p0, order_in, 1),
+                            np.take_along_axis(op0, order_out, 1)):
+                        fail("sort_chunks: payload 0 left its key")
+                for i, o in enumerate(opay[1:], start=1):
+                    if not np.array_equal(o, spread(op0 + i)):
+                        fail(f"sort_chunks: payload {i} left payload 0")
+                log(f"      rows={rows} (width {rows * 128}) nb={nb} "
+                    f"payloads={n_pay} ties={ties}: B5 bit-exact")
+
+    n = (1 << 22) + 777
+    rand = rng.integers(0, 1 << 64, size=n, dtype=np.uint64)
+    for label, keys, shifts in (
+            ("random", rand, (0, 40)),
+            ("digits {0,1}", rng.integers(0, 2, size=n, dtype=np.uint64),
+             (0,)),
+            ("one digit", (rand & ~u64(0xFF)) | u64(0x5A), (0,))):
+        key = U64.from_numpy(keys, dev)
+        for block in (1024, 2048, 4096):
+            nb = -(-n // block)
+            blk = np.arange(n, dtype=np.int64) // block
+            for shift in shifts:
+                r, h = rk.block_rank_and_histogram_mxu(key.lo, key.hi, shift,
+                                                       block)
+                tr, th = rk.block_rank_and_histogram_mxu_plain(
+                    key.lo, key.hi, shift, block)
+                r3, h3 = hk.block_rank_and_histogram(key.lo, key.hi, shift,
+                                                     8, block)
+                d = ((keys >> u64(shift)) & u64(255)).astype(np.int64)
+                want = native.block_rank((blk * 256 + d).astype(np.uint32),
+                                         nb * 256)
+                compare("block_rank_and_histogram_mxu", r, tr, r3, want)
+                compare("block_rank_and_histogram_mxu", h, th, h3)
+                log(f"      n={n} {label} block={block} shift={shift}: "
+                    "B6 bit-exact against twin, B3 and the C++ rank")
+    torch.cuda.synchronize()
+    log("[4/9] B4, B5, B6 bit-exact against twins and oracles; max_abs_err "
+        + json.dumps({k: err[k] for k in ("encode_quantized_lut",
+                                          "sort_chunks",
+                                          "block_rank_and_histogram_mxu")}))
+
+    # Times at the shapes of bench-kernels: 2^24 keys; B5 in chunks of 8192
+    # with one payload; B6 at the main path's block.
+    n = 1 << 24
+    q = planes(rng.integers(0, 1 << 20, (n, 3), dtype=np.uint32))
+    j = planes(rng.integers(0, 1 << 12, n, dtype=np.uint32))
+    key = U64.from_numpy(rng.integers(0, 1 << 64, size=n, dtype=np.uint64),
+                         dev)
+    lo8, hi8 = key.lo.reshape(-1, 8192), key.hi.reshape(-1, 8192)
+    pay8 = torch.arange(n, dtype=torch.int32, device=dev).reshape(-1, 8192)
+    timed = {
+        "encode_quantized_lut": (
+            lambda: mk.encode_quantized_lut(q, j, params.lut_lo,
+                                            params.lut_hi),
+            lambda: mk.encode_quantized_lut_plain(q, j, params.lut_lo,
+                                                  params.lut_hi)),
+        "sort_chunks": (lambda: bk.sort_chunks(lo8, hi8, pay8, rows=64),
+                        lambda: bk.sort_chunks_plain(lo8, hi8, pay8,
+                                                     rows=64)),
+        "block_rank_and_histogram_mxu": (
+            lambda: rk.block_rank_and_histogram_mxu(key.lo, key.hi, 0),
+            lambda: rk.block_rank_and_histogram_mxu_plain(key.lo, key.hi,
+                                                          0)),
+    }
+    for name, (kern, plain) in timed.items():
+        compare_outputs(name, kern, plain)
+        k1 = cuda_time(kern, iters=20)
+        p1 = cuda_time(plain, iters=3, warmup=1)
+        k2 = cuda_time(kern, iters=20)
+        ms[name] = (min(k1, k2) * 1e3, p1 * 1e3)
+        log(f"      {name}: kernel {ms[name][0]:.4f} ms, plain twin "
+            f"{ms[name][1]:.4f} ms (2^24 keys)")
+    del q, j, key, lo8, hi8, pay8
+
+    # -- 5. main path
     launches = None
     for extra, passes in (([], 8), (["--bits-per-pass", "6",
                                      "--num-passes", "11"], 11)):
@@ -215,14 +391,70 @@ def main() -> int:
                      f"pass ({passes})")
         if launches is None:
             launches = counts
-    log("[4/5] main path: VERIFY PASS at 2^24 triangles for 8x8 and 6x11")
+    log("[5/9] main path: VERIFY PASS at 2^24 triangles for 8x8 and 6x11")
 
-    # -- 5. headline sort
+    # -- 6. LUT encode path on the verify scene: B4 through morton.encode
+    verts, tris, smin, smax = native.scene_generate(4194304, 16777216, 7)
+    gen = native.MortonGen(smin, smax)
+    params = morton.MortonParams.from_native(gen, dev)
+    verts_t = torch.from_numpy(verts).to(dev)
+    tris_t = torch.from_numpy(tris.astype(np.int32)).to(dev)
+    for flag in ("use_lut", "quirk_lut"):
+        kernels.reset_launches()
+        code = morton.encode(verts_t, tris_t, params, **{flag: True})
+        torch.cuda.synchronize()
+        counts = dict(kernels.LAUNCHES)
+        if counts["encode_quantized_lut"] != 1:
+            fail(f"encode({flag}=True) launched B4 "
+                 f"{counts['encode_quantized_lut']} times, not once")
+        launches["encode_quantized_lut"] += counts["encode_quantized_lut"]
+        wlo, whi = words(gen.encode(verts, tris, quirk=flag == "quirk_lut"))
+        compare("encode_quantized_lut", code.lo, wlo)
+        compare("encode_quantized_lut", code.hi, whi)
+        log(f"      encode({flag}=True) at 2^24 triangles: bit-exact against "
+            f"the C++ encoder, launches {counts}")
+    t_lut = cuda_time(lambda: morton.encode(verts_t, tris_t, params,
+                                            use_lut=True), iters=5)
+    t_direct = cuda_time(lambda: morton.encode(verts_t, tris_t, params),
+                         iters=5)
+    del verts, tris, verts_t, tris_t, code
+    log(f"[6/9] LUT encode path: B4 bit-exact on the verify scene; encode "
+        f"(quantize + B4) {t_lut * 1e3:.4f} ms, plain direct encode "
+        f"{t_direct * 1e3:.4f} ms at 2^24 triangles")
+
+    # -- 7. on-card self-check
+    kernels.reset_launches()
+    rc = selfcheck.main()
+    torch.cuda.synchronize()
+    counts = dict(kernels.LAUNCHES)
+    log(f"      selfcheck launches {counts}")
+    if rc != 0:
+        fail("selfcheck failed")
+    for name in kernels.LAUNCHES:
+        if counts[name] < 1:
+            fail(f"selfcheck never launched {name}")
+    for name in ("sort_chunks", "block_rank_and_histogram_mxu"):
+        launches[name] = counts[name]
+    log("[7/9] selfcheck: SELFCHECK PASS")
+
+    # -- 8. per-kernel bench
+    kernels.reset_launches()
+    if cli(["bench-kernels", "--n", str(1 << 24)]) != 0:
+        fail("bench-kernels failed")
+    torch.cuda.synchronize()
+    counts = dict(kernels.LAUNCHES)
+    for name in ("encode_quantized_lut", "sort_chunks", "block_histogram",
+                 "block_rank_and_histogram"):
+        if counts[name] < 1:
+            fail(f"bench-kernels never launched {name}")
+    log(f"[8/9] bench-kernels at 2^24: launches {counts}")
+
+    # -- 9. headline sort
     res = headline.measure(1 << 26, seed=7, iters=10, device="cuda")
     log(f"      {json.dumps(res)}")
     if not res["verified"]:
         fail("radix sort of 2^26 keys differs from stable torch.sort")
-    log(f"[5/5] headline: radix {res['time_s'] * 1e3:.3f} ms, torch.sort "
+    log(f"[9/9] headline: radix {res['time_s'] * 1e3:.3f} ms, torch.sort "
         f"{res['torch_sort_time_s'] * 1e3:.3f} ms for 2^26 keys + payload; "
         "bit-exact")
 
@@ -233,6 +465,11 @@ def main() -> int:
         ("exclusive_scan", src + "scan.cu", "tpu_qe/kernels/scan.py:69"),
         ("rank_and_scatter", src + "radix.cu",
          "tpu_qe/kernels/histogram.py:164"),
+        ("encode_quantized_lut", src + "morton.cu",
+         "tpu_qe/kernels/morton.py:80"),
+        ("sort_chunks", src + "bitonic.cu", "tpu_qe/kernels/bitonic.py:86"),
+        ("block_rank_and_histogram_mxu", src + "rank_mxu.cu",
+         "tpu_qe/kernels/rank_mxu.py:106"),
     ]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": rep,

@@ -67,6 +67,7 @@ def test_verify_cli_passes_on_cpu():
 
 
 @pytest.mark.parametrize("extra", [["--backend", "torch"],
+                                   ["--backend", "torch_tiebreak"],
                                    ["--bits-per-pass", "6", "--num-passes",
                                     "11", "--triangles", "4000"]])
 def test_verify_in_process_variants(extra, capsys):
@@ -96,6 +97,9 @@ def test_package_never_imports_jax():
             "import tpu_qe_torch.bench.headline\n"
             "import tpu_qe_torch.utils.timing, tpu_qe_torch.utils.profiling\n"
             "import tpu_qe_torch.utils.dump, tpu_qe_torch.utils.build\n"
+            "import tpu_qe_torch.kernels.morton, tpu_qe_torch.kernels.bitonic\n"
+            "import tpu_qe_torch.kernels.rank_mxu, tpu_qe_torch.selfcheck\n"
+            "import tpu_qe_torch.bench.kernels\n"
             "from tpu_qe_torch.__main__ import main\n"
             "assert main(['verify', '--device', 'cpu', '--triangles', '500'])"
             " == 0\n"
@@ -124,6 +128,18 @@ def test_cuda_device_without_cuda_raises():
 def test_bench_refuses_the_cpu():
     with pytest.raises(RuntimeError):
         main(["bench", "--n", "1024", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("args", [["-m", "tpu_qe_torch", "bench-kernels",
+                                   "--n", "8192"],
+                                  ["-m", "tpu_qe_torch.selfcheck"]])
+def test_card_paths_fail_without_cuda(args):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA")
+    r = _run(args)
+    assert r.returncode != 0
+    assert "CUDA is not available" in r.stderr
+    assert "PASS" not in r.stdout and '"kernel ' not in r.stdout
 
 
 def test_chip_smoke_fails_without_cuda():

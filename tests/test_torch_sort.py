@@ -24,7 +24,7 @@ def _keys(n, seed=0, bits=64):
                                                 dtype=np.uint64)
 
 
-@pytest.mark.parametrize("backend", ["radix", "torch"])
+@pytest.mark.parametrize("backend", ["radix", "torch", "torch_tiebreak"])
 @pytest.mark.parametrize("n", [1, 255, 256, 1023, 1024, 1025, 3000])
 def test_full_u64_sort_matches_stable_argsort(backend, n):
     keys = _keys(n, seed=n)
@@ -71,7 +71,7 @@ def test_matches_cpp_oracle(bpp, passes):
     np.testing.assert_array_equal(p, op)
 
 
-@pytest.mark.parametrize("backend", ["radix", "torch"])
+@pytest.mark.parametrize("backend", ["radix", "torch", "torch_tiebreak"])
 def test_duplicate_heavy_keys_stay_stable(backend):
     keys = _keys(4000, seed=11, bits=2)
     payload = np.arange(4000, dtype=np.uint32)
@@ -125,3 +125,51 @@ def test_unstable_torch_backend_sorts_keys():
 def test_unknown_backend_raises():
     with pytest.raises(ValueError):
         sort_u64_numpy(_keys(10), backend="xla")
+
+
+@pytest.mark.parametrize("key_bits", [64, 24])
+@pytest.mark.parametrize("payload_kind", ["arange", "permutation"])
+def test_tiebreak_matches_jax_xla_tiebreak(payload_kind, key_bits):
+    n = 3000
+    keys = _keys(n, seed=21, bits=10)                 # heavy key ties
+    rng = np.random.default_rng(22)
+    p1 = (np.arange(n, dtype=np.uint32) if payload_kind == "arange"
+          else rng.permutation(n).astype(np.uint32) * np.uint32(2654435761))
+    p2 = rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
+    tk, (t1, t2) = sort_u64(U64.from_numpy(keys, "cpu"),
+                            torch.from_numpy(p1.view(np.int32)),
+                            torch.from_numpy(p2.view(np.int32)),
+                            backend="torch_tiebreak", key_bits=key_bits)
+    order = np.argsort(keys & np.uint64((1 << key_bits) - 1)
+                       if key_bits < 64 else keys, kind="stable")
+    # stable by key for any payload
+    np.testing.assert_array_equal(tk.to_numpy(), keys[order])
+    np.testing.assert_array_equal(t1.numpy().view(np.uint32), p1[order])
+    np.testing.assert_array_equal(t2.numpy().view(np.uint32), p2[order])
+    if payload_kind == "arange":
+        # the payload the JAX backend is meant for: its (key, payload)
+        # order is the same
+        jk, (j1, j2) = jax_sort_u64(JU64.from_numpy(keys), jnp.asarray(p1),
+                                    jnp.asarray(p2), backend="xla_tiebreak",
+                                    key_bits=key_bits)
+        np.testing.assert_array_equal(tk.to_numpy(), jk.to_numpy())
+        np.testing.assert_array_equal(t1.numpy().view(np.uint32),
+                                      np.asarray(j1))
+        np.testing.assert_array_equal(t2.numpy().view(np.uint32),
+                                      np.asarray(j2))
+
+
+def test_tiebreak_is_stable_with_stable_false():
+    keys = _keys(3000, seed=12, bits=3)
+    payload = np.arange(3000, dtype=np.uint32)
+    k, p = sort_u64_numpy(keys, payload, backend="torch_tiebreak",
+                          stable=False)
+    order = np.argsort(keys, kind="stable")
+    np.testing.assert_array_equal(k, keys[order])
+    np.testing.assert_array_equal(p, order)
+
+
+def test_tiebreak_takes_no_payload():
+    keys = _keys(100, seed=1)
+    np.testing.assert_array_equal(
+        sort_u64_numpy(keys, backend="torch_tiebreak"), np.sort(keys))

@@ -5,7 +5,12 @@
            C++ pipeline oracle; prints VERIFY PASS / VERIFY FAIL (exit 0/1)
   dump     golden-file dump of morton codes + triangle indices
   bench    headline benchmark (tpu_qe_torch/bench/headline.py)
+  bench-kernels  one JSON row per kernel against the card's HBM
+           speed of light (tpu_qe_torch/bench/kernels.py)
   info     device + configuration report
+
+The on-card self-check of every kernel and sort backend against its
+oracle is `python -m tpu_qe_torch.selfcheck`.
 
 Every subcommand that touches a device takes --device (default cuda); a
 CUDA device on a machine without CUDA raises instead of running elsewhere.
@@ -103,6 +108,12 @@ def _cmd_bench(args) -> int:
     return headline.main(args.rest)
 
 
+def _cmd_bench_kernels(args) -> int:
+    from tpu_qe_torch.bench import kernels
+    kernels.run(args.n)
+    return 0
+
+
 def _cmd_info(args) -> int:
     import torch
 
@@ -120,6 +131,8 @@ def _cmd_info(args) -> int:
 
 
 def main(argv=None) -> int:
+    from tpu_qe_torch.config import BACKENDS
+
     parser = argparse.ArgumentParser(prog="tpu_qe_torch")
     parser.add_argument("-v", "--verbose", action="store_true")
     sub = parser.add_subparsers(dest="cmd", required=True)
@@ -129,9 +142,11 @@ def main(argv=None) -> int:
     pv.add_argument("--triangles", type=int, default=3000)
     pv.add_argument("--seed", type=int, default=7)
     pv.add_argument("--backend", type=str, default="radix",
-                    choices=["radix", "torch"],
-                    help="sort backend: the CUDA radix kernels, or the "
-                         "stable torch.sort baseline")
+                    choices=list(BACKENDS),
+                    help="sort backend: the CUDA radix kernels, the "
+                         "stable torch.sort baseline, or torch_tiebreak, "
+                         "the same stable torch.sort under the JAX "
+                         "xla_tiebreak name")
     pv.add_argument("--bits-per-pass", type=int, default=8)
     pv.add_argument("--num-passes", type=int, default=8,
                     help="e.g. --bits-per-pass 6 --num-passes 11 for the "
@@ -156,6 +171,12 @@ def main(argv=None) -> int:
                         help="headline benchmark (options: see "
                              "python -m tpu_qe_torch.bench.headline -h)")
     pb.set_defaults(fn=_cmd_bench)
+
+    pk = sub.add_parser("bench-kernels",
+                        help="per-kernel times against the HBM speed of "
+                             "light (needs a CUDA card)")
+    pk.add_argument("--n", type=int, default=1 << 24)
+    pk.set_defaults(fn=_cmd_bench_kernels)
 
     pi = sub.add_parser("info", help="device + config report")
     pi.add_argument("--device", type=str, default="cuda")

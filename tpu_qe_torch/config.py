@@ -10,7 +10,7 @@ import torch
 
 from tpu_qe_torch import constants
 
-BACKENDS = ("radix", "torch")
+BACKENDS = ("radix", "torch", "torch_tiebreak")
 
 
 def _env(name: str, default, cast):

@@ -33,6 +33,9 @@ LAUNCHES = {
     "exclusive_scan": 0,
     "block_rank_and_histogram": 0,
     "rank_and_scatter": 0,
+    "encode_quantized_lut": 0,
+    "sort_chunks": 0,
+    "block_rank_and_histogram_mxu": 0,
 }
 
 _lock = threading.Lock()
@@ -81,6 +84,15 @@ def library() -> ctypes.CDLL:
         lib.tq_exclusive_scan_scratch.restype = i64
         lib.tq_exclusive_scan.argtypes = [p, p, p, i64, i, p]
         lib.tq_exclusive_scan.restype = i
+        lib.tq_morton_encode_lut.argtypes = [p, p, p, p, i64, i, p, p, i, p]
+        lib.tq_morton_encode_lut.restype = i
+        lib.tq_sort_chunks.argtypes = [p, p, i, i64, i64, i, p]
+        lib.tq_sort_chunks.restype = i
+        lib.tq_sort_chunks_tile.argtypes = [i64, i, i]
+        lib.tq_sort_chunks_tile.restype = i64
+        lib.tq_block_rank_and_histogram_mxu.argtypes = [p, p, i64, i64, i, p,
+                                                        p, i, p]
+        lib.tq_block_rank_and_histogram_mxu.restype = i
         _lib = lib
         return lib
 

@@ -1,11 +1,14 @@
-"""Extended-morton encoding (plain PyTorch).
+"""Extended-morton encoding.
 
 Per triangle: gather the 3 vertices, take the AABB, quantize the centroid
 to 20-bit cells and the AABB diagonal to a 12-bit size index, then build the
 64-bit extended-morton key, either by direct bit interleave (the default,
-as in the JAX main path) or through the reference's LUTs (9 groups x 256
-bytes + a 4096-entry size LUT), with the shipped kernel's i*3 byte shift
-when ``quirk_shift`` is set.
+as in the JAX main path; plain torch) or through the reference's LUTs (9
+groups x 256 bytes + the size bits), with the shipped kernel's i*3 byte
+shift when ``quirk_shift`` is set. For CUDA tensors the LUT path runs the
+B4 kernel (tpu_qe_torch.kernels.morton); for CPU tensors it is plain torch
+with the 4096-entry size LUT. Columnar points (``encode_points``) skip the
+vertex gathers.
 
 Float order must round like the -ffp-contract=off C++ oracle. Eager
 PyTorch runs every op as its own kernel with its result stored in float32,
@@ -23,6 +26,7 @@ import torch
 from tpu_qe_torch import native
 from tpu_qe_torch.bits import U64, as_i32, narrow
 from tpu_qe_torch.constants import COORD_BITS, SIZE_BITS, SIZE_INDEX_BITS
+from tpu_qe_torch.kernels import morton as morton_kernel
 
 _COORD_MAX = (1 << COORD_BITS) - 1
 _SIZE_INDEX_MAX = (1 << SIZE_INDEX_BITS) - 1
@@ -151,8 +155,13 @@ def encode_quantized_lut(q: torch.Tensor, j: torch.Tensor,
 
     quirk_shift=False reads byte `level` of each coordinate (shift 8*level,
     the layout the 9-group LUT implies); quirk_shift=True uses the shipped
-    reference kernel's 3*level shift, whose byte windows overlap.
+    reference kernel's 3*level shift, whose byte windows overlap. CUDA
+    tensors go through the B4 kernel.
     """
+    if q.is_cuda:
+        return morton_kernel.encode_quantized_lut(
+            q.contiguous(), j.contiguous(), params.lut_lo, params.lut_hi,
+            quirk_shift=quirk_shift)
     lo = torch.zeros(q.shape[0], dtype=torch.int32, device=q.device)
     hi = torch.zeros_like(lo)
     step = 3 if quirk_shift else 8
@@ -174,4 +183,35 @@ def encode(verts: torch.Tensor, tris: torch.Tensor, params: MortonParams,
     q, j = quantize(verts, tris, params)
     if use_lut or quirk_lut:
         return encode_quantized_lut(q, j, params, quirk_shift=quirk_lut)
+    return encode_quantized(q, j)
+
+
+def quantize_points(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor,
+                    size: torch.Tensor | None,
+                    params: MortonParams) -> tuple[torch.Tensor, torch.Tensor]:
+    """Quantize columnar points (no vertex gathers).
+
+    The float op order of ``quantize`` with the point itself as the
+    centroid and ``size`` as the AABB diagonal length (0 when None).
+    Returns (q (n, 3) int32, j (n,) int32).
+    """
+    c = torch.stack([x, y, z], dim=-1)
+    eps = torch.tensor(0.001, dtype=torch.float32, device=c.device)
+    prod = (c - params.offset) * params.multiplier
+    val = prod - eps
+    q = torch.clamp(val, 0.0, float(_COORD_MAX)).to(torch.int32)
+    if size is None:
+        j = torch.zeros(x.shape[0], dtype=torch.int32, device=c.device)
+    else:
+        j = torch.clamp(size * params.size_multiplier, 0.0,
+                        float(_SIZE_INDEX_MAX)).to(torch.int32)
+    return q, j
+
+
+def encode_points(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor,
+                  params: MortonParams,
+                  size: torch.Tensor | None = None) -> U64:
+    """Extended-morton keys of columnar points (f32 columns) by direct bit
+    interleave."""
+    q, j = quantize_points(x, y, z, size, params)
     return encode_quantized(q, j)

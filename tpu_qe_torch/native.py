@@ -56,6 +56,8 @@ def _load() -> ctypes.CDLL:
         lib.tq_morton_encode.restype = None
         lib.tq_morton_encode_quirk.argtypes = [voidp, f32p, u32p, u64, u64p]
         lib.tq_morton_encode_quirk.restype = None
+        lib.tq_morton_encode_direct.argtypes = [u32p, u64, u64p]
+        lib.tq_morton_encode_direct.restype = None
         lib.tq_lsd_sort.argtypes = [u64p, u32p, u64, u32, u32]
         lib.tq_lsd_sort.restype = None
         lib.tq_digit_major_histogram.argtypes = [u64p, u64, u32, u32, u32, u32p]
@@ -146,6 +148,20 @@ class MortonGen:
            _ptr(verts, ctypes.c_float), _ptr(tris, ctypes.c_uint32), n,
            _ptr(codes, ctypes.c_uint64))
         return codes
+
+
+def morton_encode_direct(q: np.ndarray) -> np.ndarray:
+    """LUT-free bit-interleave encoding of quantized (qx, qy, qz, j) rows
+    ((T, 4) u32) into u64 codes."""
+    lib = _load()
+    q = np.ascontiguousarray(q, dtype=np.uint32)
+    if q.ndim != 2 or q.shape[1] != 4:
+        raise ValueError(f"expected (T, 4) rows, got {q.shape}")
+    n = q.shape[0]
+    codes = np.empty(n, dtype=np.uint64)
+    lib.tq_morton_encode_direct(_ptr(q, ctypes.c_uint32), n,
+                                _ptr(codes, ctypes.c_uint64))
+    return codes
 
 
 def lsd_sort(keys: np.ndarray, payload: np.ndarray | None = None,

@@ -10,6 +10,11 @@ Backends:
 - ``torch``: ``torch.sort`` on an int64 key whose top bit is flipped, so
   signed order equals unsigned order (morton codes set bit 63). The
   counterpart of the JAX ``xla`` baseline.
+- ``torch_tiebreak``: the name of the JAX ``xla_tiebreak`` backend, kept
+  for parity; it runs the stable ``torch`` path. The JAX backend orders by
+  (key, payloads[0]) and is meant for payloads[0] = ``arange(n)`` (the
+  flagship (morton code, triangle index) shape), where that order is the
+  stable order; a stable sort gives it without the extra key.
 
 A ragged tail needs no padding: the kernels mask it, which gives the same
 result as the JAX driver's all-ones sentinel padding (sentinels take the
@@ -64,12 +69,13 @@ def sort_u64(key: U64, *payloads: torch.Tensor, key_bits: int = 64,
     Sorts by the low `key_bits` bits of the key; the keys keep their high
     bits. Returns (U64, payloads tuple); inputs are not modified.
     `stable=False` lets the torch backend use an unstable sort; the radix
-    backend is always stable.
+    backend is always stable, and so is ``torch_tiebreak``.
     """
     lo, hi = key
     planes = pack_columns(payloads)
-    if backend == "torch":
-        slo, shi, spl = _sort_torch(lo, hi, planes, key_bits, stable)
+    if backend in ("torch", "torch_tiebreak"):
+        slo, shi, spl = _sort_torch(lo, hi, planes, key_bits,
+                                    stable or backend == "torch_tiebreak")
     elif backend == "radix":
         slo, shi, spl = _sort_radix(lo, hi, planes, key_bits, bits_per_pass,
                                     block)
