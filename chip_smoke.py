@@ -10,18 +10,23 @@ Run from the root of the repository on a machine with a CUDA card. Phases:
 3. radix kernels: B1 (block histogram), B2 (exclusive scan) and B3 (stable
    rank, and rank + scatter) on the card, bit-exact against their plain
    PyTorch twins on the same card and against the C++ oracles, at 2^22 and
-   2^22 + 777 keys over several digit positions and a skewed input; then
-   each kernel's time beside its twin's at the main path's shapes, on
-   outputs that are compared again;
+   2^22 + 777 keys over several digit positions of 1..8 bits and of 11 and
+   16 bits, random and skewed inputs, and a lone key plane passed as both
+   words (as sort_planes passes it) at 1- and 8-bit digits; then each
+   kernel's time beside its twin's at the main path's shapes (8-bit
+   digits, and B1/B3 at 11 and 16 bits), on outputs that are compared
+   again; then B1, B2 and B3's scatter against their twins at the
+   operators' sizes, 2^28 and 2 x 10^8 keys, at an 8-bit digit and at a
+   1-bit digit of a lone plane;
 4. B4 (morton LUT encode; quirk on and off, ragged n),
    B5 (bitonic chunk sort; rows 8 and 64 and a chunk wider than shared
    memory, heavy ties, 0, 1 and 3 payloads) and B6 (tensor-core rank;
    random and skewed digits, blocks 1024, 2048 and 4096), bit-exact against
    their twins and oracles; then each kernel's time beside its twin's, on
    outputs that are compared again;
-5. main path: `verify` at 2^24 triangles for the 8x8-bit and the 6x11-bit
-   schedules, bit-exact against the C++ pipeline oracle, with the kernel
-   launch counts of the run;
+5. main path: `verify` at 2^24 triangles for the 8x8-bit, 6x11-bit and
+   11x6-bit schedules, bit-exact against the C++ pipeline oracle, with the
+   kernel launch counts of each run;
 6. LUT encode path: `morton.encode(use_lut=True)` and `(quirk_lut=True)`
    on the verify scene (2^24 triangles), bit-exact against the C++ encoder,
    with B4's launches counted;
@@ -29,7 +34,13 @@ Run from the root of the repository on a machine with a CUDA card. Phases:
    B5's and B6's launches are counted there;
 8. bench-kernels at 2^24: one JSON row per kernel;
 9. headline: 2^26 random u64 keys + u32 payload sorted by the radix kernels,
-   bit-exact against a stable torch.sort, with both CUDA-event times.
+   bit-exact against a stable torch.sort, with both CUDA-event times;
+10. operators: `bench-matrix` through the CLI at full size for filter_agg
+   (2^28 rows), join and join_agg (100M x 100M), and smaller for orderby,
+   count_distinct, setop and pipeline: each config bit-exact between the
+   radix and torch backends and holding its invariants, B1, B2 and B3
+   launched once per pass that the sort driver recorded; then
+   filter + GROUP BY and the join at 2^24 rows bit-exact against numpy.
 
 Then it prints the kernel summary as one JSON line, the nvidia-smi line, and
 last the result line. Any failure exits nonzero; without CUDA, or outside
@@ -38,6 +49,8 @@ the repository, it exits nonzero before printing a result.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import subprocess
 import sys
@@ -92,7 +105,7 @@ def main() -> int:
 
     # -- 1. device
     smi = nvidia_smi_line()
-    log(f"[1/9] device: {smi}; torch {torch.__version__}, "
+    log(f"[1/10] device: {smi}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.device_count()} card(s)")
 
     # -- 2. build
@@ -101,7 +114,7 @@ def main() -> int:
     t1 = time.perf_counter()
     native.pipeline_oracle(10, 10, 7)
     t2 = time.perf_counter()
-    log(f"[2/9] build: CUDA kernels {t1 - t0:.1f} s, C++ core {t2 - t1:.1f} s")
+    log(f"[2/10] build: CUDA kernels {t1 - t0:.1f} s, C++ core {t2 - t1:.1f} s")
 
     # -- 3. kernels against their twins and the C++ oracles
     err = {name: 0 for name in kernels.LAUNCHES}
@@ -135,28 +148,42 @@ def main() -> int:
     rng = np.random.default_rng(7)
     u64 = np.uint64
     digits = [(0, 8), (24, 8), (32, 8), (56, 8), (30, 6), (60, 4)]
+    wide = [(0, 11), (22, 11), (53, 11), (0, 16), (16, 16), (48, 16)]
+
+    def skewed(keys, shift, bits):    # every key has the same digit
+        mask = u64(((1 << bits) - 1) << shift)
+        return (keys & ~mask) | ((u64(0x5A5A) << u64(shift)) & mask)
+
     for n in (1 << 22, (1 << 22) + 777):
         rand = rng.integers(0, 1 << 64, size=n, dtype=np.uint64)
-        skew = (rand & ~u64(0xFF)) | u64(0x5A)   # every key has digit 0x5A
-        for label, keys, cases in (("random", rand, digits),
-                                   ("skewed", skew, [(0, 8)])):
+        runs = [("random", rand, digits + wide),
+                ("skewed", skewed(rand, 0, 8), [(0, 8)])]
+        runs += [("skewed", skewed(rand, sh, b), [(sh, b)])
+                 for sh, b in ((22, 11), (48, 16))]
+        # hi is lo: sort_planes' key of one plane (its u64 is lo | lo << 32)
+        runs.append(("lone plane", (rand & u64(0xFFFFFFFF))
+                     * u64(0x100000001), [(0, 1), (24, 8)]))
+        for label, keys, cases in runs:
             key = U64.from_numpy(keys, dev)
+            lo, hi = key.lo, key.lo if label == "lone plane" else key.hi
             nb = -(-n // BLOCK)
             for shift, bits in cases:
                 radix, p = 1 << bits, shift // bits
-                hist = hk.block_histogram(key.lo, key.hi, shift, bits)
+                aligned = shift % bits == 0   # the C++ oracles take p * bits
+                hist = hk.block_histogram(lo, hi, shift, bits)
                 compare("block_histogram", hist,
-                        hk.block_histogram_plain(key.lo, key.hi, shift, bits),
-                        native.digit_major_histogram(keys, p, bits, BLOCK))
+                        hk.block_histogram_plain(lo, hi, shift, bits),
+                        *([native.digit_major_histogram(keys, p, bits, BLOCK)]
+                          if aligned else []))
 
-                ranks, hist2 = hk.block_rank_and_histogram(key.lo, key.hi,
-                                                           shift, bits)
+                ranks, hist2 = hk.block_rank_and_histogram(lo, hi, shift,
+                                                           bits)
                 d = ((keys >> u64(shift)) & u64(radix - 1)).astype(np.int64)
                 blk = np.arange(n, dtype=np.int64) // BLOCK
                 want = native.block_rank((blk * radix + d).astype(np.uint32),
                                          nb * radix)
-                pr, ph = hk.block_rank_and_histogram_plain(key.lo, key.hi,
-                                                           shift, bits)
+                pr, ph = hk.block_rank_and_histogram_plain(lo, hi, shift,
+                                                           bits)
                 compare("block_rank_and_histogram", ranks, pr, want)
                 compare("block_rank_and_histogram", hist2, ph, hist)
 
@@ -167,18 +194,19 @@ def main() -> int:
                         (np.cumsum(h64) - h64) & u64(0xFFFFFFFF))
 
                 pay = torch.arange(n, dtype=torch.int32, device=dev)
-                olo, ohi, (opay,) = hk.rank_and_scatter(key.lo, key.hi, [pay],
-                                                        base, shift, bits)
+                olo, ohi, (opay,) = hk.rank_and_scatter(lo, hi, [pay], base,
+                                                        shift, bits)
                 plo, phi, (ppay,) = hk.rank_and_scatter_plain(
-                    key.lo, key.hi, [pay], base, shift, bits)
+                    lo, hi, [pay], base, shift, bits)
                 compare("rank_and_scatter", olo, plo)
                 compare("rank_and_scatter", ohi, phi)
                 compare("rank_and_scatter", opay, ppay)
                 dest = torch.empty(n, dtype=torch.int64, device=dev)
                 dest[opay.to(torch.int64)] = torch.arange(n, device=dev)
-                compare("rank_and_scatter", dest,
-                        native.scatter_locations(keys, p, bits, BLOCK).astype(
-                            np.int64))
+                compare("rank_and_scatter", dest, *(
+                    [native.scatter_locations(keys, p, bits, BLOCK).astype(
+                        np.int64)] if aligned else [
+                        np.argsort(np.argsort(d, kind="stable"))]))
                 log(f"      n={n} {label} shift={shift} bits={bits}: "
                     "B1, B2, B3 (rank, scatter) bit-exact")
     # u32 wrap-around in the scan
@@ -190,7 +218,7 @@ def main() -> int:
                 (np.cumsum(x) - x) & u64(0xFFFFFFFF))
         log(f"      n={n} exclusive_scan with u32 wrap-around: bit-exact")
     torch.cuda.synchronize()
-    log("[3/9] radix kernels bit-exact against twins and C++ oracles; "
+    log("[3/10] radix kernels bit-exact against twins and C++ oracles; "
         "max_abs_err " + json.dumps({k: err[k] for k in (
             "block_histogram", "exclusive_scan", "block_rank_and_histogram",
             "rank_and_scatter")}))
@@ -226,7 +254,61 @@ def main() -> int:
         ms[name] = (min(k1, k2) * 1e3, p1 * 1e3)
         log(f"      {name}: kernel {ms[name][0]:.4f} ms, plain twin "
             f"{ms[name][1]:.4f} ms (2^24 keys, 8-bit digit, block {BLOCK})")
-    del key, pay, hist, flat, base
+    wide_ms = {}
+    for bits in (11, 16):
+        hist = hk.block_histogram(key.lo, key.hi, 0, bits)
+        base = sk.exclusive_scan(hist.reshape(-1))
+        timed = {
+            "block_histogram": (
+                lambda: hk.block_histogram(key.lo, key.hi, 0, bits),
+                lambda: hk.block_histogram_plain(key.lo, key.hi, 0, bits)),
+            "block_rank_and_histogram": (
+                lambda: hk.block_rank_and_histogram(key.lo, key.hi, 0, bits),
+                lambda: hk.block_rank_and_histogram_plain(key.lo, key.hi, 0,
+                                                          bits)),
+            "rank_and_scatter": (
+                lambda: hk.rank_and_scatter(key.lo, key.hi, [pay], base, 0,
+                                            bits),
+                lambda: hk.rank_and_scatter_plain(key.lo, key.hi, [pay],
+                                                  base, 0, bits)),
+        }
+        for name, (kern, plain) in timed.items():
+            compare_outputs(name, kern, plain)
+            k1 = cuda_time(kern, iters=10)
+            p1 = cuda_time(plain, iters=3, warmup=1)
+            wide_ms[(name, bits)] = (k1 * 1e3, p1 * 1e3)
+            log(f"      {name}: kernel {k1 * 1e3:.4f} ms, plain twin "
+                f"{p1 * 1e3:.4f} ms (2^24 keys, {bits}-bit digit, "
+                f"block {BLOCK})")
+    del key, lo, hi, pay, hist, flat, base
+
+    # The operators' sizes: filter_agg sorts 2^28 rows, its last pass a
+    # 1-bit digit of a lone flag plane; the joins sort 2 x 10^8 rows.
+    from tpu_qe_torch.bench.matrix import rand_u32
+    for n in (1 << 28, 200_000_000):
+        g = torch.Generator(device=dev).manual_seed(n)
+        lo, hi = rand_u32(n, g, dev), rand_u32(n, g, dev)
+        pay = torch.arange(n, dtype=torch.int32, device=dev)
+        for shift, bits, pair in ((0, 8, (lo, hi)), (0, 1, (lo, lo))):
+            hist = hk.block_histogram(*pair, shift, bits)
+            compare("block_histogram", hist,
+                    hk.block_histogram_plain(*pair, shift, bits))
+            flat = hist.reshape(-1)
+            compare_outputs("exclusive_scan",
+                            lambda: sk.exclusive_scan(flat),
+                            lambda: sk.exclusive_scan_plain(flat))
+            base = sk.exclusive_scan(flat)
+            compare_outputs(
+                "rank_and_scatter",
+                lambda: hk.rank_and_scatter(*pair, [pay], base, shift, bits),
+                lambda: hk.rank_and_scatter_plain(*pair, [pay], base, shift,
+                                                  bits))
+            log(f"      n={n} shift={shift} bits={bits}"
+                f"{' lone plane' if bits == 1 else ''}: B1, B2, B3 scatter "
+                "bit-exact against their twins")
+            del hist, flat, base
+        del lo, hi, pay
+        torch.cuda.empty_cache()
 
     # -- 4. B4, B5 and B6 against their twins and oracles
     def planes(a: np.ndarray) -> torch.Tensor:
@@ -333,7 +415,7 @@ def main() -> int:
                 log(f"      n={n} {label} block={block} shift={shift}: "
                     "B6 bit-exact against twin, B3 and the C++ rank")
     torch.cuda.synchronize()
-    log("[4/9] B4, B5, B6 bit-exact against twins and oracles; max_abs_err "
+    log("[4/10] B4, B5, B6 bit-exact against twins and oracles; max_abs_err "
         + json.dumps({k: err[k] for k in ("encode_quantized_lut",
                                           "sort_chunks",
                                           "block_rank_and_histogram_mxu")}))
@@ -374,7 +456,9 @@ def main() -> int:
     # -- 5. main path
     launches = None
     for extra, passes in (([], 8), (["--bits-per-pass", "6",
-                                     "--num-passes", "11"], 11)):
+                                     "--num-passes", "11"], 11),
+                          (["--bits-per-pass", "11", "--num-passes", "6"],
+                           6)):
         kernels.reset_launches()
         t0 = time.perf_counter()
         rc = cli(["verify", "--triangles", "16777216", "--vertices",
@@ -391,7 +475,8 @@ def main() -> int:
                      f"pass ({passes})")
         if launches is None:
             launches = counts
-    log("[5/9] main path: VERIFY PASS at 2^24 triangles for 8x8 and 6x11")
+    log("[5/10] main path: VERIFY PASS at 2^24 triangles for 8x8, 6x11 "
+        "and 11x6")
 
     # -- 6. LUT encode path on the verify scene: B4 through morton.encode
     verts, tris, smin, smax = native.scene_generate(4194304, 16777216, 7)
@@ -418,7 +503,7 @@ def main() -> int:
     t_direct = cuda_time(lambda: morton.encode(verts_t, tris_t, params),
                          iters=5)
     del verts, tris, verts_t, tris_t, code
-    log(f"[6/9] LUT encode path: B4 bit-exact on the verify scene; encode "
+    log(f"[6/10] LUT encode path: B4 bit-exact on the verify scene; encode "
         f"(quantize + B4) {t_lut * 1e3:.4f} ms, plain direct encode "
         f"{t_direct * 1e3:.4f} ms at 2^24 triangles")
 
@@ -435,7 +520,7 @@ def main() -> int:
             fail(f"selfcheck never launched {name}")
     for name in ("sort_chunks", "block_rank_and_histogram_mxu"):
         launches[name] = counts[name]
-    log("[7/9] selfcheck: SELFCHECK PASS")
+    log("[7/10] selfcheck: SELFCHECK PASS")
 
     # -- 8. per-kernel bench
     kernels.reset_launches()
@@ -447,16 +532,93 @@ def main() -> int:
                  "block_rank_and_histogram"):
         if counts[name] < 1:
             fail(f"bench-kernels never launched {name}")
-    log(f"[8/9] bench-kernels at 2^24: launches {counts}")
+    log(f"[8/10] bench-kernels at 2^24: launches {counts}")
 
     # -- 9. headline sort
     res = headline.measure(1 << 26, seed=7, iters=10, device="cuda")
     log(f"      {json.dumps(res)}")
     if not res["verified"]:
         fail("radix sort of 2^26 keys differs from stable torch.sort")
-    log(f"[9/9] headline: radix {res['time_s'] * 1e3:.3f} ms, torch.sort "
+    log(f"[9/10] headline: radix {res['time_s'] * 1e3:.3f} ms, torch.sort "
         f"{res['torch_sort_time_s'] * 1e3:.3f} ms for 2^26 keys + payload; "
         "bit-exact")
+
+    # -- 10. operators: bench-matrix through the CLI, then a numpy oracle
+    t0 = time.perf_counter()
+    op_launches = {name: 0 for name in kernels.LAUNCHES}
+    for configs, scale in (("filter_agg", "1.0"), ("join", "1.0"),
+                           ("join_agg", "1.0"), ("orderby", "0.25"),
+                           ("count_distinct", "0.25"), ("setop", "0.25"),
+                           ("pipeline", "0.25")):
+        kernels.reset_launches()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli(["bench-matrix", "--configs", configs, "--scale",
+                      scale])
+        torch.cuda.synchronize()
+        counts = dict(kernels.LAUNCHES)
+        rows = [json.loads(line) for line in buf.getvalue().splitlines()
+                if line.startswith("{")]
+        for row in rows:
+            log(f"      {json.dumps(row)}")
+        if rc != 0 or not rows:
+            fail(f"bench-matrix {configs}: rc {rc}, {len(rows)} rows")
+        planned = sum(r["sort_passes"] * r["radix_runs"] for r in rows)
+        for name in ("block_histogram", "exclusive_scan", "rank_and_scatter"):
+            if counts[name] != planned:
+                fail(f"bench-matrix {configs}: {name} launched "
+                     f"{counts[name]} times, the sorts planned {planned} "
+                     "passes")
+        for name in op_launches:
+            op_launches[name] += counts[name]
+        log(f"      {configs} (scale {scale}): radix and torch backends "
+            f"bit-exact, invariants hold; launches {counts} = planned "
+            f"passes {planned}")
+    for name in ("block_histogram", "exclusive_scan", "rank_and_scatter"):
+        launches[name] += op_launches[name]
+
+    # numpy oracle at 2^24 rows: filter + GROUP BY, and the FK join
+    from tpu_qe_torch.bench import matrix
+
+    def host(t):
+        return t.cpu().numpy()
+
+    n = 1 << 24
+    data = matrix.filter_agg_data(n, dev)
+    res, _ = matrix.filter_agg_op(data, "radix")
+    keys = data["key"].to_numpy()
+    val = host(data["val"].view(torch.int32)).view(np.uint32)
+    sel = val < (1 << 30)
+    order = np.argsort(keys[sel], kind="stable")
+    sk_, sv = keys[sel][order], val[sel][order].astype(np.uint64)
+    starts = np.flatnonzero(np.r_[True, sk_[1:] != sk_[:-1]])
+    ng = int(res.num_groups)
+    if ng != len(starts):
+        fail(f"filter_agg oracle: {ng} groups, numpy {len(starts)}")
+    checks = {
+        "keys": np.array_equal(res.key.to_numpy()[:ng], sk_[starts]),
+        "counts": np.array_equal(host(res.aggs["count"])[:ng],
+                                 np.diff(np.r_[starts, len(sk_)])),
+        "sums": np.array_equal(res.aggs["sum"].to_numpy()[:ng],
+                               np.add.reduceat(sv, starts)),
+    }
+    jd = matrix.join_data(n, dev)
+    out, matched = matrix.join_op(jd, "radix")
+    rkeys, lkeys = jd["rkey"].to_numpy(), jd["lkey"].to_numpy()
+    rval = host(jd["rval"].view(torch.int32)).view(np.uint32)
+    rorder = np.argsort(rkeys, kind="stable")
+    pos = np.minimum(np.searchsorted(rkeys[rorder], lkeys), n - 1)
+    hit = rkeys[rorder][pos] == lkeys
+    checks["join_matched"] = np.array_equal(host(matched), hit)
+    checks["join_values"] = np.array_equal(
+        host(out["rval"].view(torch.int32)).view(np.uint32),
+        np.where(hit, rval[rorder][pos], 0))
+    if not all(checks.values()):
+        fail(f"operators differ from the numpy oracle at 2^24 rows: {checks}")
+    del data, res, jd, out, matched
+    log(f"[10/10] operators: bench-matrix bit-exact across backends at full "
+        f"size, launches as planned; numpy oracle at 2^24 rows "
+        f"{json.dumps(checks)}; {time.perf_counter() - t0:.1f} s")
 
     src = "tpu_qe_torch/csrc/"
     summary = [

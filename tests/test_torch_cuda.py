@@ -9,6 +9,8 @@ On a machine with the card (which need not have JAX):
 This file imports nothing of JAX or tpu_qe.
 """
 
+import json
+
 import numpy as np
 import pytest
 
@@ -23,6 +25,10 @@ from tpu_qe_torch.kernels import morton as mk  # noqa: E402
 from tpu_qe_torch.kernels import rank_mxu as rk  # noqa: E402
 from tpu_qe_torch.kernels import scan as sk  # noqa: E402
 from tpu_qe_torch.sort import sort_u64, sort_u64_numpy  # noqa: E402
+from tpu_qe_torch.ops import aggregate as tagg  # noqa: E402
+from tpu_qe_torch.ops import join as tjoin  # noqa: E402
+from tpu_qe_torch.sort import planes as sp  # noqa: E402
+from tpu_qe_torch.table import Table  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -118,7 +124,9 @@ def test_each_wrapper_counts_its_launches(cuda):
 def test_kernel_limits_raise(cuda):
     k = U64.from_numpy(_keys(100, 2), cuda)
     with pytest.raises(ValueError):
-        hk.block_histogram(k.lo, k.hi, 0, 9)   # the twin takes 16 bits
+        hk.block_histogram(k.lo, k.hi, 0, 17)  # digits take 1..16 bits
+    with pytest.raises(ValueError):            # u16 counters of wide digits
+        hk.block_histogram(k.lo, k.hi, 0, 9, block=1 << 16)
     hist = hk.block_histogram(k.lo, k.hi, 0, 8)
     base = sk.exclusive_scan(hist.reshape(-1))
     with pytest.raises(ValueError):
@@ -314,3 +322,175 @@ def test_selfcheck_and_bench_kernels_on_the_card(cuda, capsys):
                  "morton_direct_plain", "block_histogram_r256",
                  "block_rank_r256", "bitonic_chunk8192"):
         assert f'"kernel {name}"' in out
+
+
+WIDE_DIGITS = [(0, 11), (22, 11), (53, 11), (0, 16), (16, 16), (48, 16),
+               (25, 9), (30, 13)]
+
+
+@pytest.mark.parametrize("n", [1, 4097, 100_003])
+@pytest.mark.parametrize("shift,bits", WIDE_DIGITS)
+def test_wide_digit_kernels_match_twins_and_native(cuda, shift, bits, n):
+    rng = np.random.default_rng(n + bits)
+    rand = rng.integers(0, 1 << 64, n, dtype=np.uint64)
+    mask = np.uint64(((1 << bits) - 1) << shift)
+    skew = (rand & ~mask) | (np.uint64(0x5A5A) << np.uint64(shift)) & mask
+    block = 4096
+    nb = -(-n // block)
+    for keys in (rand, skew):
+        k = U64.from_numpy(keys, cuda)
+        hist = hk.block_histogram(k.lo, k.hi, shift, bits, block)
+        _same(hist, hk.block_histogram_plain(k.lo, k.hi, shift, bits, block))
+        if shift % bits == 0:
+            np.testing.assert_array_equal(
+                hist.cpu().numpy().view(np.uint32),
+                native.digit_major_histogram(keys, shift // bits, bits,
+                                             block))
+        ranks, hist2 = hk.block_rank_and_histogram(k.lo, k.hi, shift, bits,
+                                                   block)
+        radix = 1 << bits
+        d = ((keys >> np.uint64(shift)) & np.uint64(radix - 1)).astype(
+            np.int64)
+        blk = np.arange(n, dtype=np.int64) // block
+        np.testing.assert_array_equal(
+            ranks.cpu().numpy().view(np.uint32),
+            native.block_rank((blk * radix + d).astype(np.uint32),
+                              nb * radix))
+        _same(hist2, hist)
+        base = sk.exclusive_scan(hist.reshape(-1))
+        pay = torch.arange(n, dtype=torch.int32, device=cuda)
+        got = hk.rank_and_scatter(k.lo, k.hi, [pay, pay * 3], base, shift,
+                                  bits, block)
+        want = hk.rank_and_scatter_plain(k.lo, k.hi, [pay, pay * 3], base,
+                                         shift, bits, block)
+        for g, w in zip(got[:2] + tuple(got[2]), want[:2] + tuple(want[2])):
+            _same(g, w)
+        order = np.argsort(d, kind="stable")
+        np.testing.assert_array_equal(got[2][0].cpu().numpy(), order)
+
+
+def test_verify_with_11_bit_digits_on_the_card(cuda, capsys):
+    kernels.reset_launches()
+    assert main(["verify", "--triangles", "300000", "--vertices", "100000",
+                 "--bits-per-pass", "11", "--num-passes", "6",
+                 "--device", "cuda"]) == 0
+    assert capsys.readouterr().out.strip().endswith("VERIFY PASS")
+    for name in ("block_histogram", "exclusive_scan", "rank_and_scatter"):
+        assert kernels.LAUNCHES[name] == 6
+
+
+@pytest.mark.parametrize("key_bits", [[32], [1, 32, 32], [32, 32, 2],
+                                      [2, 32, 32, 32], [7, 32, 1, 32, 16],
+                                      [32] * 6])
+def test_sort_planes_radix_matches_torch_backend(cuda, key_bits):
+    rng = np.random.default_rng(len(key_bits))
+    n = 300_007
+    planes = [_u32_tensor(rng.integers(0, 1 << b, n, dtype=np.uint64)
+                          .astype(np.uint32), cuda) for b in key_bits]
+    planes[0] = planes[0] & 0x3                   # ties in the top key
+    planes.append(torch.arange(n, dtype=torch.int32, device=cuda))
+    kernels.reset_launches()
+    got = sp.sort_planes(planes, len(key_bits), key_bits)
+    passes = sp.num_passes(len(key_bits), key_bits)
+    for name in ("block_histogram", "exclusive_scan", "rank_and_scatter"):
+        assert kernels.LAUNCHES[name] == passes
+    want = sp.sort_planes(planes, len(key_bits), key_bits, backend="torch")
+    for g, w in zip(got, want):
+        _same(g, w)
+
+
+def _op_tables(dev, n=20_000, seed=0):
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(0, n // 8, n).astype(np.uint64) * np.uint64(
+        0x9E3779B97F4A7C15)
+    cols = {"key": keys,
+            "u": rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(
+                np.uint32),
+            "i": rng.integers(-(1 << 31), 1 << 31, n).astype(np.int32),
+            "f": rng.standard_normal(n).astype(np.float32)}
+    right = {"key": np.unique(keys[: n // 2]),
+             "r": np.arange(len(np.unique(keys[: n // 2])), dtype=np.uint32)}
+    return Table.from_numpy(cols, dev), Table.from_numpy(right, dev)
+
+
+def _flat(x):
+    if isinstance(x, torch.Tensor):
+        return [x.view(torch.int32) if x.dtype in (torch.uint32,
+                                                   torch.float32) else x]
+    if isinstance(x, Table):
+        return [t for nm in x for t in _flat(x[nm])]
+    if isinstance(x, dict):
+        return [t for k in sorted(x) for t in _flat(x[k])]
+    if x is None:
+        return []
+    return [t for v in x for t in _flat(v)]
+
+
+OPERATORS = {
+    "group_aggregate": lambda t, r, b: t.group_by(
+        "key", "u", ("count", "sum", "min", "max", "count_distinct"),
+        backend=b),
+    "group_aggregate_valid_mean": lambda t, r, b: tagg.group_aggregate(
+        t["key"], t["f"], ("mean", "min"), valid=t["i"] > 0, backend=b),
+    "group_by_multi": lambda t, r, b: t.group_by_multi(
+        "key", {"u": ("count", "sum"), "i": ("sum", "max"), "f": ("min",)},
+        valid=t["i"] > -5, max_groups=1000, backend=b),
+    "distinct": lambda t, r, b: t.distinct(backend=b),
+    "sort_by": lambda t, r, b: t.sort_by("key", backend=b),
+    "order_by": lambda t, r, b: t.order_by([("f", "desc"), "i", "key"],
+                                           backend=b),
+    "top_k": lambda t, r, b: t.top_k(100, largest=True, backend=b),
+    "join": lambda t, r, b: t.join(r, backend=b),
+    "join_semi": lambda t, r, b: t.join_semi(r, backend=b),
+    "join_inner": lambda t, r, b: t.join_inner(r, backend=b),
+    "join_outer": lambda t, r, b: t.join_outer(r, how="full", backend=b),
+    "join_stream": lambda t, r, b: tjoin.join_fk_scan(
+        t.drop("key"), r.drop("key"), t["key"], r["key"],
+        l_valid=t["i"] > 0, output="stream", backend=b),
+    "join_inner_padded": lambda t, r, b: tjoin.join_inner_padded(
+        t.drop("key"), r.drop("key"), t["key"], r["key"], t["i"] > 0,
+        r["r"].view(torch.int32) % 3 > 0, 40_000, backend=b),
+    "set_op": lambda t, r, b: t.set_op(r, "except", backend=b),
+}
+
+
+@pytest.mark.parametrize("op", sorted(OPERATORS))
+def test_operator_radix_matches_torch_backend_without_torch_sort(
+        cuda, op, monkeypatch):
+    t, r = _op_tables(cuda)
+    want = _flat(OPERATORS[op](t, r, "torch"))
+
+    def no_sort(*a, **k):
+        raise AssertionError("torch.sort called on the radix path")
+
+    monkeypatch.setattr(torch, "sort", no_sort)
+    kernels.reset_launches()
+    got = _flat(OPERATORS[op](t, r, "radix"))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["rank_and_scatter"] > 0
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        _same(g, w)
+
+
+def test_bench_matrix_on_the_card(cuda, capsys):
+    assert main(["bench-matrix", "--scale", "0.001",
+                 "--configs", "filter_agg,join,join_agg,orderby,"
+                 "count_distinct,setop,pipeline"]) == 0
+    out = capsys.readouterr().out
+    assert out.count('"backend_parity": true') == 8
+
+
+def test_bench_matrix_profile_on_the_card(cuda, tmp_path, capsys):
+    assert main(["bench-matrix", "--scale", "0.001", "--configs",
+                 "filter_agg", "--trace-dir", str(tmp_path)]) == 0
+    rows = [json.loads(line) for line in capsys.readouterr().out.splitlines()
+            if line.startswith("{")]
+    prof = rows[0]["profile"]
+    assert (tmp_path / "filter_agg-0.json").exists()
+    assert 0 < prof["device_busy_ms"] <= prof["wall_ms"]
+    assert 0 <= prof["idle_share"] < 1
+    cats = prof["by_category_ms"]
+    for cat in ("B1 histogram", "B2 scan", "B3 rank+scatter"):
+        assert cats[cat] > 0
+    assert "sort (torch)" not in cats

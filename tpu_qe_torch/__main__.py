@@ -7,6 +7,9 @@
   bench    headline benchmark (tpu_qe_torch/bench/headline.py)
   bench-kernels  one JSON row per kernel against the card's HBM
            speed of light (tpu_qe_torch/bench/kernels.py)
+  bench-matrix   the operator configs (filter + GROUP BY, joins, ORDER
+           BY, ...), radix backend beside torch.sort, one JSON row each
+           (tpu_qe_torch/bench/matrix.py)
   info     device + configuration report
 
 The on-card self-check of every kernel and sort backend against its
@@ -114,6 +117,12 @@ def _cmd_bench_kernels(args) -> int:
     return 0
 
 
+def _cmd_bench_matrix(args) -> int:
+    from tpu_qe_torch.bench import matrix
+    return matrix.main(args.configs.split(","), args.scale, args.device,
+                       args.trace_dir)
+
+
 def _cmd_info(args) -> int:
     import torch
 
@@ -177,6 +186,24 @@ def main(argv=None) -> int:
                              "light (needs a CUDA card)")
     pk.add_argument("--n", type=int, default=1 << 24)
     pk.set_defaults(fn=_cmd_bench_kernels)
+
+    pm = sub.add_parser("bench-matrix",
+                        help="operator benchmark matrix, radix beside "
+                             "torch.sort, with backend parity and invariant "
+                             "checks (exit 1 if one fails)")
+    pm.add_argument("--configs", type=str,
+                    default="pipeline,filter_agg,join,join_agg",
+                    help="comma-separated: pipeline, filter_agg, join, "
+                         "join_agg, orderby, count_distinct, setop "
+                         "(window, quantile, dsort: not ported yet)")
+    pm.add_argument("--scale", type=float, default=1.0,
+                    help="row-count multiplier (e.g. 0.1 for smoke runs)")
+    pm.add_argument("--device", type=str, default="cuda")
+    pm.add_argument("--trace-dir", type=str, default=None,
+                    help="profile one more radix run per config: Chrome "
+                         "traces here, device time by kernel category in "
+                         "the rows")
+    pm.set_defaults(fn=_cmd_bench_matrix)
 
     pi = sub.add_parser("info", help="device + config report")
     pi.add_argument("--device", type=str, default="cuda")

@@ -1,4 +1,4 @@
-"""Speed-of-light model for the radix sort on the card.
+"""Speed-of-light model for the radix sort and the operators on the card.
 
 Bytes that must move per LSD pass over n keys, divided by the card's peak
 HBM bandwidth:
@@ -6,6 +6,13 @@ HBM bandwidth:
 the digit-major histogram is radix * n / block words and is left out. A
 fused single-kernel pass moves 2 * (8 + 4 * p) bytes per key; a split
 histogram + scatter pass (the port's B1 + B3) reads the keys once more.
+
+An operator's envelope (``operator_sol_seconds``) is the bytes of the
+radix passes its sorts ran, each pass moving its key words (4 B for a lone
+plane, else 8) and its payloads (for ``sort_planes``, the 4-byte row
+permutation) in and out, plus its scans, each reading and writing one
+4-byte plane per row. Gathers are left out. It is the port's own model on
+the card's bandwidth, not the JAX package's TPU sort model.
 """
 
 from __future__ import annotations
@@ -45,6 +52,24 @@ def sort_sol_seconds(n: int, num_passes: int, payload_cols: int = 1,
                      device_name: str | None = None) -> float:
     return (num_passes * sort_pass_bytes(n, payload_cols, key_bytes, fused)
             / hbm_peak_bytes_per_s(device_name))
+
+
+def scan_bytes(n: int, planes: int) -> int:
+    """Bytes of `planes` scans over n rows: one 4-byte plane read and one
+    written per row each."""
+    return 8 * n * planes
+
+
+def operator_sol_seconds(radix_passes, scans: int, n_scan: int,
+                         device_name: str | None = None) -> float:
+    """Envelope of an operator: `radix_passes` maps (rows, key bytes,
+    payload planes) to the LSD passes its radix sorts ran, as
+    sort.driver.RADIX_PASSES records them; `scans` is the number of
+    one-plane scans over `n_scan` rows."""
+    total = sum(passes * sort_pass_bytes(rows, pays, key_bytes)
+                for (rows, key_bytes, pays), passes in radix_passes.items())
+    total += scan_bytes(n_scan, scans)
+    return total / hbm_peak_bytes_per_s(device_name)
 
 
 def card() -> dict:

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 U32_MASK = 0xFFFFFFFF
+SIGN_BIT = -(1 << 31)       # bit 31 of an int32 plane
 
 
 def as_i32(x: np.ndarray) -> np.ndarray:
@@ -117,3 +118,42 @@ def pack_columns(cols: Sequence[torch.Tensor]) -> list[torch.Tensor]:
         else:
             raise TypeError(f"unsupported payload dtype {c.dtype}")
     return out
+
+
+def mul_lo32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x * c) mod 2^32 as int64 for int64 `x` holding u32 values and a
+    u32 constant `c`, exactly: the product is split into 16-bit halves of
+    `c`, so no intermediate leaves int64."""
+    lo_part = x * (c & 0xFFFF)                      # < 2^48
+    hi_part = ((x * (c >> 16)) & 0xFFFF) << 16      # < 2^32
+    return (lo_part + hi_part) & U32_MASK
+
+
+def sortable_u32(x: torch.Tensor) -> torch.Tensor:
+    """int32 plane whose UNSIGNED order is the value order of `x`.
+
+    IEEE total-order trick for float32 (set the sign bit of positives,
+    invert negatives), sign-bit flip for int32, identity for uint32; the
+    port of tpu_qe.bits.sortable_u32 on int32 bit-pattern planes. A
+    bijection (sortable_u32_inverse), so equality is preserved.
+    """
+    if x.dtype == torch.float32:
+        b = x.view(torch.int32)
+        return torch.where(b < 0, ~b, b ^ SIGN_BIT)
+    if x.dtype == torch.int32:
+        return x ^ SIGN_BIT
+    if x.dtype == torch.uint32:
+        return x.view(torch.int32)
+    raise TypeError(f"unsupported sort-key dtype {x.dtype}")
+
+
+def sortable_u32_inverse(b: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Inverse of sortable_u32: the column of `dtype` behind plane `b`."""
+    if dtype == torch.float32:
+        # bit 31 set (b < 0 as int32) marks an originally positive float
+        return torch.where(b < 0, b ^ SIGN_BIT, ~b).view(torch.float32)
+    if dtype == torch.int32:
+        return b ^ SIGN_BIT
+    if dtype == torch.uint32:
+        return b.view(torch.uint32)
+    raise TypeError(f"unsupported sort-key dtype {dtype}")

@@ -21,6 +21,16 @@
 // A ragged tail is masked (g < n), never padded: the result equals the
 // sentinel-padded JAX pipeline because all-ones sentinels take the largest
 // digit and sit after every real key of the last block.
+//
+// Digits of 1..8 bits take the kernels above the "wide digits" line; 9..16
+// bits (as the JAX kernels and SortConfig allow) take the wide kernels,
+// whose per-digit counters do not fit the 8-bit path's static tables: one
+// u16 counter per digit, two to a word, in dynamic shared memory (radix * 2
+// bytes, 128 KB at 16 bits). A block then holds at most 65535 keys, so no
+// counter carries into its neighbour. The wide rank drops the per-warp
+// table: the 8 warps of a tile take turns against the one running table,
+// and the scatter reads each key's (digit, block) base from global memory.
+// They are simple and right, not tuned.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -31,6 +41,8 @@ constexpr int kThreads = 256;             // 8 warps
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxRadix = 256;            // digits of 1..8 bits
 constexpr int kMaxPayloads = 8;
+constexpr int kMaxWideBits = 16;          // wide digits: 9..16 bits
+constexpr int64_t kMaxWideBlock = 65535;  // keys per block with u16 counters
 
 struct Planes {
   const uint32_t* in[kMaxPayloads];
@@ -172,6 +184,127 @@ inline int64_t num_blocks(int64_t n, int64_t block) {
   return (n + block - 1) / block;
 }
 
+// ---------------------------------------------------------------- wide digits
+
+__device__ __forceinline__ void add_u16(uint32_t* words, uint32_t d,
+                                        uint32_t v) {
+  atomicAdd(&words[d >> 1], v << ((d & 1u) * 16u));
+}
+
+__device__ __forceinline__ uint32_t get_u16(const uint32_t* words,
+                                            uint32_t d) {
+  return (words[d >> 1] >> ((d & 1u) * 16u)) & 0xFFFFu;
+}
+
+// B1 for 9..16-bit digits: u16 counters in dynamic shared memory.
+__global__ void __launch_bounds__(kThreads)
+histogram_wide_kernel(const uint32_t* __restrict__ lo,
+                      const uint32_t* __restrict__ hi, int64_t n,
+                      int64_t block, int64_t nb, int shift, int bits,
+                      uint32_t* __restrict__ hist) {
+  extern __shared__ uint32_t words[];
+  const int radix = 1 << bits;
+  const int64_t b = blockIdx.x;
+  for (int w = threadIdx.x; w < radix / 2; w += kThreads) words[w] = 0u;
+  __syncthreads();
+  const int64_t start = b * block;
+  const int64_t end = start + block < n ? start + block : n;
+  for (int64_t g = start + threadIdx.x; g < end; g += kThreads) {
+    add_u16(words, load_digit(lo, hi, g, shift, bits), 1u);
+  }
+  __syncthreads();
+  for (int d = threadIdx.x; d < radix; d += kThreads) {
+    hist[d * nb + b] = get_u16(words, d);
+  }
+}
+
+// B3 for 9..16-bit digits. The in-warp rank comes from match_any as in
+// rank_kernel; the warps of a tile then take turns, in warp order, against
+// one table of running in-block counts: warp w reads each key's base, then
+// one leader per match group adds the group's size, and a barrier passes
+// the turn on. So the rank is the key's occurrence index among equal digits
+// of its block in input order. SCATTER adds the (digit, block) base from
+// B2's scan, read from global memory.
+template <bool SCATTER>
+__global__ void __launch_bounds__(kThreads)
+rank_wide_kernel(const uint32_t* __restrict__ lo,
+                 const uint32_t* __restrict__ hi, int64_t n, int64_t block,
+                 int64_t nb, int shift, int bits,
+                 const uint32_t* __restrict__ base,
+                 uint32_t* __restrict__ ranks, uint32_t* __restrict__ hist,
+                 uint32_t* __restrict__ out_lo, uint32_t* __restrict__ out_hi,
+                 Planes planes) {
+  extern __shared__ uint32_t words[];
+  const int radix = 1 << bits;
+  const int64_t b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const uint32_t lanemask_lt = (1u << lane) - 1u;
+
+  for (int w = tid; w < radix / 2; w += kThreads) words[w] = 0u;
+  __syncthreads();
+  const int64_t start = b * block;
+  const int64_t end = start + block < n ? start + block : n;
+  for (int64_t t0 = start; t0 < end; t0 += kThreads) {
+    const int64_t g = t0 + tid;
+    const bool valid = g < end;
+    uint32_t l = 0u, h = 0u, d = 0xFFFFFFFFu;  // invalid lanes never match
+    if (valid) {
+      if (SCATTER) {
+        l = lo[g];
+        h = hi[g];
+        d = select_digit(l, h, shift, bits);
+      } else {
+        d = load_digit(lo, hi, g, shift, bits);
+      }
+    }
+    const uint32_t peers = __match_any_sync(0xFFFFFFFFu, d);
+    const uint32_t in_warp = __popc(peers & lanemask_lt);
+    uint32_t r = 0u;
+    for (int w = 0; w < kWarps; ++w) {
+      if (warp == w) {
+        if (valid) r = get_u16(words, d) + in_warp;
+        __syncwarp();
+        if (valid && in_warp == 0) add_u16(words, d, __popc(peers));
+      }
+      __syncthreads();
+    }
+    if (valid) {
+      if (SCATTER) {
+        const uint32_t dst = base[d * nb + b] + r;
+        out_lo[dst] = l;
+        out_hi[dst] = h;
+        for (int p = 0; p < planes.count; ++p) {
+          planes.out[p][dst] = planes.in[p][g];
+        }
+      } else {
+        ranks[g] = r;
+      }
+    }
+  }
+  if (!SCATTER) {
+    __syncthreads();
+    for (int d = tid; d < radix; d += kThreads) {
+      hist[d * nb + b] = get_u16(words, d);
+    }
+  }
+}
+
+// Dynamic shared memory of the wide kernels, set on every call (above 48 KB
+// a kernel takes it only after this attribute).
+template <typename Kernel>
+cudaError_t wide_smem(Kernel kernel, int bits, size_t* bytes) {
+  *bytes = static_cast<size_t>(1) << bits << 1;  // radix u16 counters
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(*bytes));
+}
+
+inline bool wide_args_ok(int bits, int64_t block) {
+  return bits <= kMaxWideBits && block <= kMaxWideBlock;
+}
+
 }  // namespace
 
 extern "C" {
@@ -188,6 +321,16 @@ int tq_block_histogram(const uint32_t* lo, const uint32_t* hi, int64_t n,
   if (err != cudaSuccess) return err;
   const int64_t nb = num_blocks(n, block);
   if (nb == 0) return cudaSuccess;
+  if (bits > 8) {
+    if (!wide_args_ok(bits, block)) return cudaErrorInvalidValue;
+    size_t bytes;
+    err = wide_smem(histogram_wide_kernel, bits, &bytes);
+    if (err != cudaSuccess) return err;
+    histogram_wide_kernel<<<static_cast<unsigned>(nb), kThreads, bytes,
+                            static_cast<cudaStream_t>(stream)>>>(
+        lo, hi, n, block, nb, shift, bits, hist);
+    return cudaGetLastError();
+  }
   const auto kernel = shift >= 32          ? histogram_kernel<false, true>
                       : shift + bits <= 32 ? histogram_kernel<true, false>
                                            : histogram_kernel<true, true>;
@@ -206,6 +349,17 @@ int tq_block_rank_and_histogram(const uint32_t* lo, const uint32_t* hi,
   const int64_t nb = num_blocks(n, block);
   if (nb == 0) return cudaSuccess;
   Planes none{};
+  if (bits > 8) {
+    if (!wide_args_ok(bits, block)) return cudaErrorInvalidValue;
+    size_t bytes;
+    err = wide_smem(rank_wide_kernel<false>, bits, &bytes);
+    if (err != cudaSuccess) return err;
+    rank_wide_kernel<false><<<static_cast<unsigned>(nb), kThreads, bytes,
+                              static_cast<cudaStream_t>(stream)>>>(
+        lo, hi, n, block, nb, shift, bits, nullptr, ranks, hist, nullptr,
+        nullptr, none);
+    return cudaGetLastError();
+  }
   rank_kernel<false><<<static_cast<unsigned>(nb), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       lo, hi, n, block, nb, shift, bits, nullptr, ranks, hist, nullptr,
       nullptr, none);
@@ -231,6 +385,17 @@ int tq_rank_and_scatter(const uint32_t* lo, const uint32_t* hi, int64_t n,
   for (int p = 0; p < count; ++p) {
     planes.in[p] = static_cast<const uint32_t*>(payload_in[p]);
     planes.out[p] = static_cast<uint32_t*>(payload_out[p]);
+  }
+  if (bits > 8) {
+    if (!wide_args_ok(bits, block)) return cudaErrorInvalidValue;
+    size_t bytes;
+    err = wide_smem(rank_wide_kernel<true>, bits, &bytes);
+    if (err != cudaSuccess) return err;
+    rank_wide_kernel<true><<<static_cast<unsigned>(nb), kThreads, bytes,
+                             static_cast<cudaStream_t>(stream)>>>(
+        lo, hi, n, block, nb, shift, bits, base, nullptr, nullptr, out_lo,
+        out_hi, planes);
+    return cudaGetLastError();
   }
   rank_kernel<true><<<static_cast<unsigned>(nb), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       lo, hi, n, block, nb, shift, bits, base, nullptr, nullptr, out_lo,

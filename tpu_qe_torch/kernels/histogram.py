@@ -10,6 +10,10 @@ a ragged last block is masked, not padded. Histograms are digit-major,
 (radix, nb) with nb = ceil(n / block), so one flat exclusive scan gives
 every (digit, block) base. Each entry point launches its kernel for CUDA
 tensors and uses its plain PyTorch twin (``*_plain``) for CPU tensors.
+
+Digits take 1..16 bits, as in the JAX kernels. Up to 8 bits the kernels
+keep u32 counters in static shared memory; 9..16-bit digits take the wide
+kernels, whose u16 counters limit a block to 65535 keys.
 """
 
 from __future__ import annotations
@@ -24,7 +28,8 @@ from tpu_qe_torch.constants import BLOCK
 from tpu_qe_torch.kernels import (LAUNCHES, check, library, require_planes,
                                   stream_of)
 
-MAX_KERNEL_BITS = 8     # shared-memory counters hold up to 256 digits
+MAX_KERNEL_BITS = 16    # digits of 1..16 bits, as the JAX kernels take
+MAX_WIDE_BLOCK = 65535  # keys per block with the wide kernels' u16 counters
 MAX_PAYLOADS = 8        # payload planes per rank_and_scatter launch
 
 
@@ -40,6 +45,9 @@ def _check_kernel_args(n: int, block: int, shift: int, bits: int) -> int:
                          f"-bit digits, got {bits}")
     if shift < 0 or shift + bits > 64:
         raise ValueError(f"digit (shift={shift}, bits={bits}) outside the key")
+    if bits > 8 and block > MAX_WIDE_BLOCK:
+        raise ValueError(f"{bits}-bit digits take blocks of at most "
+                         f"{MAX_WIDE_BLOCK} keys, got {block}")
     if n >= 1 << 32:
         raise ValueError(f"{n} keys: u32 destinations need n < 2^32")
     nb = _num_blocks(n, block)

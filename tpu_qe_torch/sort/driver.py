@@ -24,10 +24,12 @@ so they never move a real key).
 
 from __future__ import annotations
 
+from collections import Counter
+
 import numpy as np
 import torch
 
-from tpu_qe_torch.bits import U64, digit_schedule, masked_key, pack_columns
+from tpu_qe_torch.bits import U64, digit_schedule, pack_columns, widen
 from tpu_qe_torch.constants import BLOCK
 from tpu_qe_torch.kernels.histogram import block_histogram, rank_and_scatter
 from tpu_qe_torch.kernels.scan import exclusive_scan
@@ -42,14 +44,46 @@ def signed_key(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
     return top.to(torch.int64) * (1 << 32) | (lo.to(torch.int64) & 0xFFFFFFFF)
 
 
-def _sort_torch(lo, hi, payloads, key_bits, stable):
-    mlo, mhi = masked_key(lo, hi, key_bits)
-    order = torch.sort(signed_key(mlo, mhi), stable=stable).indices
-    return lo[order], hi[order], [p[order] for p in payloads]
+# LSD passes of every radix sort since the last clear(), by (rows, key
+# bytes per row: 4 for a lone plane, else 8, payload planes carried): the
+# plan that bench-matrix's pass counts and envelopes read, beside the
+# kernels' own launch counters.
+RADIX_PASSES: Counter = Counter()
 
 
-def _sort_radix(lo, hi, payloads, key_bits, bits_per_pass, block):
-    for i, (shift, bits) in enumerate(digit_schedule(key_bits, bits_per_pass)):
+def _keep_bits(plane: torch.Tensor, mask: int) -> torch.Tensor:
+    if mask == 0xFFFFFFFF:
+        return plane
+    return plane & (mask - (1 << 32) if mask >> 31 else mask)
+
+
+def torch_order(lo, hi, digits, stable=True) -> torch.Tensor:
+    """int64 permutation that sorts the keys by the bits the (shift, bits)
+    digits cover, from one ``torch.sort``."""
+    mask = 0
+    for shift, bits in digits:
+        mask |= ((1 << bits) - 1) << shift
+    mlo = _keep_bits(lo, mask & 0xFFFFFFFF)
+    # a key of one plane (hi is lo) sorts as its widened word
+    key = widen(mlo) if hi is lo else signed_key(mlo, _keep_bits(hi,
+                                                                 mask >> 32))
+    return torch.sort(key, stable=stable).indices
+
+
+def sort_radix(planes: list, digits, block=BLOCK):
+    """One LSD pass of B1, B2 and B3 per (shift, bits) digit, least
+    significant first, over `planes` = [lo, hi, *payloads] (hi may be lo
+    for a key of one plane). Returns (lo, hi, payloads).
+
+    The list is emptied, so a pass's input planes die when the next pass
+    has run unless the caller holds them: holding a sort's gathered input
+    planes through all of its passes cost ORDER BY 4 % on an H100.
+    """
+    lo, hi, *payloads = planes
+    planes.clear()
+    RADIX_PASSES[lo.shape[0], 4 if hi is lo else 8, len(payloads)] += len(
+        digits)
+    for i, (shift, bits) in enumerate(digits):
         with marker(f"radix sort histogram pass {i}"):
             hist = block_histogram(lo, hi, shift, bits, block)
         with marker(f"radix sort scan pass {i}"):
@@ -74,11 +108,13 @@ def sort_u64(key: U64, *payloads: torch.Tensor, key_bits: int = 64,
     lo, hi = key
     planes = pack_columns(payloads)
     if backend in ("torch", "torch_tiebreak"):
-        slo, shi, spl = _sort_torch(lo, hi, planes, key_bits,
-                                    stable or backend == "torch_tiebreak")
+        order = torch_order(lo, hi, [(0, key_bits)],
+                            stable or backend == "torch_tiebreak")
+        slo, shi, spl = lo[order], hi[order], [p[order] for p in planes]
     elif backend == "radix":
-        slo, shi, spl = _sort_radix(lo, hi, planes, key_bits, bits_per_pass,
-                                    block)
+        slo, shi, spl = sort_radix([lo, hi, *planes],
+                                   digit_schedule(key_bits, bits_per_pass),
+                                   block)
     else:
         raise ValueError(f"unknown backend {backend!r}")
     return U64(slo, shi), tuple(spl)

@@ -39,8 +39,8 @@ def marker(name: str):
 
 
 @contextlib.contextmanager
-def trace_session(trace_dir: str | None):
-    """Profile the enclosed block into trace_dir/trace.json; no-op if None."""
+def trace_session(trace_dir: str | None, name: str = "trace.json"):
+    """Profile the enclosed block into trace_dir/name; no-op if None."""
     if not trace_dir:
         yield None
         return
@@ -50,7 +50,7 @@ def trace_session(trace_dir: str | None):
     os.makedirs(trace_dir, exist_ok=True)
     with torch.profiler.profile(activities=activities) as prof:
         yield prof
-    path = os.path.join(trace_dir, "trace.json")
+    path = os.path.join(trace_dir, name)
     prof.export_chrome_trace(path)
     log.info("profiler trace written to %s", path)
 
