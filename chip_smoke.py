@@ -12,10 +12,15 @@ Run from the root of the repository on a machine with a CUDA card. Phases:
    PyTorch twins on the same card and against the C++ oracles, at 2^22 and
    2^22 + 777 keys over several digit positions of 1..8 bits and of 11 and
    16 bits, random and skewed inputs, and a lone key plane passed as both
-   words (as sort_planes passes it) at 1- and 8-bit digits; then each
+   words (as sort_planes passes it) at 1- and 8-bit digits; then B3's
+   hard shapes (blocks of 1000, 4096, 5000 and 65536 keys against its
+   4096-key tile; 0, 3 and 8 payload planes; a digit that straddles bit
+   32; every key on one digit; n of 1, tile - 1 and tile + 1); then each
    kernel's time beside its twin's at the main path's shapes (8-bit
    digits, and B1/B3 at 11 and 16 bits), on outputs that are compared
-   again; then B1, B2 and B3's scatter against their twins at the
+   again, B3's scatter also with 0 and 3 payloads and on a lone plane,
+   and the one PyTorch call that computes B2's function (torch.cumsum);
+   then B1, B2 and B3's scatter against their twins at the
    operators' sizes, 2^28 and 2 x 10^8 keys, at an 8-bit digit and at a
    1-bit digit of a lone plane;
 4. B4 (morton LUT encode; quirk on and off, ragged n),
@@ -23,7 +28,7 @@ Run from the root of the repository on a machine with a CUDA card. Phases:
    memory, heavy ties, 0, 1 and 3 payloads) and B6 (tensor-core rank;
    random and skewed digits, blocks 1024, 2048 and 4096), bit-exact against
    their twins and oracles; then each kernel's time beside its twin's, on
-   outputs that are compared again;
+   outputs that are compared again, and torch.sort's beside B5's;
 5. main path: `verify` at 2^24 triangles for the 8x8-bit, 6x11-bit and
    11x6-bit schedules, bit-exact against the C++ pipeline oracle, with the
    kernel launch counts of each run;
@@ -42,8 +47,12 @@ Run from the root of the repository on a machine with a CUDA card. Phases:
    launched once per pass that the sort driver recorded; then
    filter + GROUP BY and the join at 2^24 rows bit-exact against numpy.
 
-Then it prints the kernel summary as one JSON line, the nvidia-smi line, and
-last the result line. Any failure exits nonzero; without CUDA, or outside
+Then it prints the kernel summary as one JSON line (per kernel: launches on
+the main path, largest difference from its references, its time, its plain
+twin's, the least time the card could take for the same bytes or
+operations, and the time of the one PyTorch call that computes the same
+function, where there is one), the nvidia-smi line, and last the result
+line. Any failure exits nonzero; without CUDA, or outside
 the repository, it exits nonzero before printing a result.
 """
 
@@ -91,6 +100,7 @@ def main() -> int:
     from tpu_qe_torch import kernels, morton, native, selfcheck
     from tpu_qe_torch.__main__ import main as cli
     from tpu_qe_torch.bench import headline
+    from tpu_qe_torch.bench.sol import hbm_peak_bytes_per_s
     from tpu_qe_torch.bits import U64, widen
     from tpu_qe_torch.constants import BLOCK
     from tpu_qe_torch.kernels import bitonic as bk
@@ -217,6 +227,52 @@ def main() -> int:
                 sk.exclusive_scan_plain(xt),
                 (np.cumsum(x) - x) & u64(0xFFFFFFFF))
         log(f"      n={n} exclusive_scan with u32 wrap-around: bit-exact")
+    # B3's hard shapes: blocks that are not multiples of its 4096-key tile
+    # or hold many tiles, 0/3/8 payload planes, a straddling digit, a lone
+    # plane, every key on one digit, and sizes around one tile.
+    def check_b3(keys, lone, shift, bits, block, n_pay):
+        n = len(keys)
+        key = U64.from_numpy(keys, dev)
+        lo, hi = key.lo, key.lo if lone else key.hi
+        radix, nb = 1 << bits, -(-n // block)
+        d = ((keys >> u64(shift)) & u64(radix - 1)).astype(np.int64)
+        blk = np.arange(n, dtype=np.int64) // block
+        ranks, hist = hk.block_rank_and_histogram(lo, hi, shift, bits, block)
+        pr, ph = hk.block_rank_and_histogram_plain(lo, hi, shift, bits, block)
+        compare("block_rank_and_histogram", ranks, pr, native.block_rank(
+            (blk * radix + d).astype(np.uint32), nb * radix))
+        compare("block_rank_and_histogram", hist, ph)
+        base = sk.exclusive_scan(hist.reshape(-1))
+        pays = [torch.arange(n, dtype=torch.int32, device=dev) * (2 * i + 1)
+                + i for i in range(n_pay)]
+        compare_outputs(
+            "rank_and_scatter",
+            lambda: hk.rank_and_scatter(lo, hi, pays, base, shift, bits,
+                                        block),
+            lambda: hk.rank_and_scatter_plain(lo, hi, pays, base, shift,
+                                              bits, block))
+        olo, _, _ = hk.rank_and_scatter(lo, hi, pays, base, shift, bits,
+                                        block)
+        order = np.argsort(d, kind="stable")   # one pass = stable digit sort
+        compare("rank_and_scatter", olo,
+                (keys & u64(0xFFFFFFFF))[order])
+
+    tile = 4096
+    n = (1 << 20) + 777
+    rand = rng.integers(0, 1 << 64, size=n, dtype=np.uint64)
+    hard = [("random", rand, False, 28, 8), ("random", rand, False, 0, 8),
+            ("skewed", skewed(rand, 24, 8), False, 24, 8),
+            ("lone plane", (rand & u64(0xFFFFFFFF)) * u64(0x100000001), True,
+             0, 1)]
+    for block in (1000, 4096, 5000, 65536):
+        for n_pay in (0, 3, 8):
+            for label, keys, lone, shift, bits in hard:
+                check_b3(keys, lone, shift, bits, block, n_pay)
+        for m in (1, tile - 1, tile + 1):
+            check_b3(rand[:m], False, 28, 8, block, 1)
+        log(f"      n={n} block={block}: B3 rank and scatter bit-exact with "
+            "0, 3 and 8 payloads (straddling, aligned, skewed and lone-plane "
+            f"1-bit digits) and at n = 1, {tile - 1}, {tile + 1}")
     torch.cuda.synchronize()
     log("[3/10] radix kernels bit-exact against twins and C++ oracles; "
         "max_abs_err " + json.dumps({k: err[k] for k in (
@@ -245,15 +301,67 @@ def main() -> int:
             lambda: hk.rank_and_scatter_plain(key.lo, key.hi, [pay], base,
                                               0, 8)),
     }
-    ms = {}
-    for name, (kern, plain) in timed.items():
+    # Least time the card could take: every input read once and every
+    # output written once at the HBM peak, or the operations at the card's
+    # peak rate for their type, whichever is larger. Operations per key are
+    # what the function needs, counted from the simplest kernel for it:
+    # integer work against the 67 TFLOP/s of float32 outside the tensor
+    # cores.
+    hbm = hbm_peak_bytes_per_s()
+    alu = 67e12
+
+    def bound(nbytes: int, ops: float):
+        t_bytes, t_ops = nbytes / hbm * 1e3, ops / alu * 1e3
+        return ((t_bytes, "bytes") if t_bytes >= t_ops
+                else (t_ops, "operations"))
+
+    table = 256 * (n // BLOCK) * 4          # the (radix, nb) words
+    bounds = {
+        # digit in lo: one key word in; shift, mask, atomic add per key
+        "block_histogram": bound(n * 4 + table, n * 4),
+        "exclusive_scan": bound(2 * flat.numel() * 4, flat.numel() * 2),
+        # one key word in, a rank out; 8 ballots and the counter per key
+        "block_rank_and_histogram": bound(n * 8 + table, n * 40),
+        "rank_and_scatter": bound(n * 24 + table, n * 40),
+    }
+    library = {
+        "exclusive_scan": lambda: torch.cumsum(flat, 0, dtype=torch.int32)}
+    ms, lib_ms = {}, {name: None for name in kernels.LAUNCHES}
+
+    def time_kernel(name, kern, plain, plain_iters=5, what=""):
         compare_outputs(name, kern, plain)
         k1 = cuda_time(kern, iters=20)
-        p1 = cuda_time(plain, iters=5)
+        p1 = cuda_time(plain, iters=plain_iters, warmup=1)
         k2 = cuda_time(kern, iters=20)
         ms[name] = (min(k1, k2) * 1e3, p1 * 1e3)
-        log(f"      {name}: kernel {ms[name][0]:.4f} ms, plain twin "
-            f"{ms[name][1]:.4f} ms (2^24 keys, 8-bit digit, block {BLOCK})")
+        line = (f"      {name}: kernel {ms[name][0]:.4f} ms, plain twin "
+                f"{ms[name][1]:.4f} ms, bound {bounds[name][0]:.4f} ms by "
+                f"{bounds[name][1]}")
+        if name in library:
+            lib_ms[name] = cuda_time(library[name], iters=20) * 1e3
+            line += f", library call {lib_ms[name]:.4f} ms"
+        log(f"{line} ({what})")
+
+    for name, (kern, plain) in timed.items():
+        time_kernel(name, kern, plain,
+                    what=f"2^24 keys, 8-bit digit, block {BLOCK}")
+    # B3's scatter at the other plane counts of the operators' sorts
+    pay3 = [pay, pay + 1, pay + 2]
+    base_lone = sk.exclusive_scan(hk.block_histogram(
+        key.lo, key.lo, 0, 8).reshape(-1))
+    for label, args, nbytes in (
+            ("0 payloads", (key.lo, key.hi, [], base), n * 16 + table),
+            ("3 payloads", (key.lo, key.hi, pay3, base), n * 40 + table),
+            ("lone plane, 1 payload", (key.lo, key.lo, [pay], base_lone),
+             n * 24 + table)):
+        compare_outputs("rank_and_scatter",
+                        lambda: hk.rank_and_scatter(*args, 0, 8),
+                        lambda: hk.rank_and_scatter_plain(*args, 0, 8))
+        t = min(cuda_time(lambda: hk.rank_and_scatter(*args, 0, 8), iters=20)
+                for _ in range(2)) * 1e3
+        log(f"      rank_and_scatter, {label}: kernel {t:.4f} ms, bound "
+            f"{bound(nbytes, n * 40)[0]:.4f} ms by bytes")
+    del pay3, base_lone
     wide_ms = {}
     for bits in (11, 16):
         hist = hk.block_histogram(key.lo, key.hi, 0, bits)
@@ -443,14 +551,28 @@ def main() -> int:
             lambda: rk.block_rank_and_histogram_mxu_plain(key.lo, key.hi,
                                                           0)),
     }
+    bounds.update({
+        # 4 words in, 2 out; 9 LUT reads and their ORs per key
+        "encode_quantized_lut": bound(n * 24, n * 30),
+        # 3 planes in and out; 91 stages of n / 2 compare-exchanges of a
+        # two-word key and a payload, about 8 operations each
+        "sort_chunks": bound(n * 24, n * 91 * 4),
+        # B3's rank-mode function (one key word in, a rank out), so B3's
+        # bound: the function needs no matrix product. The kernel's own
+        # 160 m16n8k16 products (4096 operations each) per 128 keys would
+        # take n * 160 * 4096 / 128 / 989e12 s on the tensor cores, twice
+        # the byte time; that is the cost of the method, not of the function.
+        "block_rank_and_histogram_mxu": bound(n * 8 + table, n * 40),
+    })
+    # torch.sort orders the chunks' keys as B5 does; its order of tied
+    # payloads is its own, B5's is the JAX network's.
+    top8 = hi8 ^ torch.tensor(-(1 << 31), dtype=torch.int32, device=dev)
+    skey8 = (top8.to(torch.int64) * (1 << 32)
+             | (lo8.to(torch.int64) & 0xFFFFFFFF))   # signed order = u64 order
+    library["sort_chunks"] = lambda: torch.sort(skey8, dim=1)
     for name, (kern, plain) in timed.items():
-        compare_outputs(name, kern, plain)
-        k1 = cuda_time(kern, iters=20)
-        p1 = cuda_time(plain, iters=3, warmup=1)
-        k2 = cuda_time(kern, iters=20)
-        ms[name] = (min(k1, k2) * 1e3, p1 * 1e3)
-        log(f"      {name}: kernel {ms[name][0]:.4f} ms, plain twin "
-            f"{ms[name][1]:.4f} ms (2^24 keys)")
+        time_kernel(name, kern, plain, plain_iters=3, what="2^24 keys")
+    del top8, skey8
     del q, j, key, lo8, hi8, pay8
 
     # -- 5. main path
@@ -518,7 +640,10 @@ def main() -> int:
     for name in kernels.LAUNCHES:
         if counts[name] < 1:
             fail(f"selfcheck never launched {name}")
-    for name in ("sort_chunks", "block_rank_and_histogram_mxu"):
+    # The three kernels on no sort path take their count from this run.
+    off_path = ("block_rank_and_histogram", "sort_chunks",
+                "block_rank_and_histogram_mxu")
+    for name in off_path:
         launches[name] = counts[name]
     log("[7/10] selfcheck: SELFCHECK PASS")
 
@@ -625,6 +750,8 @@ def main() -> int:
         ("block_histogram", src + "radix.cu",
          "tpu_qe/kernels/histogram.py:85"),
         ("exclusive_scan", src + "scan.cu", "tpu_qe/kernels/scan.py:69"),
+        ("block_rank_and_histogram", src + "radix.cu",
+         "tpu_qe/kernels/histogram.py:164"),
         ("rank_and_scatter", src + "radix.cu",
          "tpu_qe/kernels/histogram.py:164"),
         ("encode_quantized_lut", src + "morton.cu",
@@ -635,8 +762,14 @@ def main() -> int:
     ]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": rep,
-         "launches": launches[name], "max_abs_err": err[name],
-         "ms": ms[name][0], "plain_ms": ms[name][1]}
+         "launches": launches[name],
+         "launch_path": ("selfcheck" if name in off_path else
+                         "verify 8x8 + encode(use_lut, quirk_lut) + "
+                         "bench-matrix"),
+         "max_abs_err": err[name],
+         "ms": ms[name][0], "plain_ms": ms[name][1],
+         "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+         "library_ms": lib_ms[name]}
         for name, source, rep in summary]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -133,6 +133,80 @@ def test_kernel_limits_raise(cuda):
         hk.rank_and_scatter(k.lo, k.hi, [k.lo] * 9, base, 0, 8)
 
 
+B3_TILE = 4096   # keys per tile of B3's 1..8-bit kernel (csrc/radix.cu)
+
+
+def _b3_keys(n, kind, shift, bits, seed):
+    """(keys, lo is hi?) for B3's hard cases: random, every key on one
+    digit, heavy ties (two digits), and a lone plane passed as both words."""
+    keys = _keys(n, seed)
+    mask = np.uint64(((1 << bits) - 1) << shift)
+    if kind == "skewed":
+        keys = (keys & ~mask) | ((np.uint64(0x5A5A) << np.uint64(shift)) & mask)
+    elif kind == "ties":
+        keys = keys & ~mask | (keys >> np.uint64(63) << np.uint64(shift))
+    elif kind == "lone":
+        keys = (keys & np.uint64(0xFFFFFFFF)) * np.uint64(0x100000001)
+    return keys, kind == "lone"
+
+
+def _check_b3(cuda, keys, lone, shift, bits, block, n_pay):
+    """B3's rank mode and scatter on the card against their plain twins and
+    the C++ counting oracle."""
+    n = len(keys)
+    k = U64.from_numpy(keys, cuda)
+    lo, hi = k.lo, k.lo if lone else k.hi
+    radix, nb = 1 << bits, -(-n // block)
+    d = ((keys >> np.uint64(shift)) & np.uint64(radix - 1)).astype(np.int64)
+    blk = np.arange(n, dtype=np.int64) // block
+    ranks, hist = hk.block_rank_and_histogram(lo, hi, shift, bits, block)
+    pr, ph = hk.block_rank_and_histogram_plain(lo, hi, shift, bits, block)
+    _same(ranks, pr)
+    _same(hist, ph)
+    np.testing.assert_array_equal(
+        ranks.cpu().numpy().view(np.uint32),
+        native.block_rank((blk * radix + d).astype(np.uint32), nb * radix))
+    _same(hist, hk.block_histogram(lo, hi, shift, bits, block))
+    base = sk.exclusive_scan(hist.reshape(-1))
+    pays = [torch.arange(n, dtype=torch.int32, device=cuda) * (2 * i + 1) + i
+            for i in range(n_pay)]
+    got = hk.rank_and_scatter(lo, hi, pays, base, shift, bits, block)
+    want = hk.rank_and_scatter_plain(lo, hi, pays, base, shift, bits, block)
+    _same(got[0], want[0])
+    _same(got[1], want[1])
+    assert len(got[2]) == n_pay
+    for g, w in zip(got[2], want[2]):
+        _same(g, w)
+    # one pass is the stable sort by the digit
+    order = np.argsort(d, kind="stable")
+    np.testing.assert_array_equal(
+        got[0].cpu().numpy().view(np.uint32),
+        (keys & np.uint64(0xFFFFFFFF)).astype(np.uint32)[order])
+    if n_pay:
+        np.testing.assert_array_equal(got[2][0].cpu().numpy(), order)
+
+
+@pytest.mark.parametrize("n_pay", [0, 3, 8])
+@pytest.mark.parametrize("block", [1000, 4096, 5000, 65536])
+@pytest.mark.parametrize("kind,shift,bits", [
+    ("random", 0, 8), ("random", 28, 8), ("random", 31, 2), ("random", 7, 1),
+    ("skewed", 24, 8), ("ties", 40, 8), ("lone", 0, 1), ("lone", 24, 8)])
+def test_b3_blocks_payloads_and_digits(cuda, kind, shift, bits, block, n_pay):
+    # 2 1/2 blocks of 65536, 41 blocks of 4096 and a ragged tail
+    n = 168_000 + 777
+    keys, lone = _b3_keys(n, kind, shift, bits, n + shift + block)
+    _check_b3(cuda, keys, lone, shift, bits, block, n_pay)
+
+
+@pytest.mark.parametrize("n", [1, 31, 33, B3_TILE - 1, B3_TILE, B3_TILE + 1,
+                               2 * B3_TILE + 1, (1 << 22) + 777])
+@pytest.mark.parametrize("block", [1000, 4096, 5000, 65536])
+def test_b3_ragged_sizes(cuda, n, block):
+    for kind, shift, bits in (("random", 28, 8), ("skewed", 0, 8)):
+        keys, lone = _b3_keys(n, kind, shift, bits, n + block)
+        _check_b3(cuda, keys, lone, shift, bits, block, 1)
+
+
 @pytest.mark.parametrize("bpp,key_bits", [(8, 64), (6, 64), (8, 40), (4, 16)])
 @pytest.mark.parametrize("n", [1, 3000, 1_000_003])
 def test_radix_sort_matches_torch_sort_and_numpy(cuda, bpp, key_bits, n):
@@ -320,8 +394,22 @@ def test_selfcheck_and_bench_kernels_on_the_card(cuda, capsys):
     assert "SELFCHECK PASS" in out
     for name in ("morton_lut_kernel", "morton_lut_plain",
                  "morton_direct_plain", "block_histogram_r256",
-                 "block_rank_r256", "bitonic_chunk8192"):
+                 "block_rank_r256", "rank_and_scatter_r256",
+                 "bitonic_chunk8192"):
         assert f'"kernel {name}"' in out
+
+
+def test_b3_timing_script_on_the_card(cuda, capsys, tmp_path):
+    from tpu_qe_torch.bench import radix_pass
+    with pytest.raises(RuntimeError, match="not that tree's"):
+        radix_pass.main(["--tree", str(tmp_path), "--n", "70777"])
+    assert radix_pass.main(["--n", "70777"]) == 0
+    row = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert set(row["ms"]) >= {"block_rank", "scatter_p0", "scatter_p1",
+                              "scatter_p3", "scatter_p1_lone",
+                              "scatter_p1_lone_1bit"}
+    assert all(t > 0 for t in row["ms"].values())
+    assert row["headline"]["verified"] is True
 
 
 WIDE_DIGITS = [(0, 11), (22, 11), (53, 11), (0, 16), (16, 16), (48, 16),

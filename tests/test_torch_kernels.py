@@ -203,3 +203,122 @@ def test_entry_points_reject_bad_planes():
     hist = hk.block_histogram(k.lo, k.hi, 0, 8)
     with pytest.raises(ValueError):   # base must cover radix * nb words
         hk.rank_and_scatter(k.lo, k.hi, [], hist.reshape(-1)[:10], 0, 8)
+
+
+# ---- B3 at the shapes its CUDA kernel is held to on the card: blocks that
+# are not multiples of its 4096-key tile, 0/3/8 payload planes, a lone plane
+# passed as both words, a digit that straddles bit 32, a 1-bit digit, every
+# key on one digit, heavy ties, and sizes around one tile.
+
+B3_TILE = 4096
+B3_BLOCKS = [1000, 4096, 5000, 65536]
+B3_CASES = [("random", 0, 8), ("random", 28, 8), ("random", 7, 1),
+            ("skewed", 24, 8), ("ties", 40, 8), ("lone", 0, 1),
+            ("lone", 24, 8)]
+
+
+def _b3_planes(n, kind, shift, bits, seed):
+    """(keys, lo, hi) for one of B3's hard cases; a lone plane's key is
+    lo | lo << 32 and hi is the very same tensor as lo."""
+    keys = _keys(n, seed)
+    mask = np.uint64(((1 << bits) - 1) << shift)
+    if kind == "skewed":
+        keys = (keys & ~mask) | ((np.uint64(0x5A5A) << np.uint64(shift)) & mask)
+    elif kind == "ties":
+        keys = keys & ~mask | (keys >> np.uint64(63) << np.uint64(shift))
+    elif kind == "lone":
+        keys = (keys & np.uint64(0xFFFFFFFF)) * np.uint64(0x100000001)
+    k = U64.from_numpy(keys, "cpu")
+    return keys, k.lo, k.lo if kind == "lone" else k.hi
+
+
+def _digits(keys, shift, bits):
+    return ((keys >> np.uint64(shift))
+            & np.uint64((1 << bits) - 1)).astype(np.int64)
+
+
+def _check_rank_plain(keys, lo, hi, shift, bits, block):
+    n, radix = len(keys), 1 << bits
+    nb = -(-n // block)
+    ranks, hist = hk.block_rank_and_histogram(lo, hi, shift, bits,
+                                              block=block)
+    np.testing.assert_array_equal(_u32(ranks),
+                                  _native_ranks(keys, shift, bits, block))
+    b = np.arange(n, dtype=np.int64) // block
+    want = np.bincount(_digits(keys, shift, bits) * nb + b,
+                       minlength=radix * nb).reshape(radix, nb)
+    np.testing.assert_array_equal(_u32(hist), want)
+    return hist
+
+
+def _check_scatter_plain(keys, lo, hi, shift, bits, block, n_pay):
+    n = len(keys)
+    hist = hk.block_histogram(lo, hi, shift, bits, block=block)
+    base = sk.exclusive_scan(hist.reshape(-1))
+    pays = [torch.from_numpy(((np.arange(n, dtype=np.int64) * (2 * i + 1) + i)
+                              & 0x7FFFFFFF).astype(np.int32))
+            for i in range(n_pay)]
+    olo, ohi, opays = hk.rank_and_scatter(lo, hi, pays, base, shift, bits,
+                                          block=block)
+    order = np.argsort(_digits(keys, shift, bits), kind="stable")
+    if shift % bits == 0:
+        dest = native.scatter_locations(keys, shift // bits, bits, block)
+        inverse = np.empty(n, dtype=np.int64)
+        inverse[dest.astype(np.int64)] = np.arange(n)
+        np.testing.assert_array_equal(inverse, order)
+        np.testing.assert_array_equal(
+            hk.scatter_destinations_plain(lo, hi, base, shift, bits,
+                                          block=block).numpy(),
+            dest.astype(np.int64))
+    np.testing.assert_array_equal(U64(olo, ohi).to_numpy(), keys[order])
+    assert len(opays) == n_pay
+    for p, o in zip(pays, opays):
+        np.testing.assert_array_equal(o.numpy(), p.numpy()[order])
+
+
+@pytest.mark.parametrize("block", B3_BLOCKS)
+@pytest.mark.parametrize("kind,shift,bits", B3_CASES)
+def test_b3_rank_plain_matches_native(kind, shift, bits, block):
+    keys, lo, hi = _b3_planes(70_777, kind, shift, bits, shift + block)
+    _check_rank_plain(keys, lo, hi, shift, bits, block)
+
+
+@pytest.mark.parametrize("n_pay", [0, 3, 8])
+@pytest.mark.parametrize("block", B3_BLOCKS)
+@pytest.mark.parametrize("kind,shift,bits", B3_CASES)
+def test_b3_scatter_plain_matches_native(kind, shift, bits, block, n_pay):
+    keys, lo, hi = _b3_planes(70_777, kind, shift, bits, shift + block + 1)
+    _check_scatter_plain(keys, lo, hi, shift, bits, block, n_pay)
+
+
+@pytest.mark.parametrize("n", [1, B3_TILE - 1, B3_TILE + 1, (1 << 22) + 777])
+@pytest.mark.parametrize("block", B3_BLOCKS)
+def test_b3_plain_at_ragged_sizes(block, n):
+    keys, lo, hi = _b3_planes(n, "random", 24, 8, n + block)
+    _check_rank_plain(keys, lo, hi, 24, 8, block)
+    _check_scatter_plain(keys, lo, hi, 24, 8, block, 1)
+
+
+@pytest.mark.parametrize("block", [4096, 65536])
+@pytest.mark.parametrize("kind,shift,bits", [
+    ("random", 28, 8), ("random", 7, 1), ("skewed", 24, 8), ("lone", 0, 1),
+    ("lone", 24, 8)])
+def test_b3_rank_plain_matches_jax(kind, shift, bits, block):
+    # the JAX kernel takes whole blocks: pad with all-ones sentinels, which
+    # for a lone plane are again lo == hi
+    keys, _, _ = _b3_planes(70_777, kind, shift, bits, shift + block + 2)
+    padded, jlo, jhi = _padded(keys, block)
+    k = U64.from_numpy(padded, "cpu")
+    ranks, hist = hk.block_rank_and_histogram(
+        k.lo, k.lo if kind == "lone" else k.hi, shift, bits, block=block)
+    jr, jh = jax_block_rank(jlo, jhi, shift, bits)
+    np.testing.assert_array_equal(_u32(ranks), np.asarray(jr).reshape(-1))
+    np.testing.assert_array_equal(_u32(hist), np.asarray(jh))
+
+
+def test_radix_pass_script_refuses_a_tree_it_did_not_import(tmp_path):
+    from tpu_qe_torch.bench import radix_pass
+    with pytest.raises(RuntimeError, match="not that tree's"):
+        radix_pass.main(["--tree", str(tmp_path), "--n", "100"])
+    with pytest.raises(RuntimeError, match="needs a CUDA device"):
+        radix_pass.main(["--n", "100"])

@@ -4,8 +4,9 @@
 
 One JSON row per kernel, with the row names of tpu_qe/bench/kernels.py:
 B4 and its plain twin beside the plain direct interleave, B1, B3's rank
-mode (both at the main path's block, printed in the row) and B5 on chunks
-of 8192. Times are CUDA-event means (tpu_qe_torch.utils.profiling); bytes
+mode and B3's scatter of both key words and one payload, the kernel a sort
+spends its time in (all three at the main path's block, printed in the
+row), and B5 on chunks of 8192. Times are CUDA-event means (tpu_qe_torch.utils.profiling); bytes
 are what each kernel must read and write. A machine without CUDA fails:
 nothing is timed on the CPU.
 """
@@ -24,7 +25,9 @@ from tpu_qe_torch.constants import BLOCK
 from tpu_qe_torch.kernels import morton as mk
 from tpu_qe_torch.kernels.bitonic import sort_chunks
 from tpu_qe_torch.kernels.histogram import (block_histogram,
-                                            block_rank_and_histogram)
+                                            block_rank_and_histogram,
+                                            rank_and_scatter)
+from tpu_qe_torch.kernels.scan import exclusive_scan
 from tpu_qe_torch.utils.profiling import KernelStats, profile_kernel
 
 CHUNK = 8192
@@ -76,6 +79,14 @@ def bench_sort_kernels(n: int, dev: torch.device, device: dict) -> list[dict]:
                        lambda: block_rank_and_histogram(lo, hi, 8, 8),
                        n * 8, n)
     out.append(_emit(s, device, block=BLOCK))
+    # both key words and one payload in and out, plus the (radix, nb) bases
+    pay = torch.arange(n, dtype=torch.int32, device=dev)
+    base = exclusive_scan(block_histogram(lo, hi, 8, 8).reshape(-1))
+    s = profile_kernel("rank_and_scatter_r256",
+                       lambda: rank_and_scatter(lo, hi, [pay], base, 8, 8),
+                       n * 24 + base.numel() * 4, n)
+    out.append(_emit(s, device, block=BLOCK))
+    del pay, base
     nb = n // CHUNK
     m = nb * CHUNK
     lo8, hi8 = lo[:m].reshape(nb, CHUNK), hi[:m].reshape(nb, CHUNK)

@@ -10,13 +10,17 @@
 // Both are bound by HBM bytes. B1 and B3's rank mode read only the key
 // words that the digit covers: 4 bytes per key, 8 if the digit straddles
 // bit 32; the rank mode writes a 4-byte rank. B3's scatter reads and writes
-// 8 + 4 * payloads bytes per key. The arithmetic per key is a handful of
-// integer ops. The design keeps every per-digit counter in
-// shared memory (the digit-major histogram is the only counter traffic to
-// HBM, radix * nb words), reads keys with consecutive threads on
-// consecutive addresses, and needs no global atomics. The scatter writes
-// runs of equal digits to consecutive addresses but is not staged through
-// shared memory yet, so its stores are only partly coalesced.
+// 8 + 4 * payloads bytes per key, plus its radix * nb base words: 406.8 MB
+// at 2^24 keys, block 4096, an 8-bit digit and one payload, 0.121 ms at an
+// H100's 3.35 TB/s. The arithmetic per key is a handful of integer ops.
+// The design keeps every per-digit counter in shared memory (the
+// digit-major histogram is the only counter traffic to HBM, radix * nb
+// words), reads keys with consecutive threads on consecutive addresses,
+// and needs no global atomics. B3 holds 16 keys per thread so that many
+// loads are in flight and a 4096-key tile costs one ranking round and a
+// handful of barriers, and its scatter stages each tile in digit order
+// through shared memory, so that a warp stores whole runs of equal digits
+// to consecutive addresses (see the note at rank_kernel).
 //
 // A ragged tail is masked (g < n), never padded: the result equals the
 // sentinel-padded JAX pipeline because all-ones sentinels take the largest
@@ -60,8 +64,7 @@ __device__ __forceinline__ uint32_t select_digit(uint32_t lo, uint32_t hi,
 
 // The digit of key g, loading only the words it covers (the condition is
 // the same for every thread, so it costs no divergence). B3's rank mode
-// loads one key per thread between barriers, where the choice costs
-// nothing measurable.
+// and the wide kernels use it.
 __device__ __forceinline__ uint32_t load_digit(const uint32_t* __restrict__ lo,
                                                const uint32_t* __restrict__ hi,
                                                int64_t g, int shift, int bits) {
@@ -97,88 +100,240 @@ histogram_kernel(const uint32_t* __restrict__ lo,
   }
 }
 
-// B3: one CUDA block per key block, walked in tiles of kThreads keys. Warp w
-// owns the w-th consecutive run of 32 keys of the tile, so the rank
-//   popc(match_any(digit) & lanemask_lt)        (earlier lanes, same warp)
-//   + count of the digit in earlier warps        (same tile)
-//   + running count of the digit in earlier tiles
-// is the key's occurrence index among equal digits in input order, i.e. the
-// stable rank. In SCATTER mode the running count starts at the key block's
-// global base (B2's exclusive scan of B1's histogram), so the rank is the
-// destination itself.
+// B3 for 1..8-bit digits: one CUDA block per key block, walked in tiles of
+// kTile = kThreads * kKeys keys (one tile for the default 4096-key block).
+//
+// Keys sit in registers warp-striped: warp w owns the tile's w-th run of
+// 32 * kKeys keys and lane l holds keys 32 j + l of it, j = 0..kKeys-1. So
+// every load is one coalesced 128-byte row per warp, kKeys of them are in
+// flight per thread, and inside a warp (j, lane) order is input order. The
+// rank of a key among equal digits of its block, in input order, is then
+//   popc(match_digit(digit) & lanemask_lt)    (earlier lanes, round j)
+//   + the warp's count of the digit before round j (a warp-private
+//     counter row in shared memory: the first lane of each match group
+//     adds the group's size, no atomics, __syncwarp between rounds)
+//   + the digit's count in earlier warps of the tile (one scan per tile)
+//   + its running count in earlier tiles (a register of thread `digit`).
+//
+// Rank mode writes that rank at the key's own index (coalesced) and the
+// block's histogram at the end. Scatter mode turns it into a slot of the
+// tile in digit order (an exclusive scan of the tile's digit totals gives
+// each digit's first slot), writes the key words to shared memory at their
+// slot, and then thread i stores slots i, i + 256, ... to
+//   run_base[digit] + slot,
+//   run_base[d] = base[d * nb + b] + running[d] - first slot of d,
+// so neighbouring lanes write neighbouring addresses inside a run of equal
+// digits: 16 keys (64 B per plane) on average with uniform 8-bit digits,
+// hundreds with the operators' 1- and 2-bit passes. Payloads follow plane
+// by plane through the same two staging planes in turn; a thread keeps
+// only its keys' slots and its slots' destinations.
+//
+// Sizes on an H100 (227 KB shared memory per block, 65,536 registers and
+// 2048 threads per SM): kKeys = 16 needs 2 * 16 KB of staging + 8 KB of
+// warp counters + 1 KB of run bases, 42 KB in all, and at most 85 registers
+// a thread for three blocks per SM (__launch_bounds__), i.e. 24 warps and
+// 12,288 keys in flight on an SM; shared memory would allow five. A smaller
+// kKeys halves the runs and doubles the scans per key; a larger one needs
+// more registers than three blocks leave. Loads are 4-byte words: a
+// 16-byte load would give a lane four neighbouring keys and break the
+// (j, lane) input order that the stable rank rests on.
+constexpr int kKeys = 16;                 // keys per thread and tile
+constexpr int kTile = kThreads * kKeys;   // 4096
+constexpr uint32_t kFullWarp = 0xFFFFFFFFu;
+static_assert(kThreads == kMaxRadix, "thread d owns digit d");
+
+// The lanes of the warp whose key is valid and has this lane's digit: one
+// ballot per digit bit. (match.any gives the same mask in one instruction,
+// but on an H100 its time grows with the number of distinct values in the
+// warp, about 30 with random 8-bit digits, and it then bounds the kernel.)
+__device__ __forceinline__ uint32_t match_digit(uint32_t d, bool valid,
+                                                int bits) {
+  uint32_t peers = __ballot_sync(kFullWarp, valid);
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    if (k < bits) {   // the same for every thread
+      const bool bit = (d >> k) & 1u;
+      const uint32_t set = __ballot_sync(kFullWarp, bit);
+      peers &= bit ? set : ~set;
+    }
+  }
+  return peers;   // of an invalid lane: unused
+}
+
 template <bool SCATTER>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 3)
 rank_kernel(const uint32_t* __restrict__ lo, const uint32_t* __restrict__ hi,
             int64_t n, int64_t block, int64_t nb, int shift, int bits,
             const uint32_t* __restrict__ base, uint32_t* __restrict__ ranks,
             uint32_t* __restrict__ hist, uint32_t* __restrict__ out_lo,
             uint32_t* __restrict__ out_hi, Planes planes) {
+  extern __shared__ uint32_t stage[];  // SCATTER: two planes of kTile words
   __shared__ uint32_t warp_counts[kWarps][kMaxRadix];
-  __shared__ uint32_t running[kMaxRadix];
+  __shared__ uint32_t run_base[kMaxRadix];
+  __shared__ uint32_t warp_sums[kWarps];
   const int radix = 1 << bits;
   const int64_t b = blockIdx.x;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const uint32_t lanemask_lt = (1u << lane) - 1u;
+  uint32_t* const mine = warp_counts[warp];
+  uint32_t* const stage_a = stage;
+  uint32_t* const stage_b = stage + kTile;
 
-  for (int d = tid; d < radix; d += kThreads) {
-    running[d] = SCATTER ? base[d * nb + b] : 0u;
-  }
+  // Thread d keeps digit d's running in-block count and, for the scatter,
+  // its (digit, block) base from B2's scan.
+  uint32_t running = 0u, digit_base = 0u;
+  if (SCATTER && tid < radix) digit_base = base[tid * nb + b];
+
   const int64_t start = b * block;
   const int64_t end = start + block < n ? start + block : n;
-  for (int64_t t0 = start; t0 < end; t0 += kThreads) {
-    for (int i = tid; i < kWarps * radix; i += kThreads) {
-      warp_counts[i / radix][i % radix] = 0u;
+  for (int64_t t0 = start; t0 < end; t0 += kTile) {
+    const int tile_keys = end - t0 < kTile ? static_cast<int>(end - t0) : kTile;
+    // Key j of this lane is valid iff 32 j < lane_keys (a ragged tail ends
+    // the tile in input order, so validity is a prefix of every lane).
+    const int warp_keys = tile_keys - warp * 32 * kKeys;
+    const int lane_keys = warp_keys - lane;
+    const int64_t g0 = t0 + warp * 32 * kKeys + lane;
+
+    // Scatter mode holds both words; rank mode holds the digit in w0.
+    uint32_t w0[kKeys], w1[kKeys], r[kKeys];
+#pragma unroll
+    for (int j = 0; j < kKeys; ++j) {
+      w0[j] = 0u;
+      w1[j] = 0u;
+      if (32 * j < lane_keys) {
+        if (SCATTER) {
+          w0[j] = lo[g0 + 32 * j];
+          w1[j] = hi[g0 + 32 * j];
+        } else {
+          w0[j] = load_digit(lo, hi, g0 + 32 * j, shift, bits);
+        }
+      }
+    }
+    for (int d = lane; d < radix; d += 32) mine[d] = 0u;
+    __syncwarp();
+
+    // In-warp stable rank, one round per j in input order.
+#pragma unroll
+    for (int j = 0; j < kKeys; ++j) {
+      r[j] = 0u;
+      if (32 * j < warp_keys) {   // the same for the whole warp
+        const bool valid = 32 * j < lane_keys;
+        const uint32_t d =
+            SCATTER ? select_digit(w0[j], w1[j], shift, bits) : w0[j];
+        const uint32_t peers = match_digit(d, valid, bits);
+        const uint32_t earlier = __popc(peers & lanemask_lt);
+        uint32_t before = 0u;
+        if (valid && earlier == 0u) {   // first lane of its match group
+          before = mine[d];
+          mine[d] = before + __popc(peers);
+        }
+        before = __shfl_sync(kFullWarp, before, valid ? __ffs(peers) - 1 : 0);
+        r[j] = before + earlier;
+        __syncwarp();
+      }
     }
     __syncthreads();
 
-    const int64_t g = t0 + tid;
-    const bool valid = g < end;
-    uint32_t l = 0u, h = 0u, d = 0xFFFFFFFFu;  // invalid lanes never match
-    if (valid) {
-      if (SCATTER) {   // both words move to the destination
-        l = lo[g];
-        h = hi[g];
-        d = select_digit(l, h, shift, bits);
-      } else {
-        d = load_digit(lo, hi, g, shift, bits);
+    if (SCATTER) {
+      // Digit totals of the tile, their exclusive scan over the digits
+      // (each digit's first slot), then each warp's first slot per digit.
+      uint32_t total = 0u;
+      if (tid < radix) {
+        for (int w = 0; w < kWarps; ++w) total += warp_counts[w][tid];
       }
-    }
-    const uint32_t peers = __match_any_sync(0xFFFFFFFFu, d);
-    const uint32_t in_warp = __popc(peers & lanemask_lt);
-    if (valid && in_warp == 0) warp_counts[warp][d] = __popc(peers);
-    __syncthreads();
+      uint32_t incl = total;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const uint32_t up = __shfl_up_sync(kFullWarp, incl, o);
+        if (lane >= o) incl += up;
+      }
+      if (lane == 31) warp_sums[warp] = incl;
+      __syncthreads();
+      uint32_t first = incl - total;
+      for (int w = 0; w < warp; ++w) first += warp_sums[w];
+      if (tid < radix) {
+        uint32_t s = first;
+        for (int w = 0; w < kWarps; ++w) {
+          const uint32_t c = warp_counts[w][tid];
+          warp_counts[w][tid] = s;
+          s += c;
+        }
+        run_base[tid] = digit_base + running - first;
+        running += total;
+      }
+      __syncthreads();
 
-    // Exclusive scan of each digit's count over the warps, on top of the
-    // running count; one thread per digit.
-    for (int dd = tid; dd < radix; dd += kThreads) {
-      uint32_t s = running[dd];
-      for (int w = 0; w < kWarps; ++w) {
-        const uint32_t c = warp_counts[w][dd];
-        warp_counts[w][dd] = s;
-        s += c;
+      // Stage the key words at their slots; r becomes the slot.
+#pragma unroll
+      for (int j = 0; j < kKeys; ++j) {
+        if (32 * j < lane_keys) {
+          r[j] += mine[select_digit(w0[j], w1[j], shift, bits)];
+          stage_a[r[j]] = w0[j];
+          stage_b[r[j]] = w1[j];
+        }
       }
-      running[dd] = s;
-    }
-    __syncthreads();
+      __syncthreads();
 
-    if (valid) {
-      const uint32_t r = warp_counts[warp][d] + in_warp;
-      if (SCATTER) {
-        out_lo[r] = l;
-        out_hi[r] = h;
-        for (int p = 0; p < planes.count; ++p) planes.out[p][r] = planes.in[p][g];
-      } else {
-        ranks[g] = r;
+      // Store runs: slot i goes to run_base[its digit] + i; w0 becomes the
+      // slot's destination.
+#pragma unroll
+      for (int j = 0; j < kKeys; ++j) {
+        const int i = tid + kThreads * j;
+        if (i < tile_keys) {
+          const uint32_t l = stage_a[i];
+          const uint32_t h = stage_b[i];
+          w0[j] = run_base[select_digit(l, h, shift, bits)] + i;
+          out_lo[w0[j]] = l;
+          out_hi[w0[j]] = h;
+        }
       }
+
+      // Payload planes, one at a time, through the staging planes in turn:
+      // a plane is written only after a barrier that follows its last
+      // read. A plane's words go from their load straight to their slots
+      // (holding the next plane's loads in registers across the barrier
+      // was 7 % slower on an H100).
+      if (planes.count > 0) __syncthreads();
+      for (int p = 0; p < planes.count; ++p) {
+        const uint32_t* __restrict__ in = planes.in[p];
+        uint32_t* __restrict__ out = planes.out[p];
+        uint32_t* const buf = (p & 1) ? stage_b : stage_a;
+#pragma unroll
+        for (int j = 0; j < kKeys; ++j) {
+          if (32 * j < lane_keys) buf[r[j]] = in[g0 + 32 * j];
+        }
+        __syncthreads();
+#pragma unroll
+        for (int j = 0; j < kKeys; ++j) {
+          const int i = tid + kThreads * j;
+          if (i < tile_keys) out[w0[j]] = buf[i];
+        }
+      }
+    } else {
+      // Each warp's count of the digit so far in the block.
+      if (tid < radix) {
+        uint32_t s = running;
+        for (int w = 0; w < kWarps; ++w) {
+          const uint32_t c = warp_counts[w][tid];
+          warp_counts[w][tid] = s;
+          s += c;
+        }
+        running = s;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int j = 0; j < kKeys; ++j) {
+        if (32 * j < lane_keys) ranks[g0 + 32 * j] = mine[w0[j]] + r[j];
+      }
+      __syncwarp();   // the next tile zeroes this warp's row
     }
-    __syncthreads();  // warp_counts is zeroed again by the next tile
   }
-  if (!SCATTER) {
-    for (int d = tid; d < radix; d += kThreads) hist[d * nb + b] = running[d];
-  }
+  if (!SCATTER && tid < radix) hist[tid * nb + b] = running;
 }
+
+constexpr size_t kStageBytes = 2 * kTile * sizeof(uint32_t);
 
 inline int64_t num_blocks(int64_t n, int64_t block) {
   return (n + block - 1) / block;
@@ -218,8 +373,8 @@ histogram_wide_kernel(const uint32_t* __restrict__ lo,
   }
 }
 
-// B3 for 9..16-bit digits. The in-warp rank comes from match_any as in
-// rank_kernel; the warps of a tile then take turns, in warp order, against
+// B3 for 9..16-bit digits, one key per thread and tile. The in-warp rank
+// comes from match_any; the warps of a tile then take turns, in warp order, against
 // one table of running in-block counts: warp w reads each key's base, then
 // one leader per match group adds the group's size, and a barrier passes
 // the turn on. So the rank is the key's occurrence index among equal digits
@@ -360,7 +515,8 @@ int tq_block_rank_and_histogram(const uint32_t* lo, const uint32_t* hi,
         nullptr, none);
     return cudaGetLastError();
   }
-  rank_kernel<false><<<static_cast<unsigned>(nb), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  rank_kernel<false><<<static_cast<unsigned>(nb), kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
       lo, hi, n, block, nb, shift, bits, nullptr, ranks, hist, nullptr,
       nullptr, none);
   return cudaGetLastError();
@@ -397,7 +553,8 @@ int tq_rank_and_scatter(const uint32_t* lo, const uint32_t* hi, int64_t n,
         out_hi, planes);
     return cudaGetLastError();
   }
-  rank_kernel<true><<<static_cast<unsigned>(nb), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  rank_kernel<true><<<static_cast<unsigned>(nb), kThreads, kStageBytes,
+                      static_cast<cudaStream_t>(stream)>>>(
       lo, hi, n, block, nb, shift, bits, base, nullptr, nullptr, out_lo,
       out_hi, planes);
   return cudaGetLastError();
