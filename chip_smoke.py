@@ -22,7 +22,19 @@ Run from the root of the repository on a machine with a CUDA card. Phases:
    and the one PyTorch call that computes B2's function (torch.cumsum);
    then B1, B2 and B3's scatter against their twins at the
    operators' sizes, 2^28 and 2 x 10^8 keys, at an 8-bit digit and at a
-   1-bit digit of a lone plane;
+   1-bit digit of a lone plane. B2 also at its own hard shapes (n of 0, 1,
+   one tile - 1, a tile, a tile + 1, no multiple of 4, 2^17, 2^24 and 2^28
+   words; all-ones words, which wrap in every tile's aggregate; one large
+   word then zeros; a slice that starts 4 bytes into a tensor), 1000 scans
+   back to back on one stream with fresh scratch each, and a scan while
+   another stream keeps the card busy; B3's scatter and rank mode at 9, 11,
+   13 and 16 bits (every key on one digit, each key its own digit, a digit
+   that straddles bit 32; 0 and 3 payloads; blocks of 4096, 5000, 32768
+   and 65535 keys; n of 1, tile - 1 and tile + 1). B2's times at tables of
+   2^17 to 2^28 words stand beside torch.cumsum's and a bound that is the
+   larger of its bytes at the HBM peak and an empty kernel's launch, the
+   wide scatter's beside its byte bound and the bound of the 32-byte
+   sectors its stores touch;
 4. B4 (morton LUT encode; quirk on and off, ragged n),
    B5 (bitonic chunk sort; rows 8 and 64 and a chunk wider than shared
    memory, heavy ties, 0, 1 and 3 payloads) and B6 (tensor-core rank;
@@ -71,7 +83,12 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+START = time.perf_counter()
+
+
 def log(msg: str) -> None:
+    if msg.startswith("["):     # a phase's closing line: seconds so far
+        msg += f" [{time.perf_counter() - START:.0f} s]"
     print(msg, flush=True)
 
 
@@ -273,6 +290,83 @@ def main() -> int:
         log(f"      n={n} block={block}: B3 rank and scatter bit-exact with "
             "0, 3 and 8 payloads (straddling, aligned, skewed and lone-plane "
             f"1-bit digits) and at n = 1, {tile - 1}, {tile + 1}")
+    # The wide scatter (a sort of the tile, no table for a one-tile block,
+    # a u16 table touched once per run otherwise) and the wide rank mode.
+    n = (1 << 18) + 777
+    rand = rng.integers(0, 1 << 64, size=n, dtype=np.uint64)
+    for bits in (9, 11, 13, 16):
+        straddle = 32 - bits // 2
+        # each key of a run of 2^bits keys on its own digit
+        own = (np.arange(n, dtype=np.uint64) * u64(40503)) & u64(
+            (1 << bits) - 1)
+        hard = [("one digit", skewed(rand, 0, bits), 0),
+                ("own digits", (rand & ~u64((1 << bits) - 1)) | own, 0),
+                ("straddling", rand, straddle)]
+        for block in (4096, 5000, 32768, 65535):
+            for n_pay in (0, 3):
+                for label, keys, shift in hard:
+                    check_b3(keys, False, shift, bits, block, n_pay)
+            for m in (1, tile - 1, tile + 1):
+                check_b3(rand[:m], False, straddle, bits, block, 1)
+        log(f"      n={n} bits={bits}: wide B3 rank and scatter bit-exact at "
+            "blocks 4096, 5000, 32768 and 65535 with 0 and 3 payloads (one "
+            "digit, own digits, straddling) and at n = 1, "
+            f"{tile - 1}, {tile + 1}")
+
+    # B2's hard shapes. Its tile is 8192 words (csrc/scan.cu).
+    from tpu_qe_torch.bench.matrix import rand_u32
+    scan_tile = 8192
+    g = torch.Generator(device=dev).manual_seed(5)
+
+    def scan_input(kind: str, n: int) -> torch.Tensor:
+        if kind == "random":
+            return rand_u32(n, g, dev)
+        if kind == "all ones":      # wraps in every tile's aggregate
+            return torch.full((n,), -1, dtype=torch.int32, device=dev)
+        x = torch.zeros(n, dtype=torch.int32, device=dev)
+        x[:1] = -16                 # 0xFFFFFFF0, then zeros
+        return x
+
+    def check_scan(x: torch.Tensor) -> None:
+        compare_outputs("exclusive_scan", lambda: sk.exclusive_scan(x),
+                        lambda: sk.exclusive_scan_plain(x))
+
+    for n in (0, 1, scan_tile - 1, scan_tile, scan_tile + 1,
+              3 * scan_tile + 3, 1 << 17, 1 << 20, 1 << 22, 1 << 24, 1 << 28):
+        for kind in ("random", "all ones", "large then zeros"):
+            x = scan_input(kind, n + 1)
+            check_scan(x[:n])
+            check_scan(x[1:])       # starts 4 bytes into its tensor
+            del x
+        log(f"      n={n} exclusive_scan (random, all ones, one large word "
+            "then zeros; aligned and 4 bytes off): bit-exact")
+    torch.cuda.empty_cache()
+    # 1000 scans back to back, fresh scratch each (the allocator hands the
+    # same memory out again, with the last scan's status words in it), two
+    # lengths in turns so that stale words differ in kind.
+    xs = [scan_input("random", m) for m in ((1 << 20) + 5, 300_000)]
+    wants = [sk.exclusive_scan_plain(x) for x in xs]
+    bad = torch.zeros((), dtype=torch.int64, device=dev)
+    for i in range(1000):
+        bad += (sk.exclusive_scan(xs[i % 2]) != wants[i % 2]).sum()
+    if int(bad):
+        fail(f"exclusive_scan: {int(bad)} words differ over 1000 scans back "
+             "to back")
+    # A scan while another stream keeps the card busy: no hang, same result.
+    side = torch.cuda.Stream(dev)
+    a = torch.randn(8192, 8192, device=dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        for _ in range(20):
+            a @ a
+    x = scan_input("random", 1 << 24)
+    for _ in range(10):
+        got = sk.exclusive_scan(x)
+    compare("exclusive_scan", got, sk.exclusive_scan_plain(x))
+    torch.cuda.synchronize()
+    del a, x, xs, wants, got
+    log("      exclusive_scan: 1000 scans back to back with fresh scratch "
+        "and a scan beside a busy stream bit-exact")
     torch.cuda.synchronize()
     log("[3/10] radix kernels bit-exact against twins and C++ oracles; "
         "max_abs_err " + json.dumps({k: err[k] for k in (
@@ -315,11 +409,23 @@ def main() -> int:
         return ((t_bytes, "bytes") if t_bytes >= t_ops
                 else (t_ops, "operations"))
 
+    # No kernel ends sooner than an empty one: the floor under a bound
+    # whose bytes take less. Timed queued behind a device sleep, so that
+    # the host's pace stays out of it (utils/timing.py), as are B2's times.
+    floor_ms = min(cuda_time(lambda: kernels.empty_launch(dev), iters=20,
+                             ahead_ms=3.0) for _ in range(2)) * 1e3
+    log(f"      launch floor: an empty kernel takes {floor_ms:.4f} ms "
+        "(20 launches queued behind a device sleep)")
+
+    def scan_bound(words: int):
+        t, by = bound(2 * words * 4, words * 2)
+        return (t, by) if t >= floor_ms else (floor_ms, "launch")
+
     table = 256 * (n // BLOCK) * 4          # the (radix, nb) words
     bounds = {
         # digit in lo: one key word in; shift, mask, atomic add per key
         "block_histogram": bound(n * 4 + table, n * 4),
-        "exclusive_scan": bound(2 * flat.numel() * 4, flat.numel() * 2),
+        "exclusive_scan": scan_bound(flat.numel()),
         # one key word in, a rank out; 8 ballots and the counter per key
         "block_rank_and_histogram": bound(n * 8 + table, n * 40),
         "rank_and_scatter": bound(n * 24 + table, n * 40),
@@ -329,16 +435,19 @@ def main() -> int:
     ms, lib_ms = {}, {name: None for name in kernels.LAUNCHES}
 
     def time_kernel(name, kern, plain, plain_iters=5, what=""):
+        # B2 ends before the host has enqueued the next scan: queue it
+        ahead = 3.0 if name == "exclusive_scan" else 0.0
         compare_outputs(name, kern, plain)
-        k1 = cuda_time(kern, iters=20)
+        k1 = cuda_time(kern, iters=20, ahead_ms=ahead)
         p1 = cuda_time(plain, iters=plain_iters, warmup=1)
-        k2 = cuda_time(kern, iters=20)
+        k2 = cuda_time(kern, iters=20, ahead_ms=ahead)
         ms[name] = (min(k1, k2) * 1e3, p1 * 1e3)
         line = (f"      {name}: kernel {ms[name][0]:.4f} ms, plain twin "
                 f"{ms[name][1]:.4f} ms, bound {bounds[name][0]:.4f} ms by "
                 f"{bounds[name][1]}")
         if name in library:
-            lib_ms[name] = cuda_time(library[name], iters=20) * 1e3
+            lib_ms[name] = cuda_time(library[name], iters=20,
+                                     ahead_ms=ahead) * 1e3
             line += f", library call {lib_ms[name]:.4f} ms"
         log(f"{line} ({what})")
 
@@ -362,6 +471,24 @@ def main() -> int:
         log(f"      rank_and_scatter, {label}: kernel {t:.4f} ms, bound "
             f"{bound(nbytes, n * 40)[0]:.4f} ms by bytes")
     del pay3, base_lone
+    # B2 at its callers' table sizes: a 1-bit pass at 2^28 rows, an 8-bit
+    # pass at 2^24 keys (the row above), at the headline's 2^26 keys and at
+    # 2^28 rows, a 16-bit pass at 2^24 keys. `host-paced` is the same loop
+    # without the sleep ahead of it: what a caller sees who does nothing
+    # else between two scans.
+    for words in (1 << 17, 1 << 20, 1 << 22, 1 << 24, 1 << 28):
+        x = scan_input("random", words) & 0xFFFF
+        check_scan(x)
+        t = min(cuda_time(lambda: sk.exclusive_scan(x), iters=20,
+                          ahead_ms=3.0) for _ in range(2)) * 1e3
+        paced = cuda_time(lambda: sk.exclusive_scan(x), iters=20) * 1e3
+        lib = min(cuda_time(lambda: torch.cumsum(x, 0, dtype=torch.int32),
+                            iters=20, ahead_ms=3.0) for _ in range(2)) * 1e3
+        b_ms, b_by = scan_bound(words)
+        log(f"      exclusive_scan, {words} words: kernel {t:.4f} ms "
+            f"(host-paced {paced:.4f}), bound {b_ms:.4f} ms by {b_by}, "
+            f"library call {lib:.4f} ms")
+        del x
     wide_ms = {}
     for bits in (11, 16):
         hist = hk.block_histogram(key.lo, key.hi, 0, bits)
@@ -385,14 +512,22 @@ def main() -> int:
             k1 = cuda_time(kern, iters=10)
             p1 = cuda_time(plain, iters=3, warmup=1)
             wide_ms[(name, bits)] = (k1 * 1e3, p1 * 1e3)
-            log(f"      {name}: kernel {k1 * 1e3:.4f} ms, plain twin "
-                f"{p1 * 1e3:.4f} ms (2^24 keys, {bits}-bit digit, "
-                f"block {BLOCK})")
+            line = (f"      {name}: kernel {k1 * 1e3:.4f} ms, plain twin "
+                    f"{p1 * 1e3:.4f} ms")
+            if name == "rank_and_scatter":
+                # Bytes: three planes in and out and the base words it must
+                # read, at most one per key. Sectors: with runs this short
+                # each 4-byte store and base read takes a 32-byte sector.
+                runs = int((hist != 0).sum())
+                line += (f", bound {bound(n * 24 + runs * 4, n * 40)[0]:.4f} "
+                         "ms by bytes, "
+                         f"{bound(n * 12 + (3 * n + runs) * 32, 0)[0]:.4f} "
+                         "ms by 32-byte sectors")
+            log(f"{line} (2^24 keys, {bits}-bit digit, block {BLOCK})")
     del key, lo, hi, pay, hist, flat, base
 
     # The operators' sizes: filter_agg sorts 2^28 rows, its last pass a
     # 1-bit digit of a lone flag plane; the joins sort 2 x 10^8 rows.
-    from tpu_qe_torch.bench.matrix import rand_u32
     for n in (1 << 28, 200_000_000):
         g = torch.Generator(device=dev).manual_seed(n)
         lo, hi = rand_u32(n, g, dev), rand_u32(n, g, dev)
@@ -760,7 +895,7 @@ def main() -> int:
         ("block_rank_and_histogram_mxu", src + "rank_mxu.cu",
          "tpu_qe/kernels/rank_mxu.py:106"),
     ]
-    print(json.dumps({"kernels": [
+    rows = [
         {"name": name, "route": "cuda", "source": source, "replaces": rep,
          "launches": launches[name],
          "launch_path": ("selfcheck" if name in off_path else
@@ -770,7 +905,9 @@ def main() -> int:
          "ms": ms[name][0], "plain_ms": ms[name][1],
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
          "library_ms": lib_ms[name]}
-        for name, source, rep in summary]}))
+        for name, source, rep in summary]
+    rows[1]["launch_floor_ms"] = floor_ms    # under exclusive_scan's bound
+    print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

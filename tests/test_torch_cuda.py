@@ -99,6 +99,67 @@ def test_exclusive_scan_wraps(cuda, n):
     np.testing.assert_array_equal(got.cpu().numpy().view(np.uint32), want)
 
 
+B2_TILE = 8192   # words per tile of B2's single-pass kernel (csrc/scan.cu)
+
+
+def _scan_input(kind, n, dev):
+    if kind == "all_ones":       # wraps in every tile's aggregate
+        return torch.full((n,), -1, dtype=torch.int32, device=dev)
+    if kind == "large_then_zeros":
+        x = torch.zeros(n, dtype=torch.int32, device=dev)
+        x[:1] = -16              # 0xFFFFFFF0
+        return x
+    g = torch.Generator(device=dev).manual_seed(n)
+    return torch.randint(-(1 << 31), (1 << 31) - 1, (n,), generator=g,
+                         device=dev, dtype=torch.int64).to(torch.int32)
+
+
+@pytest.mark.parametrize("n", [0, 1, 3, B2_TILE - 1, B2_TILE, B2_TILE + 1,
+                               3 * B2_TILE + 3, 1 << 17, 1 << 24])
+@pytest.mark.parametrize("kind", ["random", "all_ones", "large_then_zeros"])
+def test_exclusive_scan_hard_shapes(cuda, kind, n):
+    x = _scan_input(kind, n + 1, cuda)
+    for t in (x[:n], x[1:]):     # 16-byte aligned, and 4 bytes off
+        _same(sk.exclusive_scan(t), sk.exclusive_scan_plain(t))
+    small = x[:min(n, 100_000)]
+    wide = small.cpu().numpy().view(np.uint32).astype(np.uint64)
+    np.testing.assert_array_equal(
+        sk.exclusive_scan(small).cpu().numpy().view(np.uint32),
+        (np.cumsum(wide) - wide) & np.uint64(0xFFFFFFFF))
+
+
+def test_exclusive_scan_of_the_largest_table(cuda):
+    x = _scan_input("random", 1 << 28, cuda)     # a 16-bit pass at 2^24 keys
+    _same(sk.exclusive_scan(x), sk.exclusive_scan_plain(x))
+
+
+def test_exclusive_scans_back_to_back_with_fresh_scratch(cuda):
+    # the allocator hands the same scratch out again with the last scan's
+    # status words in it; two lengths in turns, so stale words differ in kind
+    xs = [_scan_input("random", n, cuda) for n in ((1 << 20) + 5, 300_000)]
+    wants = [sk.exclusive_scan_plain(x) for x in xs]
+    bad = torch.zeros((), dtype=torch.int64, device=cuda)
+    kernels.reset_launches()
+    for i in range(1000):
+        bad += (sk.exclusive_scan(xs[i % 2]) != wants[i % 2]).sum()
+    assert int(bad) == 0
+    assert kernels.LAUNCHES["exclusive_scan"] == 1000
+
+
+def test_exclusive_scan_beside_a_busy_stream(cuda):
+    side = torch.cuda.Stream(cuda)
+    a = torch.randn(8192, 8192, device=cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        for _ in range(20):
+            a @ a
+    x = _scan_input("random", 1 << 24, cuda)
+    for _ in range(10):
+        got = sk.exclusive_scan(x)
+    _same(got, sk.exclusive_scan_plain(x))
+    torch.cuda.synchronize()
+
+
 def test_each_wrapper_counts_its_launches(cuda):
     k = U64.from_numpy(_keys(5000, 1), cuda)
     kernels.reset_launches()
@@ -407,8 +468,17 @@ def test_b3_timing_script_on_the_card(cuda, capsys, tmp_path):
     row = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert set(row["ms"]) >= {"block_rank", "scatter_p0", "scatter_p1",
                               "scatter_p3", "scatter_p1_lone",
-                              "scatter_p1_lone_1bit"}
-    assert all(t > 0 for t in row["ms"].values())
+                              "scatter_p1_lone_1bit", "scatter_p1_11bit",
+                              "scatter_p1_16bit", "scatter_p1_11bit_b32768",
+                              "scatter_p1_11bit_b65535", "block_rank_11bit",
+                              "sort_8bit_passes", "sort_6bit_passes",
+                              "sort_11bit_passes"}
+    scans = {k for k in row["ms"] if k.startswith("exclusive_scan_2p")}
+    assert len(scans) == 5 and scans == set(row["queued_ms"]) == set(
+        row["library_ms"]) == set(row["library_queued_ms"])
+    for group in ("ms", "queued_ms", "library_ms", "library_queued_ms"):
+        assert all(t > 0 for t in row[group].values())
+    assert row["empty_launch_queued_ms"] > 0 and row["empty_launch_ms"] > 0
     assert row["headline"]["verified"] is True
 
 
@@ -455,6 +525,39 @@ def test_wide_digit_kernels_match_twins_and_native(cuda, shift, bits, n):
             _same(g, w)
         order = np.argsort(d, kind="stable")
         np.testing.assert_array_equal(got[2][0].cpu().numpy(), order)
+
+
+def _wide_keys(n, kind, bits, seed):
+    """(keys, shift): every key on one digit, each key of a run of 2^bits
+    keys on its own digit, or random keys and a digit straddling bit 32."""
+    keys = _keys(n, seed)
+    mask = np.uint64((1 << bits) - 1)
+    if kind == "one_digit":
+        return (keys & ~mask) | (np.uint64(0x5A5A) & mask), 0
+    if kind == "own_digits":
+        return (keys & ~mask) | (
+            (np.arange(n, dtype=np.uint64) * np.uint64(40503)) & mask), 0
+    return keys, 32 - bits // 2
+
+
+@pytest.mark.parametrize("n_pay", [0, 3])
+@pytest.mark.parametrize("block", [4096, 5000, 32768, 65535])
+@pytest.mark.parametrize("kind", ["one_digit", "own_digits", "straddling"])
+@pytest.mark.parametrize("bits", [9, 11, 13, 16])
+def test_wide_b3_blocks_payloads_and_digits(cuda, bits, kind, block, n_pay):
+    n = 168_000 + 777
+    keys, shift = _wide_keys(n, kind, bits, n + bits + block)
+    _check_b3(cuda, keys, False, shift, bits, block, n_pay)
+
+
+@pytest.mark.parametrize("n", [1, 31, 33, B3_TILE - 1, B3_TILE, B3_TILE + 1,
+                               2 * B3_TILE + 1])
+@pytest.mark.parametrize("block", [4096, 5000, 65535])
+@pytest.mark.parametrize("bits", [9, 11, 13, 16])
+def test_wide_b3_ragged_sizes(cuda, bits, block, n):
+    for kind in ("straddling", "one_digit"):
+        keys, shift = _wide_keys(n, kind, bits, n + block)
+        _check_b3(cuda, keys, False, shift, bits, block, 1)
 
 
 def test_verify_with_11_bit_digits_on_the_card(cuda, capsys):

@@ -316,6 +316,126 @@ def test_b3_rank_plain_matches_jax(kind, shift, bits, block):
     np.testing.assert_array_equal(_u32(hist), np.asarray(jh))
 
 
+# ---- B2 at the shapes its single-pass CUDA kernel finds hard (tiles of
+# 8192 words chained by look-back, 16-byte loads): sizes around a tile, no
+# multiple of 4, a slice that starts 4 bytes into its tensor, words that
+# wrap in every tile's aggregate, one large word then zeros. The reference
+# is numpy's u64 cumsum mod 2^32 and the JAX kernel in interpret mode, which
+# takes multiples of 1024: zeros appended to the input change no prefix.
+
+B2_TILE = 8192
+B2_SIZES = [0, 1, 3, 4095, 4096, 4097, B2_TILE - 1, B2_TILE, B2_TILE + 1,
+            3 * B2_TILE + 3, 20_001]
+B2_KINDS = ["random", "all_ones", "large_then_zeros"]
+
+
+def _scan_input(kind, n, seed):
+    if kind == "all_ones":
+        return np.full(n, 0xFFFFFFFF, dtype=np.uint32)
+    if kind == "large_then_zeros":
+        x = np.zeros(n, dtype=np.uint32)
+        x[:1] = 0xFFFFFFF0
+        return x
+    return np.random.default_rng(seed).integers(
+        0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
+
+
+def _check_scan(x_np, x_t):
+    got = _u32(sk.exclusive_scan(x_t))
+    wide = x_np.astype(np.uint64)
+    want = ((np.cumsum(wide) - wide) & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    np.testing.assert_array_equal(got, want)
+    padded = np.zeros(max(-(-len(x_np) // 1024), 1) * 1024, dtype=np.uint32)
+    padded[:len(x_np)] = x_np
+    np.testing.assert_array_equal(
+        got, np.asarray(jax_exclusive_scan(padded))[:len(x_np)])
+
+
+@pytest.mark.parametrize("n", B2_SIZES)
+@pytest.mark.parametrize("kind", B2_KINDS)
+def test_exclusive_scan_hard_shapes(kind, n):
+    x = _scan_input(kind, n, n)
+    _check_scan(x, torch.from_numpy(x.view(np.int32)))
+
+
+@pytest.mark.parametrize("n", [1, B2_TILE, B2_TILE + 1, 20_001])
+@pytest.mark.parametrize("kind", B2_KINDS)
+def test_exclusive_scan_of_a_slice_four_bytes_into_its_tensor(kind, n):
+    x = _scan_input(kind, n + 1, n + 1)
+    t = torch.from_numpy(x.view(np.int32))[1:]
+    assert t.is_contiguous() and t.data_ptr() % 16 == 4
+    _check_scan(x[1:], t)
+
+
+# ---- B3 at 9..16-bit digits at the shapes its CUDA scatter (a sort of the
+# tile, then stores in digit order) and rank mode are held to on the card:
+# every key on one digit, each key of a run of 2^bits keys on its own digit,
+# a digit that straddles bit 32, 0 and 3 payloads, blocks of one tile, of a
+# tile and a bit, and of many tiles, and sizes around one tile.
+
+WIDE_BITS = [9, 11, 13, 16]
+WIDE_BLOCKS = [4096, 5000, 32768, 65535]
+WIDE_KINDS = ["one_digit", "own_digits", "straddling"]
+
+
+def _wide_planes(n, kind, bits, seed):
+    """(keys, lo, hi, shift) for one of the wide kernels' hard cases."""
+    keys = _keys(n, seed)
+    mask = np.uint64((1 << bits) - 1)
+    shift = 0
+    if kind == "one_digit":
+        keys = (keys & ~mask) | (np.uint64(0x5A5A) & mask)
+    elif kind == "own_digits":
+        keys = (keys & ~mask) | (
+            (np.arange(n, dtype=np.uint64) * np.uint64(40503)) & mask)
+    else:
+        shift = 32 - bits // 2
+    k = U64.from_numpy(keys, "cpu")
+    return keys, k.lo, k.hi, shift
+
+
+@pytest.mark.parametrize("block", WIDE_BLOCKS)
+@pytest.mark.parametrize("kind", WIDE_KINDS)
+@pytest.mark.parametrize("bits", WIDE_BITS)
+def test_wide_rank_plain_matches_native(bits, kind, block):
+    keys, lo, hi, shift = _wide_planes(70_777, kind, bits, bits + block)
+    _check_rank_plain(keys, lo, hi, shift, bits, block)
+
+
+@pytest.mark.parametrize("n_pay", [0, 3])
+@pytest.mark.parametrize("block", WIDE_BLOCKS)
+@pytest.mark.parametrize("kind", WIDE_KINDS)
+@pytest.mark.parametrize("bits", WIDE_BITS)
+def test_wide_scatter_plain_is_one_stable_pass(bits, kind, block, n_pay):
+    keys, lo, hi, shift = _wide_planes(70_777, kind, bits, bits + block + 1)
+    _check_scatter_plain(keys, lo, hi, shift, bits, block, n_pay)
+
+
+@pytest.mark.parametrize("n", [1, B3_TILE - 1, B3_TILE + 1])
+@pytest.mark.parametrize("bits", WIDE_BITS)
+def test_wide_plain_at_sizes_around_a_tile(bits, n):
+    for block in (4096, 5000):
+        keys, lo, hi, shift = _wide_planes(n, "straddling", bits, n + bits)
+        _check_rank_plain(keys, lo, hi, shift, bits, block)
+        _check_scatter_plain(keys, lo, hi, shift, bits, block, 1)
+
+
+@pytest.mark.parametrize("kind", WIDE_KINDS)
+@pytest.mark.parametrize("bits", [9, 11])
+def test_wide_rank_plain_matches_jax(bits, kind):
+    # the JAX kernel builds a (8, 128, radix) one-hot per step: 9 and 11
+    # bits are what a CPU run can afford; it takes whole blocks, so pad
+    # with all-ones sentinels
+    keys, _, _, shift = _wide_planes(9_000, kind, bits, bits)
+    padded, jlo, jhi = _padded(keys, 4096)
+    k = U64.from_numpy(padded, "cpu")
+    ranks, hist = hk.block_rank_and_histogram(k.lo, k.hi, shift, bits,
+                                              block=4096)
+    jr, jh = jax_block_rank(jlo, jhi, shift, bits)
+    np.testing.assert_array_equal(_u32(ranks), np.asarray(jr).reshape(-1))
+    np.testing.assert_array_equal(_u32(hist), np.asarray(jh))
+
+
 def test_radix_pass_script_refuses_a_tree_it_did_not_import(tmp_path):
     from tpu_qe_torch.bench import radix_pass
     with pytest.raises(RuntimeError, match="not that tree's"):

@@ -184,14 +184,16 @@ def test_bench_matrix_trace_dir_profiles_one_more_radix_run(tmp_path,
      "B1 histogram"),
     ("void (anonymous namespace)::histogram_wide_kernel(unsigned int const*)",
      "B1 histogram"),
-    ("void (anonymous namespace)::reduce_kernel(unsigned int const*, "
-     "unsigned int*, long)", "B2 scan"),
-    ("void (anonymous namespace)::downsweep_kernel(unsigned int const*)",
+    ("void (anonymous namespace)::scan_kernel<true>(unsigned int const*, "
+     "unsigned int*, unsigned long*, unsigned int*, long)", "B2 scan"),
+    ("void (anonymous namespace)::scan_kernel<false>(unsigned int const*)",
      "B2 scan"),
     ("void (anonymous namespace)::rank_kernel<true>(unsigned int const*)",
      "B3 rank+scatter"),
     ("void (anonymous namespace)::rank_wide_kernel(unsigned int const*)",
      "B3 rank+scatter"),
+    ("void (anonymous namespace)::scatter_wide_kernel<true>(unsigned int "
+     "const*)", "B3 rank+scatter"),
     ("void at::native::reduce_kernel<512, 1, at::native::ReduceOp<long> >"
      "(at::native::ReduceOp<long>)", "elementwise/other"),
     ("void at_cuda_detail::cub::DeviceRadixSortOnesweepKernel<int>(int*)",

@@ -69,10 +69,10 @@ REPS = 2                     # timed calls per backend
 CATEGORIES = (
     ("B1 histogram", ("namespace)::histogram_kernel",
                       "namespace)::histogram_wide_kernel")),
-    ("B2 scan", ("namespace)::reduce_kernel", "namespace)::scan_sums_kernel",
-                 "namespace)::downsweep_kernel")),
+    ("B2 scan", ("namespace)::scan_kernel",)),   # its memset: "copies"
     ("B3 rank+scatter", ("namespace)::rank_kernel",
-                         "namespace)::rank_wide_kernel")),
+                         "namespace)::rank_wide_kernel",
+                         "namespace)::scatter_wide_kernel")),
     ("sort (torch)", ("RadixSort", "radixSort", "sort", "Sort")),
     ("scans (cumsum, cummax)", ("Scan", "scan", "cummax", "cumsum")),
     ("gathers, scatters", ("index_elementwise_kernel", "index_put",

@@ -28,13 +28,16 @@
 //
 // Digits of 1..8 bits take the kernels above the "wide digits" line; 9..16
 // bits (as the JAX kernels and SortConfig allow) take the wide kernels,
-// whose per-digit counters do not fit the 8-bit path's static tables: one
-// u16 counter per digit, two to a word, in dynamic shared memory (radix * 2
-// bytes, 128 KB at 16 bits). A block then holds at most 65535 keys, so no
-// counter carries into its neighbour. The wide rank drops the per-warp
-// table: the 8 warps of a tile take turns against the one running table,
-// and the scatter reads each key's (digit, block) base from global memory.
-// They are simple and right, not tuned.
+// whose per-digit counters do not fit the 8-bit path's static tables. B1
+// and B3's rank mode keep one u16 counter per digit, two to a word, in
+// dynamic shared memory (radix * 2 bytes, 128 KB at 16 bits); a block then
+// holds at most 65535 keys, so no counter carries into its neighbour. B3's
+// wide scatter, which every sort with wide digits runs once per pass, keeps
+// no table for a block of one tile: it sorts the tile by the digit in
+// shared memory, so that a key's cost does not grow with the radix, reads
+// one base word per run of equal digits, and stores in digit order. The
+// sectors its short runs touch bound it, not its bytes (see the note at
+// scatter_wide_kernel).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -160,6 +163,94 @@ __device__ __forceinline__ uint32_t match_digit(uint32_t d, bool valid,
   return peers;   // of an invalid lane: unused
 }
 
+// The ranking rounds of a tile held warp-striped, kKeys elements a thread:
+// element j of this lane is at position 32 * kKeys * warp + 32 j + lane of
+// the tile's sequence, valid iff 32 j < lane_keys, and digit(j) is its
+// digit of `bits` (1..8) bits; digit(j) of an invalid element may be
+// anything. On return r[j] counts the equal digits at earlier positions of
+// the warp, and `mine`, the warp's counter row, holds the warp's count of
+// every digit.
+template <typename Digit>
+__device__ __forceinline__ void warp_rank_rounds(Digit digit, int bits,
+                                                 int warp_keys, int lane_keys,
+                                                 uint32_t* mine,
+                                                 uint32_t (&r)[kKeys]) {
+  const int lane = threadIdx.x & 31;
+  const uint32_t lanemask_lt = (1u << lane) - 1u;
+  for (int d = lane; d < (1 << bits); d += 32) mine[d] = 0u;
+  __syncwarp();
+  // One round per j, in sequence order.
+#pragma unroll
+  for (int j = 0; j < kKeys; ++j) {
+    r[j] = 0u;
+    if (32 * j < warp_keys) {   // the same for the whole warp
+      const bool valid = 32 * j < lane_keys;
+      const uint32_t d = digit(j);   // of an invalid element: unused
+      const uint32_t peers = match_digit(d, valid, bits);
+      const uint32_t earlier = __popc(peers & lanemask_lt);
+      uint32_t before = 0u;
+      if (valid && earlier == 0u) {   // first lane of its match group
+        before = mine[d];
+        mine[d] = before + __popc(peers);
+      }
+      before = __shfl_sync(kFullWarp, before, valid ? __ffs(peers) - 1 : 0);
+      r[j] = before + earlier;
+      __syncwarp();
+    }
+  }
+}
+
+// Slots of a stable sort of such a tile by that digit: on return r[j] is
+// the element's slot and, for thread d < 2^bits, `total` the tile's count
+// of digit d and `first` its first slot. Every thread of the block calls
+// it; it holds barriers, and the last of them follows every use of the
+// arguments' shared memory by an earlier call.
+template <typename Digit>
+__device__ __forceinline__ void tile_sort_slots(
+    Digit digit, int bits, int warp_keys, int lane_keys,
+    uint32_t (*warp_counts)[kMaxRadix], uint32_t* warp_sums,
+    uint32_t (&r)[kKeys], uint32_t& total, uint32_t& first) {
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int radix = 1 << bits;
+  uint32_t* const mine = warp_counts[warp];
+  warp_rank_rounds(digit, bits, warp_keys, lane_keys, mine, r);
+  __syncthreads();
+
+  // Digit totals of the tile, their exclusive scan over the digits (each
+  // digit's first slot), then each warp's first slot per digit.
+  total = 0u;
+  if (tid < radix) {
+    for (int w = 0; w < kWarps; ++w) total += warp_counts[w][tid];
+  }
+  uint32_t incl = total;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const uint32_t up = __shfl_up_sync(kFullWarp, incl, o);
+    if (lane >= o) incl += up;
+  }
+  if (lane == 31) warp_sums[warp] = incl;
+  __syncthreads();
+  first = incl - total;
+  for (int w = 0; w < warp; ++w) first += warp_sums[w];
+  if (tid < radix) {
+    uint32_t s = first;
+    for (int w = 0; w < kWarps; ++w) {
+      const uint32_t c = warp_counts[w][tid];
+      warp_counts[w][tid] = s;
+      s += c;
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < kKeys; ++j) {
+    if (32 * j < lane_keys) r[j] += mine[digit(j)];
+  }
+  __syncwarp();   // the next call zeroes this warp's row
+}
+
+// B3 for 1..8-bit digits: the note above kKeys.
 template <bool SCATTER>
 __global__ void __launch_bounds__(kThreads, 3)
 rank_kernel(const uint32_t* __restrict__ lo, const uint32_t* __restrict__ hi,
@@ -176,7 +267,6 @@ rank_kernel(const uint32_t* __restrict__ lo, const uint32_t* __restrict__ hi,
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const uint32_t lanemask_lt = (1u << lane) - 1u;
   uint32_t* const mine = warp_counts[warp];
   uint32_t* const stage_a = stage;
   uint32_t* const stage_b = stage + kTile;
@@ -211,65 +301,21 @@ rank_kernel(const uint32_t* __restrict__ lo, const uint32_t* __restrict__ hi,
         }
       }
     }
-    for (int d = lane; d < radix; d += 32) mine[d] = 0u;
-    __syncwarp();
-
-    // In-warp stable rank, one round per j in input order.
-#pragma unroll
-    for (int j = 0; j < kKeys; ++j) {
-      r[j] = 0u;
-      if (32 * j < warp_keys) {   // the same for the whole warp
-        const bool valid = 32 * j < lane_keys;
-        const uint32_t d =
-            SCATTER ? select_digit(w0[j], w1[j], shift, bits) : w0[j];
-        const uint32_t peers = match_digit(d, valid, bits);
-        const uint32_t earlier = __popc(peers & lanemask_lt);
-        uint32_t before = 0u;
-        if (valid && earlier == 0u) {   // first lane of its match group
-          before = mine[d];
-          mine[d] = before + __popc(peers);
-        }
-        before = __shfl_sync(kFullWarp, before, valid ? __ffs(peers) - 1 : 0);
-        r[j] = before + earlier;
-        __syncwarp();
-      }
-    }
-    __syncthreads();
-
+    const auto digit = [&](int j) {
+      return SCATTER ? select_digit(w0[j], w1[j], shift, bits) : w0[j];
+    };
     if (SCATTER) {
-      // Digit totals of the tile, their exclusive scan over the digits
-      // (each digit's first slot), then each warp's first slot per digit.
-      uint32_t total = 0u;
+      uint32_t total, first;
+      tile_sort_slots(digit, bits, warp_keys, lane_keys, warp_counts,
+                      warp_sums, r, total, first);
       if (tid < radix) {
-        for (int w = 0; w < kWarps; ++w) total += warp_counts[w][tid];
-      }
-      uint32_t incl = total;
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const uint32_t up = __shfl_up_sync(kFullWarp, incl, o);
-        if (lane >= o) incl += up;
-      }
-      if (lane == 31) warp_sums[warp] = incl;
-      __syncthreads();
-      uint32_t first = incl - total;
-      for (int w = 0; w < warp; ++w) first += warp_sums[w];
-      if (tid < radix) {
-        uint32_t s = first;
-        for (int w = 0; w < kWarps; ++w) {
-          const uint32_t c = warp_counts[w][tid];
-          warp_counts[w][tid] = s;
-          s += c;
-        }
         run_base[tid] = digit_base + running - first;
         running += total;
       }
-      __syncthreads();
-
-      // Stage the key words at their slots; r becomes the slot.
+      // Stage the key words at their slots.
 #pragma unroll
       for (int j = 0; j < kKeys; ++j) {
         if (32 * j < lane_keys) {
-          r[j] += mine[select_digit(w0[j], w1[j], shift, bits)];
           stage_a[r[j]] = w0[j];
           stage_b[r[j]] = w1[j];
         }
@@ -312,6 +358,8 @@ rank_kernel(const uint32_t* __restrict__ lo, const uint32_t* __restrict__ hi,
         }
       }
     } else {
+      warp_rank_rounds(digit, bits, warp_keys, lane_keys, mine, r);
+      __syncthreads();
       // Each warp's count of the digit so far in the block.
       if (tid < radix) {
         uint32_t s = running;
@@ -373,22 +421,18 @@ histogram_wide_kernel(const uint32_t* __restrict__ lo,
   }
 }
 
-// B3 for 9..16-bit digits, one key per thread and tile. The in-warp rank
-// comes from match_any; the warps of a tile then take turns, in warp order, against
-// one table of running in-block counts: warp w reads each key's base, then
-// one leader per match group adds the group's size, and a barrier passes
-// the turn on. So the rank is the key's occurrence index among equal digits
-// of its block in input order. SCATTER adds the (digit, block) base from
-// B2's scan, read from global memory.
-template <bool SCATTER>
+// B3's rank mode for 9..16-bit digits, one key per thread and tile (on no
+// sort path; the scatter below is the kernel the sorts run). The in-warp
+// rank comes from match_any; the warps of a tile then take turns, in warp
+// order, against one table of running in-block counts: warp w reads each
+// key's count, then one leader per match group adds the group's size, and a
+// barrier passes the turn on. So the rank is the key's occurrence index
+// among equal digits of its block in input order.
 __global__ void __launch_bounds__(kThreads)
 rank_wide_kernel(const uint32_t* __restrict__ lo,
                  const uint32_t* __restrict__ hi, int64_t n, int64_t block,
                  int64_t nb, int shift, int bits,
-                 const uint32_t* __restrict__ base,
-                 uint32_t* __restrict__ ranks, uint32_t* __restrict__ hist,
-                 uint32_t* __restrict__ out_lo, uint32_t* __restrict__ out_hi,
-                 Planes planes) {
+                 uint32_t* __restrict__ ranks, uint32_t* __restrict__ hist) {
   extern __shared__ uint32_t words[];
   const int radix = 1 << bits;
   const int64_t b = blockIdx.x;
@@ -404,16 +448,9 @@ rank_wide_kernel(const uint32_t* __restrict__ lo,
   for (int64_t t0 = start; t0 < end; t0 += kThreads) {
     const int64_t g = t0 + tid;
     const bool valid = g < end;
-    uint32_t l = 0u, h = 0u, d = 0xFFFFFFFFu;  // invalid lanes never match
-    if (valid) {
-      if (SCATTER) {
-        l = lo[g];
-        h = hi[g];
-        d = select_digit(l, h, shift, bits);
-      } else {
-        d = load_digit(lo, hi, g, shift, bits);
-      }
-    }
+    // invalid lanes never match
+    const uint32_t d =
+        valid ? load_digit(lo, hi, g, shift, bits) : 0xFFFFFFFFu;
     const uint32_t peers = __match_any_sync(0xFFFFFFFFu, d);
     const uint32_t in_warp = __popc(peers & lanemask_lt);
     uint32_t r = 0u;
@@ -425,32 +462,261 @@ rank_wide_kernel(const uint32_t* __restrict__ lo,
       }
       __syncthreads();
     }
-    if (valid) {
-      if (SCATTER) {
-        const uint32_t dst = base[d * nb + b] + r;
-        out_lo[dst] = l;
-        out_hi[dst] = h;
-        for (int p = 0; p < planes.count; ++p) {
-          planes.out[p][dst] = planes.in[p][g];
-        }
-      } else {
-        ranks[g] = r;
+    if (valid) ranks[g] = r;
+  }
+  __syncthreads();
+  for (int d = tid; d < radix; d += kThreads) {
+    hist[d * nb + b] = get_u16(words, d);
+  }
+}
+
+// B3's scatter for 9..16-bit digits. A table of `radix` counters per block
+// would be mostly empty here (2048 to 65536 digits for the 4096 keys of a
+// tile) and its size, its clearing and its turns would grow with the radix.
+// So the tile is sorted instead, and the cost of a key does not depend on
+// `bits`:
+//
+// 1. Keys are loaded as in rank_kernel: 16 a thread, warp-striped.
+// 2. The tile is sorted stably by the digit as two stable sub-passes of
+//    (bits + 1) / 2 and bits / 2 bits, low sub-digit first, each the
+//    ranking rounds of rank_kernel (ballot matching, warp-private counter
+//    rows, one scan per tile: tile_sort_slots). What moves through shared
+//    memory between them is one word a key: its digit and its 12-bit index
+//    in the tile. The second sub-pass leaves each key's final slot at its
+//    index, the thread that loaded a key reads it back and writes the key's
+//    words, still in its registers, to the staging planes at that slot.
+//    The tile then lies in (digit, input order) order.
+// 3. Thread i takes slots i, i + 256, ...: a slot is a run's head if its
+//    digit differs from the slot before, one ballot per 32 slots finds each
+//    slot's nearest head, and a running maximum over the 128 groups of 32
+//    carries heads across groups. A key's rank among equal digits of the
+//    tile is its slot minus its run's head.
+// 4. Only the last slot of a run reads base[d * nb + b] from global memory,
+//    and, where a block holds several tiles, adds the run's length to the
+//    digit's u16 counter of earlier tiles (one shared-memory atomic per run,
+//    no turns). It leaves base + earlier count at the head's slot for the
+//    run's members. A block of one tile (every engine path: block 4096)
+//    takes the instantiation with no table, whose shared memory (57 KB) and
+//    blocks per SM do not depend on `bits`; the table is cleared once per
+//    CUDA block, which then ranks at least two tiles with it.
+// 5. Keys, then each payload plane staged as in rank_kernel, are stored in
+//    slot order to run base + rank in run: neighbouring lanes write rising
+//    addresses, and the members of a run neighbouring words.
+//
+// What bounds it on an H100: at the default block a run holds 2 keys on
+// average at 11 bits and 1 at 16, so nearly every 4-byte store touches a
+// 32-byte sector of its own. The sector count, not the byte count, is the
+// bound: 3 planes x 2^24 keys x 32 B is 1.6 GB, 0.48 ms at 3.35 TB/s,
+// against 0.12 ms for the bytes. Larger blocks lengthen the runs (16 keys
+// at 11 bits and block 32768).
+constexpr uint32_t kNoHead = 0xFFFFFFFFu;
+constexpr int kGroups = kTile / 32;       // groups of 32 slots per tile
+constexpr int kIndexBits = 12;            // a key's index in its tile
+static_assert(kTile == 1 << kIndexBits, "the index rides with the digit");
+static_assert(kGroups == 4 * 32, "warp 0 scans four groups a lane");
+
+__device__ __forceinline__ uint32_t fetch_add_u16(uint32_t* words, uint32_t d,
+                                                  uint32_t v) {
+  const uint32_t sh = (d & 1u) * 16u;
+  return (atomicAdd(&words[d >> 1], v << sh) >> sh) & 0xFFFFu;
+}
+
+template <bool ONE_TILE>
+__global__ void __launch_bounds__(kThreads, 3)
+scatter_wide_kernel(const uint32_t* __restrict__ lo,
+                    const uint32_t* __restrict__ hi, int64_t n, int64_t block,
+                    int64_t nb, int shift, int bits,
+                    const uint32_t* __restrict__ base,
+                    uint32_t* __restrict__ out_lo,
+                    uint32_t* __restrict__ out_hi, Planes planes) {
+  // Three planes of kTile words; then, unless ONE_TILE, radix u16 counters.
+  extern __shared__ uint32_t stage[];
+  __shared__ uint32_t warp_counts[kWarps][kMaxRadix];
+  __shared__ uint32_t warp_sums[kWarps];
+  __shared__ uint32_t group_head[kGroups];
+  const int64_t b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const uint32_t lanemask_le = 0xFFFFFFFFu >> (31 - lane);
+  uint32_t* const stage_a = stage;
+  uint32_t* const stage_b = stage + kTile;
+  uint32_t* const stage_c = stage + 2 * kTile;
+  uint32_t* const table = stage + 3 * kTile;
+  const int low_bits = (bits + 1) / 2;
+  const int high_bits = bits - low_bits;
+  const uint32_t low_mask = (1u << low_bits) - 1u;
+
+  if (!ONE_TILE) {   // first used after the barriers of the first sort
+    for (int w = tid; w < (1 << bits) / 2; w += kThreads) table[w] = 0u;
+  }
+  const int64_t start = b * block;
+  const int64_t end = start + block < n ? start + block : n;
+  for (int64_t t0 = start; t0 < end; t0 += kTile) {
+    const int tile_keys = end - t0 < kTile ? static_cast<int>(end - t0) : kTile;
+    const int warp_keys = tile_keys - warp * 32 * kKeys;
+    const int lane_keys = warp_keys - lane;
+    const int first_index = warp * 32 * kKeys + lane;
+    const int64_t g0 = t0 + first_index;
+
+    uint32_t w0[kKeys], w1[kKeys], r[kKeys], m[kKeys];
+    uint32_t total, first;   // of the sorts' sub-digits: unused
+#pragma unroll
+    for (int j = 0; j < kKeys; ++j) {
+      w0[j] = 0u;
+      w1[j] = 0u;
+      if (32 * j < lane_keys) {
+        w0[j] = lo[g0 + 32 * j];
+        w1[j] = hi[g0 + 32 * j];
       }
     }
-  }
-  if (!SCATTER) {
+
+    // Low sub-digit; then (digit, index) moves to its slot.
+    tile_sort_slots(
+        [&](int j) {
+          return select_digit(w0[j], w1[j], shift, bits) & low_mask;
+        },
+        low_bits, warp_keys, lane_keys, warp_counts, warp_sums, r, total,
+        first);
+#pragma unroll
+    for (int j = 0; j < kKeys; ++j) {
+      if (32 * j < lane_keys) {
+        stage_c[r[j]] = (select_digit(w0[j], w1[j], shift, bits) << kIndexBits)
+                        | static_cast<uint32_t>(first_index + 32 * j);
+      }
+    }
     __syncthreads();
-    for (int d = tid; d < radix; d += kThreads) {
-      hist[d * nb + b] = get_u16(words, d);
+#pragma unroll
+    for (int j = 0; j < kKeys; ++j) {
+      m[j] = 32 * j < lane_keys ? stage_c[first_index + 32 * j] : 0u;
+    }
+
+    // High sub-digit; the final slot goes to the key's index. Every read
+    // of stage_c above precedes the barriers inside the sort.
+    const int high_shift = kIndexBits + low_bits;
+    tile_sort_slots([&](int j) { return m[j] >> high_shift; }, high_bits,
+                    warp_keys, lane_keys, warp_counts, warp_sums, r, total,
+                    first);
+#pragma unroll
+    for (int j = 0; j < kKeys; ++j) {
+      if (32 * j < lane_keys) stage_c[m[j] & (kTile - 1)] = r[j];
+    }
+    __syncthreads();
+    // r becomes the final slot of the key this thread loaded.
+#pragma unroll
+    for (int j = 0; j < kKeys; ++j) {
+      if (32 * j < lane_keys) {
+        r[j] = stage_c[first_index + 32 * j];
+        stage_a[r[j]] = w0[j];
+        stage_b[r[j]] = w1[j];
+      }
+    }
+    __syncthreads();
+
+    // Heads of the runs of equal digits: m becomes each slot's nearest head
+    // inside its group of 32 slots, or kNoHead.
+#pragma unroll
+    for (int j = 0; j < kKeys; ++j) {
+      const int i = tid + kThreads * j;
+      m[j] = kNoHead;
+      uint32_t last = 0u;   // the group's last head, 0 if it has none
+      if (i - lane < tile_keys) {   // the same for the whole warp
+        const bool valid = i < tile_keys;
+        const uint32_t d = valid ? select_digit(stage_a[i], stage_b[i], shift,
+                                                bits) : kNoHead;
+        uint32_t prev = __shfl_up_sync(kFullWarp, d, 1);
+        if (lane == 0 && i > 0) {
+          prev = select_digit(stage_a[i - 1], stage_b[i - 1], shift, bits);
+        }
+        const uint32_t heads =
+            __ballot_sync(kFullWarp, valid && (i == 0 || prev != d));
+        const uint32_t below = heads & lanemask_le;
+        if (below) m[j] = i - lane + 31 - __clz(below);
+        if (heads) last = i - lane + 31 - __clz(heads);
+      }
+      if (lane == 0) group_head[kWarps * j + warp] = last;
+    }
+    __syncthreads();
+    // group_head becomes the last head before each group: a running
+    // maximum over the groups in slot order (slot 0 is a head), by warp 0,
+    // four groups a lane.
+    if (warp == 0) {
+      uint32_t g[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) g[k] = group_head[4 * lane + k];
+      uint32_t incl = max(max(g[0], g[1]), max(g[2], g[3]));
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const uint32_t up = __shfl_up_sync(kFullWarp, incl, o);
+        if (lane >= o) incl = max(incl, up);
+      }
+      uint32_t carry = __shfl_up_sync(kFullWarp, incl, 1);
+      if (lane == 0) carry = 0u;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        group_head[4 * lane + k] = carry;
+        carry = max(carry, g[k]);
+      }
+    }
+    __syncthreads();
+
+    // The last slot of each run leaves the run's base at the head's slot.
+#pragma unroll
+    for (int j = 0; j < kKeys; ++j) {
+      const int i = tid + kThreads * j;
+      if (i < tile_keys) {
+        if (m[j] == kNoHead) m[j] = group_head[kWarps * j + warp];
+        const uint32_t d = select_digit(stage_a[i], stage_b[i], shift, bits);
+        if (i + 1 == tile_keys ||
+            select_digit(stage_a[i + 1], stage_b[i + 1], shift, bits) != d) {
+          const uint32_t earlier =
+              ONE_TILE ? 0u : fetch_add_u16(table, d, i + 1 - m[j]);
+          stage_c[m[j]] = base[d * nb + b] + earlier;
+        }
+      }
+    }
+    __syncthreads();
+
+    // Store in slot order; w0 becomes the slot's destination.
+#pragma unroll
+    for (int j = 0; j < kKeys; ++j) {
+      const int i = tid + kThreads * j;
+      if (i < tile_keys) {
+        w0[j] = stage_c[m[j]] + (i - m[j]);
+        out_lo[w0[j]] = stage_a[i];
+        out_hi[w0[j]] = stage_b[i];
+      }
+    }
+
+    // Payload planes as in rank_kernel.
+    if (planes.count > 0) __syncthreads();
+    for (int p = 0; p < planes.count; ++p) {
+      const uint32_t* __restrict__ in = planes.in[p];
+      uint32_t* __restrict__ out = planes.out[p];
+      uint32_t* const buf = (p & 1) ? stage_b : stage_a;
+#pragma unroll
+      for (int j = 0; j < kKeys; ++j) {
+        if (32 * j < lane_keys) buf[r[j]] = in[g0 + 32 * j];
+      }
+      __syncthreads();
+#pragma unroll
+      for (int j = 0; j < kKeys; ++j) {
+        const int i = tid + kThreads * j;
+        if (i < tile_keys) out[w0[j]] = buf[i];
+      }
     }
   }
 }
 
-// Dynamic shared memory of the wide kernels, set on every call (above 48 KB
-// a kernel takes it only after this attribute).
+constexpr size_t kWideStageBytes = 3 * kTile * sizeof(uint32_t);
+
+// Dynamic shared memory of a wide kernel, set on every call (above 48 KB a
+// kernel takes it only after this attribute): `fixed` bytes and, with
+// `table`, the radix u16 counters.
 template <typename Kernel>
-cudaError_t wide_smem(Kernel kernel, int bits, size_t* bytes) {
-  *bytes = static_cast<size_t>(1) << bits << 1;  // radix u16 counters
+cudaError_t wide_smem(Kernel kernel, size_t fixed, bool table, int bits,
+                      size_t* bytes) {
+  *bytes = fixed + (table ? static_cast<size_t>(1) << bits << 1 : 0);
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(*bytes));
@@ -479,7 +745,7 @@ int tq_block_histogram(const uint32_t* lo, const uint32_t* hi, int64_t n,
   if (bits > 8) {
     if (!wide_args_ok(bits, block)) return cudaErrorInvalidValue;
     size_t bytes;
-    err = wide_smem(histogram_wide_kernel, bits, &bytes);
+    err = wide_smem(histogram_wide_kernel, 0, true, bits, &bytes);
     if (err != cudaSuccess) return err;
     histogram_wide_kernel<<<static_cast<unsigned>(nb), kThreads, bytes,
                             static_cast<cudaStream_t>(stream)>>>(
@@ -507,12 +773,11 @@ int tq_block_rank_and_histogram(const uint32_t* lo, const uint32_t* hi,
   if (bits > 8) {
     if (!wide_args_ok(bits, block)) return cudaErrorInvalidValue;
     size_t bytes;
-    err = wide_smem(rank_wide_kernel<false>, bits, &bytes);
+    err = wide_smem(rank_wide_kernel, 0, true, bits, &bytes);
     if (err != cudaSuccess) return err;
-    rank_wide_kernel<false><<<static_cast<unsigned>(nb), kThreads, bytes,
-                              static_cast<cudaStream_t>(stream)>>>(
-        lo, hi, n, block, nb, shift, bits, nullptr, ranks, hist, nullptr,
-        nullptr, none);
+    rank_wide_kernel<<<static_cast<unsigned>(nb), kThreads, bytes,
+                       static_cast<cudaStream_t>(stream)>>>(
+        lo, hi, n, block, nb, shift, bits, ranks, hist);
     return cudaGetLastError();
   }
   rank_kernel<false><<<static_cast<unsigned>(nb), kThreads, 0,
@@ -544,13 +809,15 @@ int tq_rank_and_scatter(const uint32_t* lo, const uint32_t* hi, int64_t n,
   }
   if (bits > 8) {
     if (!wide_args_ok(bits, block)) return cudaErrorInvalidValue;
+    const bool one_tile = block <= kTile;
+    const auto kernel = one_tile ? scatter_wide_kernel<true>
+                                 : scatter_wide_kernel<false>;
     size_t bytes;
-    err = wide_smem(rank_wide_kernel<true>, bits, &bytes);
+    err = wide_smem(kernel, kWideStageBytes, !one_tile, bits, &bytes);
     if (err != cudaSuccess) return err;
-    rank_wide_kernel<true><<<static_cast<unsigned>(nb), kThreads, bytes,
-                             static_cast<cudaStream_t>(stream)>>>(
-        lo, hi, n, block, nb, shift, bits, base, nullptr, nullptr, out_lo,
-        out_hi, planes);
+    kernel<<<static_cast<unsigned>(nb), kThreads, bytes,
+             static_cast<cudaStream_t>(stream)>>>(
+        lo, hi, n, block, nb, shift, bits, base, out_lo, out_hi, planes);
     return cudaGetLastError();
   }
   rank_kernel<true><<<static_cast<unsigned>(nb), kThreads, kStageBytes,

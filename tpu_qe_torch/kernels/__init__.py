@@ -84,6 +84,8 @@ def library() -> ctypes.CDLL:
         lib.tq_exclusive_scan_scratch.restype = i64
         lib.tq_exclusive_scan.argtypes = [p, p, p, i64, i, p]
         lib.tq_exclusive_scan.restype = i
+        lib.tq_empty_launch.argtypes = [i, p]
+        lib.tq_empty_launch.restype = i
         lib.tq_morton_encode_lut.argtypes = [p, p, p, p, i64, i, p, p, i, p]
         lib.tq_morton_encode_lut.restype = i
         lib.tq_sort_chunks.argtypes = [p, p, i, i64, i64, i, p]
@@ -107,6 +109,16 @@ def check(lib: ctypes.CDLL, code: int, name: str) -> None:
 
 def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def empty_launch(device: torch.device) -> None:
+    """Launch a kernel that does nothing on the device's current stream:
+    timed, it is the floor under any kernel's time (csrc/scan.cu). It is no
+    kernel of the port and counts in no entry of LAUNCHES."""
+    lib = library()
+    check(lib, lib.tq_empty_launch(
+        device.index, torch.cuda.current_stream(device).cuda_stream),
+        "empty_launch")
 
 
 def require_planes(*planes: torch.Tensor) -> torch.device:

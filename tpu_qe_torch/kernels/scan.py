@@ -1,9 +1,10 @@
 """Flat exclusive prefix sum of u32 (B2).
 
-Port of tpu_qe/kernels/scan.py::exclusive_scan as a reduce-then-scan CUDA
-kernel in csrc/scan.cu. Used for the flat digit-major histogram scan: one
-exclusive scan of the (radix * nb) table gives every (digit, block) base.
-Any length is taken (the JAX kernel needed multiples of 1024).
+Port of tpu_qe/kernels/scan.py::exclusive_scan as a single-pass CUDA kernel
+with decoupled look-back in csrc/scan.cu: one launch, the input read once.
+Used for the flat digit-major histogram scan: one exclusive scan of the
+(radix * nb) table gives every (digit, block) base. Any length and any
+4-byte alignment is taken (the JAX kernel needed multiples of 1024).
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ def exclusive_scan(x: torch.Tensor) -> torch.Tensor:
     n = x.shape[0]
     lib = library()
     out = torch.empty_like(x)
+    # per-tile status words and the ticket; the library clears them
     scratch = torch.empty(max(lib.tq_exclusive_scan_scratch(n), 1),
                           dtype=torch.int32, device=dev)
     check(lib, lib.tq_exclusive_scan(x.data_ptr(), out.data_ptr(),

@@ -1,9 +1,10 @@
 """Shared-library builds at first use, into the package's build directory.
 
 The directory is listed in .gitignore. A library is rebuilt when any of its
-sources is newer than it. Each build writes to a private temporary name and
-renames it into place, so processes that build at the same time never load
-a half-written file.
+sources is newer than it. Several sources are compiled at the same time, one
+compiler process each, and then linked. Each build writes to private
+temporary names and renames the library into place, so processes that build
+at the same time never load a half-written file.
 """
 
 from __future__ import annotations
@@ -21,26 +22,34 @@ def build_library(name: str, sources: list[str],
     """Path of lib`name`.so, compiled first if missing or stale.
 
     `command` is the compiler invocation without the output and sources;
-    `-o <tmp> <sources...>` are appended. Raises RuntimeError with the
-    compiler's output when it fails.
+    `-o <tmp> <sources...>` are appended, for several sources after each
+    was compiled with `-c` into an object of its own. Raises RuntimeError
+    with the compiler's output when it fails.
     """
     os.makedirs(BUILD_DIR, exist_ok=True)
     path = os.path.join(BUILD_DIR, f"lib{name}.so")
     if os.path.exists(path) and os.path.getmtime(path) >= max(
             os.path.getmtime(s) for s in sources):
         return path
-    fd, tmp = tempfile.mkstemp(prefix=f"lib{name}.", suffix=".so.tmp",
-                               dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        r = subprocess.run(command + ["-o", tmp] + sources,
+    with tempfile.TemporaryDirectory(prefix=f"lib{name}.", dir=BUILD_DIR) as d:
+        inputs = sources
+        if len(sources) > 1:
+            inputs = [os.path.join(d, f"{i}.o") for i in range(len(sources))]
+            procs = [subprocess.Popen(command + ["-c", "-o", obj, src],
+                                      stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True)
+                     for obj, src in zip(inputs, sources)]
+            outs = [p.communicate()[0] for p in procs]
+            if any(p.returncode for p in procs):
+                raise RuntimeError(
+                    f"building lib{name}.so failed ({' '.join(command)}):\n"
+                    + "".join(outs))
+        tmp = os.path.join(d, "lib.so")
+        r = subprocess.run(command + ["-o", tmp] + inputs,
                            capture_output=True, text=True)
         if r.returncode != 0:
             raise RuntimeError(
                 f"building lib{name}.so failed ({' '.join(command)}):\n"
                 f"{r.stdout}{r.stderr}")
         os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
     return path
