@@ -34,12 +34,20 @@ Run from the root of the repository on a machine with a CUDA card. Phases:
    2^17 to 2^28 words stand beside torch.cumsum's and a bound that is the
    larger of its bytes at the HBM peak and an empty kernel's launch, the
    wide scatter's beside its byte bound and the bound of the 32-byte
-   sectors its stores touch;
+   sectors its stores touch; wide B1 (9..16-bit digits) at the shapes its
+   grouped kernel finds hard: 9, 11, 13 and 16 bits, blocks of 1000, 4096,
+   5000, 32768 and 65535 keys, n of 1, 4095, 4097, 2^22 + 777 and 2^24
+   (2^28 at 11 bits), a digit that straddles bit 32, a block of 65535 keys
+   on one digit, keys on two digits only, 20 calls back to back into
+   recycled memory and a call beside a busy stream, against its twin and
+   numpy; its and the wide rank mode's times at 11 and 16 bits beside
+   their byte bounds;
 4. B4 (morton LUT encode; quirk on and off, ragged n),
-   B5 (bitonic chunk sort; rows 8 and 64 and a chunk wider than shared
-   memory, heavy ties, 0, 1 and 3 payloads) and B6 (tensor-core rank;
-   random and skewed digits, blocks 1024, 2048 and 4096), bit-exact against
-   their twins and oracles; then each kernel's time beside its twin's, on
+   B5 (bitonic chunk sort; rows 1, 2, 4, 8 and 64 and a chunk wider than
+   its tile, heavy ties, 0, 1, 3 and 8 payloads; all keys equal, chunks in
+   and against order, one chunk and an odd number of chunks) and B6
+   (tensor-core rank; random and skewed digits, blocks 1024, 2048 and
+   4096), bit-exact against their twins and oracles; then each kernel's time beside its twin's, on
    outputs that are compared again, and torch.sort's beside B5's;
 5. main path: `verify` at 2^24 triangles for the 8x8-bit, 6x11-bit and
    11x6-bit schedules, bit-exact against the C++ pipeline oracle, with the
@@ -313,6 +321,78 @@ def main() -> int:
             "digit, own digits, straddling) and at n = 1, "
             f"{tile - 1}, {tile + 1}")
 
+    # Wide B1: groups of eight key blocks counted per window of 4096
+    # digits and stored as whole sectors (csrc/radix.cu).
+    def check_b1(keys, shift, bits, block, oracle):
+        key = U64.from_numpy(keys, dev)
+        got = hk.block_histogram(key.lo, key.hi, shift, bits, block)
+        wants = [hk.block_histogram_plain(key.lo, key.hi, shift, bits, block)]
+        if oracle:
+            n, nb = len(keys), -(-len(keys) // block)
+            d = ((keys >> u64(shift)) & u64((1 << bits) - 1)).astype(np.int64)
+            wants.append(np.bincount(
+                d * nb + np.arange(n, dtype=np.int64) // block,
+                minlength=nb << bits))
+        compare("block_histogram", got, *wants)
+        return got
+
+    n = (1 << 18) + 777
+    rand = rng.integers(0, 1 << 64, size=n, dtype=np.uint64)
+    big = rng.integers(0, 1 << 64, size=1 << 24, dtype=np.uint64)
+    b1_blocks = (1000, 4096, 5000, 32768, 65535)
+    for bits in (9, 11, 13, 16):
+        straddle = 32 - bits // 2
+        mask = u64((1 << bits) - 1)
+        own = (np.arange(n, dtype=np.uint64) * u64(40503)) & mask
+        # digits 1 and 2^bits - 1 only: the rest of the table is zeros
+        two = (rand & ~mask) | np.where(rand >> u64(63), mask, u64(1))
+        for block in b1_blocks:
+            for keys, shift in ((skewed(rand, 0, bits), 0),
+                                ((rand & ~mask) | own, 0), (two, 0),
+                                (rand, straddle)):
+                check_b1(keys, shift, bits, block, True)
+            for m in (1, 4095, 4097):
+                check_b1(rand[:m], straddle, bits, block, True)
+        for m, blocks in (((1 << 22) + 777, (4096, 65535)),
+                          (1 << 24, (4096,))):
+            for block in blocks:
+                check_b1(big[:m], straddle, bits, block, False)
+        full = check_b1(skewed(big[:3 * 65535 + 10], 0, bits), 0, bits, 65535,
+                        True)
+        if full[0x5A5A & ((1 << bits) - 1)].tolist() != [65535] * 3 + [10]:
+            fail(f"block_histogram: a block of 65535 keys on one {bits}-bit "
+                 "digit is not counted as 65535")
+        log(f"      bits={bits}: wide B1 bit-exact at blocks "
+            f"{', '.join(map(str, b1_blocks))} (one digit, own digits, two "
+            f"digits, straddling; n = {n}, 1, 4095, 4097), at 2^22 + 777 and "
+            "2^24 keys, and with 65535 keys of a block on one digit")
+    # 20 calls back to back: the allocator hands the last table out again,
+    # with the last call's counts in it; two inputs in turns.
+    for bits in (11, 16):
+        mask = u64((1 << bits) - 1)
+        two = (rand & ~mask) | np.where(rand >> u64(63), mask, u64(1))
+        keys2 = [U64.from_numpy(a, dev) for a in (two, big[:70_777])]
+        wants = [hk.block_histogram_plain(k.lo, k.hi, 0, bits) for k in keys2]
+        bad = torch.zeros((), dtype=torch.int64, device=dev)
+        for i in range(20):
+            k = keys2[i % 2]
+            bad += (hk.block_histogram(k.lo, k.hi, 0, bits)
+                    != wants[i % 2]).sum()
+        if int(bad):
+            fail(f"block_histogram: {int(bad)} words differ over 20 calls "
+                 f"back to back at {bits} bits")
+    side = torch.cuda.Stream(dev)
+    a = torch.randn(8192, 8192, device=dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        for _ in range(10):
+            a @ a
+    check_b1(big[:(1 << 22) + 777], 24, 16, 4096, False)
+    torch.cuda.synchronize()
+    del a, big, keys2, wants
+    log("      wide B1: 20 calls back to back into recycled memory (11 and "
+        "16 bits) and a call beside a busy stream bit-exact")
+
     # B2's hard shapes. Its tile is 8192 words (csrc/scan.cu).
     from tpu_qe_torch.bench.matrix import rand_u32
     scan_tile = 8192
@@ -489,7 +569,7 @@ def main() -> int:
             f"(host-paced {paced:.4f}), bound {b_ms:.4f} ms by {b_by}, "
             f"library call {lib:.4f} ms")
         del x
-    wide_ms = {}
+    wide_ms, wide_bounds = {}, {}
     for bits in (11, 16):
         hist = hk.block_histogram(key.lo, key.hi, 0, bits)
         base = sk.exclusive_scan(hist.reshape(-1))
@@ -514,6 +594,14 @@ def main() -> int:
             wide_ms[(name, bits)] = (k1 * 1e3, p1 * 1e3)
             line = (f"      {name}: kernel {k1 * 1e3:.4f} ms, plain twin "
                     f"{p1 * 1e3:.4f} ms")
+            if name != "rank_and_scatter":
+                # Bytes: the one key word the digit covers in, the dense
+                # (radix, nb) table out and, in rank mode, a rank per key.
+                nbytes = n * (4 if name == "block_histogram" else 8) + (
+                    4 * hist.numel())
+                wide_bounds[(name, bits)] = bound(nbytes, n * 4)
+                line += (f", bound {wide_bounds[(name, bits)][0]:.4f} ms by "
+                         f"{wide_bounds[(name, bits)][1]}")
             if name == "rank_and_scatter":
                 # Bytes: three planes in and out and the base words it must
                 # read, at most one per key. Sectors: with runs this short
@@ -550,6 +638,10 @@ def main() -> int:
                 f"{' lone plane' if bits == 1 else ''}: B1, B2, B3 scatter "
                 "bit-exact against their twins")
             del hist, flat, base
+        if n == 1 << 28:
+            compare("block_histogram", hk.block_histogram(lo, hi, 0, 11),
+                    hk.block_histogram_plain(lo, hi, 0, 11))
+            log(f"      n={n} bits=11: wide B1 bit-exact against its twin")
         del lo, hi, pay
         torch.cuda.empty_cache()
 
@@ -589,10 +681,11 @@ def main() -> int:
     def spread(p0: np.ndarray) -> np.ndarray:   # payloads derived from p0
         return (p0.astype(np.uint64) * u64(2654435761)) & u64(0xFFFFFFFF)
 
-    for n_pay in (0, 1, 3):
+    for n_pay in (0, 1, 3, 8):
         wide = 4 * bk.shared_tile(1 << 30, 2 + n_pay, dev) // 128
-        for rows in (8, 64, wide):
-            nb = max(1, (1 << 21) // (rows * 128))
+        for rows in (1, 2, 4, 8, 64, wide):
+            # an odd number of chunks for the narrow ones, which share a tile
+            nb = max(1, (1 << 19) // (rows * 128)) + (rows < 8)
             for ties in (False, True):
                 shape = (nb, rows * 128)
                 if ties:
@@ -631,6 +724,23 @@ def main() -> int:
                         fail(f"sort_chunks: payload {i} left payload 0")
                 log(f"      rows={rows} (width {rows * 128}) nb={nb} "
                     f"payloads={n_pay} ties={ties}: B5 bit-exact")
+
+    # all keys equal (every exchange is a tie), chunks in and against
+    # order, one chunk and an odd number of chunks
+    for rows in (1, 8, 64, 4 * bk.shared_tile(1 << 30, 3, dev) // 128):
+        for nb in (1, 3):
+            shape = (nb, rows * 128)
+            key = np.sort(rng.integers(0, 1 << 64, shape, dtype=np.uint64),
+                          axis=1)
+            for label, k in (("all equal", np.full(shape, 7, dtype=np.uint64)),
+                             ("sorted", key), ("reversed", key[:, ::-1])):
+                p0 = np.arange(nb * rows * 128, dtype=np.uint32).reshape(shape)
+                ins = [planes(a) for a in (*words(k), p0, spread(p0))]
+                for o, w in zip(bk.sort_chunks(*ins, rows=rows),
+                                bk.sort_chunks_plain(*ins, rows=rows)):
+                    compare("sort_chunks", o, w)
+        log(f"      rows={rows} nb=1, 3: B5 bit-exact on all-equal, sorted "
+            "and reversed chunks")
 
     n = (1 << 22) + 777
     rand = rng.integers(0, 1 << 64, size=n, dtype=np.uint64)
@@ -707,7 +817,18 @@ def main() -> int:
     library["sort_chunks"] = lambda: torch.sort(skey8, dim=1)
     for name, (kern, plain) in timed.items():
         time_kernel(name, kern, plain, plain_iters=3, what="2^24 keys")
-    del top8, skey8
+    for count in (0, 3):
+        pays = [pay8 + i for i in range(count)]
+        compare_outputs("sort_chunks",
+                        lambda: bk.sort_chunks(lo8, hi8, *pays, rows=64),
+                        lambda: bk.sort_chunks_plain(lo8, hi8, *pays,
+                                                     rows=64))
+        t = min(cuda_time(lambda: bk.sort_chunks(lo8, hi8, *pays, rows=64),
+                          iters=20) for _ in range(2)) * 1e3
+        b_ms, b_by = bound(n * (16 + 8 * count), n * 91 * 4)
+        log(f"      sort_chunks, {count} payloads: kernel {t:.4f} ms, bound "
+            f"{b_ms:.4f} ms by {b_by}")
+    del top8, skey8, pays
     del q, j, key, lo8, hi8, pay8
 
     # -- 5. main path
@@ -907,6 +1028,15 @@ def main() -> int:
          "library_ms": lib_ms[name]}
         for name, source, rep in summary]
     rows[1]["launch_floor_ms"] = floor_ms    # under exclusive_scan's bound
+    # B1 and B3's rank mode at 9..16-bit digits take other kernels: their
+    # times and byte bounds at 11 and 16 bits, 2^24 keys
+    for row in (rows[0], rows[2]):
+        row["wide"] = {
+            f"{bits}bit": {"ms": wide_ms[(row["name"], bits)][0],
+                           "plain_ms": wide_ms[(row["name"], bits)][1],
+                           "bound_ms": wide_bounds[(row["name"], bits)][0],
+                           "bound_by": wide_bounds[(row["name"], bits)][1]}
+            for bits in (11, 16)}
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -63,6 +63,49 @@ def test_twin_matches_pallas_with_other_payload_counts(n_pay):
     _assert_same(got, want)
 
 
+# The shapes the CUDA kernel finds hard: chunks narrower than its tile of
+# 8192 elements (several chunks share a CUDA block), no payload and the most
+# payloads (which follow an index that is sorted with the keys), an odd
+# number of chunks, all keys equal, and chunks already in or against order.
+
+def _ordered_planes(rows, nb, n_pay, kind, seed):
+    planes = _planes(rows, nb, n_pay, False, seed)
+    width = rows * 128
+    if kind == "all_equal":
+        planes[0][:] = 7
+        planes[1][:] = 3
+    else:
+        key = np.sort(planes[0].astype(np.uint64)
+                      | (planes[1].astype(np.uint64) << np.uint64(32)), axis=1)
+        if kind == "reversed":
+            key = key[:, ::-1]
+        planes[0] = (key & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+        planes[1] = (key >> np.uint64(32)).astype(np.uint32)
+    assert planes[0].shape == (nb, width)
+    return planes
+
+
+@pytest.mark.parametrize("n_pay", [0, 8])
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("rows,nb", [(1, 5), (2, 3), (4, 1)])
+def test_twin_matches_pallas_on_narrow_chunks(rows, nb, ties, n_pay):
+    planes = _planes(rows, nb, n_pay, ties, 7 * rows + n_pay + ties)
+    want = jax_sort_chunks(*planes, rows=rows)
+    got = bk.sort_chunks(*[_t(p) for p in planes], rows=rows)
+    _assert_same(got, want)
+
+
+@pytest.mark.parametrize("kind", ["all_equal", "sorted", "reversed"])
+@pytest.mark.parametrize("rows,nb", [(1, 3), (4, 2)])
+def test_twin_matches_pallas_on_ordered_and_equal_chunks(rows, nb, kind):
+    planes = _ordered_planes(rows, nb, 2, kind, rows)
+    want = jax_sort_chunks(*planes, rows=rows)
+    got = bk.sort_chunks(*[_t(p) for p in planes], rows=rows)
+    _assert_same(got, want)
+    if kind == "sorted":     # a sorted chunk with distinct keys stays put
+        _assert_same(got[:2], planes[:2])
+
+
 def test_tie_rule_is_the_networks_not_a_textbook_swap():
     # all keys equal: the JAX network still permutes the payload (equal keys
     # exchange in descending regions); a swap-if-greater network would

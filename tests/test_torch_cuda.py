@@ -471,6 +471,9 @@ def test_b3_timing_script_on_the_card(cuda, capsys, tmp_path):
                               "scatter_p1_lone_1bit", "scatter_p1_11bit",
                               "scatter_p1_16bit", "scatter_p1_11bit_b32768",
                               "scatter_p1_11bit_b65535", "block_rank_11bit",
+                              "block_rank_16bit", "histogram_11bit",
+                              "histogram_16bit", "sort_chunks_8192_p0",
+                              "sort_chunks_8192_p1", "sort_chunks_8192_p3",
                               "sort_8bit_passes", "sort_6bit_passes",
                               "sort_11bit_passes"}
     scans = {k for k in row["ms"] if k.startswith("exclusive_scan_2p")}
@@ -479,6 +482,7 @@ def test_b3_timing_script_on_the_card(cuda, capsys, tmp_path):
     for group in ("ms", "queued_ms", "library_ms", "library_queued_ms"):
         assert all(t > 0 for t in row[group].values())
     assert row["empty_launch_queued_ms"] > 0 and row["empty_launch_ms"] > 0
+    assert row["torch_sort_chunks_8192_ms"] > 0
     assert row["headline"]["verified"] is True
 
 
@@ -558,6 +562,128 @@ def test_wide_b3_ragged_sizes(cuda, bits, block, n):
     for kind in ("straddling", "one_digit"):
         keys, shift = _wide_keys(n, kind, bits, n + block)
         _check_b3(cuda, keys, False, shift, bits, block, 1)
+
+
+# ---- wide B1 (groups of eight key blocks, windows of 4096 digits, whole
+# sectors) at the shapes it finds hard, against its twin and numpy
+
+def _b1_wide_keys(n, kind, bits, seed):
+    if kind != "two_digits":
+        return _wide_keys(n, kind, bits, seed)
+    keys = _keys(n, seed)
+    mask = np.uint64((1 << bits) - 1)
+    return (keys & ~mask) | np.where(keys >> np.uint64(63), mask,
+                                     np.uint64(1)), 0
+
+
+def _check_b1(cuda, keys, shift, bits, block):
+    n, radix = len(keys), 1 << bits
+    nb = -(-n // block)
+    k = U64.from_numpy(keys, cuda)
+    got = hk.block_histogram(k.lo, k.hi, shift, bits, block)
+    _same(got, hk.block_histogram_plain(k.lo, k.hi, shift, bits, block))
+    d = ((keys >> np.uint64(shift)) & np.uint64(radix - 1)).astype(np.int64)
+    want = np.bincount(d * nb + np.arange(n, dtype=np.int64) // block,
+                       minlength=radix * nb).reshape(radix, nb)
+    np.testing.assert_array_equal(got.cpu().numpy().view(np.uint32), want)
+
+
+@pytest.mark.parametrize("block", [1000, 4096, 5000, 32768, 65535])
+@pytest.mark.parametrize("kind", ["one_digit", "own_digits", "straddling",
+                                  "two_digits"])
+@pytest.mark.parametrize("bits", [9, 11, 12, 13, 16])
+def test_wide_b1_blocks_and_digits(cuda, bits, kind, block):
+    n = 168_000 + 777
+    keys, shift = _b1_wide_keys(n, kind, bits, n + bits + block)
+    _check_b1(cuda, keys, shift, bits, block)
+
+
+@pytest.mark.parametrize("n", [1, 4095, 4097, 65535, (1 << 22) + 777])
+@pytest.mark.parametrize("bits", [9, 11, 13, 16])
+def test_wide_b1_ragged_sizes(cuda, bits, n):
+    for block in (1000, 4096, 65535):
+        if n > 1 << 20 and block == 1000 and bits == 16:
+            continue        # a table of 1.1 GB: the time, not the shape
+        keys, shift = _b1_wide_keys(n, "straddling", bits, n + bits)
+        _check_b1(cuda, keys, shift, bits, block)
+
+
+@pytest.mark.parametrize("bits", [9, 13, 16])
+def test_wide_b1_counts_a_whole_block_on_one_digit(cuda, bits):
+    keys, shift = _b1_wide_keys(3 * 65535 + 10, "one_digit", bits, bits)
+    _check_b1(cuda, keys, shift, bits, 65535)
+    k = U64.from_numpy(keys, cuda)
+    hist = hk.block_histogram(k.lo, k.hi, shift, bits, 65535)
+    assert hist[0x5A5A & ((1 << bits) - 1)].tolist() == [65535] * 3 + [10]
+
+
+@pytest.mark.parametrize("bits", [11, 16])
+def test_wide_b1_back_to_back_into_recycled_memory(cuda, bits):
+    # the allocator hands the last call's table out again: stale counts
+    # must not survive in it, whatever the kernel does not write
+    bad = torch.zeros((), dtype=torch.int64, device=cuda)
+    cases = []
+    for n, kind in ((100_003, "two_digits"), (70_777, "straddling")):
+        keys, shift = _b1_wide_keys(n, kind, bits, n)
+        k = U64.from_numpy(keys, cuda)
+        cases.append((k, shift, hk.block_histogram_plain(k.lo, k.hi, shift,
+                                                         bits, 4096)))
+    for i in range(20):
+        k, shift, want = cases[i % 2]
+        bad += (hk.block_histogram(k.lo, k.hi, shift, bits, 4096)
+                != want).sum()
+    assert int(bad) == 0
+
+
+def test_wide_b1_beside_a_busy_stream(cuda):
+    side = torch.cuda.Stream(cuda)
+    a = torch.randn(4096, 4096, device=cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        for _ in range(10):
+            a @ a
+    keys, shift = _b1_wide_keys(1 << 22, "straddling", 16, 5)
+    _check_b1(cuda, keys, shift, 16, 4096)
+    torch.cuda.synchronize()
+
+
+# ---- B5 (elements in registers, 8192 a CUDA block) at the shapes it finds
+# hard: chunks narrower than its tile, one chunk, an odd number of chunks,
+# all keys equal, chunks in and against order, a view off the 16-byte
+# alignment of its loads
+
+@pytest.mark.parametrize("kind", ["all_equal", "sorted", "reversed", "ties"])
+@pytest.mark.parametrize("n_pay", [0, 1, 8])
+@pytest.mark.parametrize("rows,nb", [(1, 1), (2, 7), (4, 33), (8, 1),
+                                     (64, 3), (256, 1)])
+def test_bitonic_kernel_hard_shapes(cuda, rows, nb, n_pay, kind):
+    width = rows * 128
+    lo, hi, *pays = _chunks(nb, width, rows + nb, kind == "ties", n_pay)
+    if kind == "all_equal":
+        lo[:], hi[:] = 7, 3
+    elif kind != "ties":
+        key = np.sort(lo | (hi << np.uint64(32)), axis=1)
+        if kind == "reversed":
+            key = key[:, ::-1]
+        lo, hi = key & np.uint64(0xFFFFFFFF), key >> np.uint64(32)
+    planes = [_u32_tensor(a, cuda) for a in (lo, hi, *pays)]
+    keep = [p.clone() for p in planes]
+    got = bk.sort_chunks(*planes, rows=rows)
+    want = bk.sort_chunks_plain(*planes, rows=rows)
+    for g, w in zip(got, want):
+        _same(g, w)
+    for p, c in zip(planes, keep):
+        _same(p, c)                     # inputs are not modified
+
+
+def test_bitonic_kernel_takes_planes_off_alignment(cuda):
+    flat = [_u32_tensor(a.reshape(-1), cuda)
+            for a in _chunks(1, 3 * 1024 + 1, 5, True, 2)]
+    planes = [f[1:].reshape(3, 1024) for f in flat]
+    assert planes[0].data_ptr() % 16 == 4 and planes[0].is_contiguous()
+    got = bk.sort_chunks(*planes, rows=8)
+    for g, w in zip(got, bk.sort_chunks_plain(*planes, rows=8)):
+        _same(g, w)
 
 
 def test_verify_with_11_bit_digits_on_the_card(cuda, capsys):

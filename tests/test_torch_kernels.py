@@ -436,6 +436,108 @@ def test_wide_rank_plain_matches_jax(bits, kind):
     np.testing.assert_array_equal(_u32(hist), np.asarray(jh))
 
 
+# ---- B1 at 9..16-bit digits at the shapes its CUDA kernel (groups of eight
+# key blocks counted into u16 counters per window of 4096 digits, stored as
+# whole sectors) is held to on the card: blocks that are no multiple of
+# anything, a block count that is odd or no multiple of the group, a block
+# of 65535 keys on one digit (the largest u16 count), keys on two digits
+# only (the rest of the table all zeros), a digit that straddles bit 32.
+
+B1_WIDE_BLOCKS = [1000, 4096, 5000, 32768, 65535]
+B1_WIDE_KINDS = WIDE_KINDS + ["two_digits"]
+
+
+def _b1_wide_planes(n, kind, bits, seed):
+    if kind != "two_digits":
+        return _wide_planes(n, kind, bits, seed)
+    keys = _keys(n, seed)
+    mask = np.uint64((1 << bits) - 1)
+    keys = (keys & ~mask) | np.where(keys >> np.uint64(63), mask,
+                                      np.uint64(1))
+    k = U64.from_numpy(keys, "cpu")
+    return keys, k.lo, k.hi, 0
+
+
+def _check_histogram_plain(keys, lo, hi, shift, bits, block):
+    n, radix = len(keys), 1 << bits
+    nb = -(-n // block)
+    got = hk.block_histogram(lo, hi, shift, bits, block=block)
+    assert got.shape == (radix, nb) and got.dtype == torch.int32
+    b = np.arange(n, dtype=np.int64) // block
+    want = np.bincount(_digits(keys, shift, bits) * nb + b,
+                       minlength=radix * nb).reshape(radix, nb)
+    np.testing.assert_array_equal(_u32(got), want)
+    return got
+
+
+@pytest.mark.parametrize("block", B1_WIDE_BLOCKS)
+@pytest.mark.parametrize("kind", B1_WIDE_KINDS)
+@pytest.mark.parametrize("bits", WIDE_BITS)
+def test_wide_histogram_plain_matches_bincount(bits, kind, block):
+    keys, lo, hi, shift = _b1_wide_planes(70_777, kind, bits, bits + block)
+    hist = _check_histogram_plain(keys, lo, hi, shift, bits, block)
+    if kind == "two_digits":
+        h = _u32(hist)
+        assert h[1].sum() + h[-1].sum() == 70_777
+        assert not h[2:-1].any() and not h[0].any()
+
+
+@pytest.mark.parametrize("n", [1, 4095, 4097, 65535])
+@pytest.mark.parametrize("bits", WIDE_BITS)
+def test_wide_histogram_plain_at_ragged_sizes(bits, n):
+    for block in (1000, 4096, 65535):
+        keys, lo, hi, shift = _b1_wide_planes(n, "straddling", bits, n + bits)
+        _check_histogram_plain(keys, lo, hi, shift, bits, block)
+
+
+@pytest.mark.parametrize("bits", WIDE_BITS)
+def test_wide_histogram_plain_counts_a_whole_block_on_one_digit(bits):
+    keys, lo, hi, shift = _b1_wide_planes(65535 + 10, "one_digit", bits, bits)
+    hist = _u32(_check_histogram_plain(keys, lo, hi, shift, bits, 65535))
+    np.testing.assert_array_equal(hist[0x5A5A & ((1 << bits) - 1)],
+                                  [65535, 10])
+
+
+@pytest.mark.parametrize("kind", B1_WIDE_KINDS)
+@pytest.mark.parametrize("bits", [9, 11, 13])
+def test_wide_histogram_plain_matches_jax(bits, kind):
+    # the JAX kernel builds a (8, 128, radix) one-hot per step: up to 13
+    # bits is what a CPU run can afford; it takes whole blocks of a multiple
+    # of 1024 keys, so pad with all-ones sentinels
+    keys, _, _, shift = _b1_wide_planes(9_000, kind, bits, bits + 1)
+    padded, jlo, jhi = _padded(keys, 4096)
+    k = U64.from_numpy(padded, "cpu")
+    got = hk.block_histogram(k.lo, k.hi, shift, bits, block=4096)
+    want = np.asarray(jax_block_histogram(jlo, jhi, shift, bits))
+    np.testing.assert_array_equal(_u32(got), want)
+
+
+def _stop_early_variants():
+    from tpu_qe_torch.bench import stop_early
+    return [(k, name) for k, (_, variants) in stop_early.SOURCES.items()
+            for name in variants]
+
+
+@pytest.mark.parametrize("kernel,name", _stop_early_variants())
+def test_stop_early_variants_still_find_their_lines(tmp_path, monkeypatch,
+                                                    kernel, name):
+    # bench/stop_early.py times copies of the CUDA sources with lines
+    # replaced; a line that left the source must fail here, not on the card
+    import os
+    import sys
+    from tpu_qe_torch.bench import stop_early
+    tree = stop_early.make_variant(str(tmp_path), kernel, name)
+    source, variants = stop_early.SOURCES[kernel]
+    with open(os.path.join(tree, "tpu_qe_torch", "csrc", source)) as f:
+        text = f.read()
+    with open(os.path.join(stop_early.PACKAGE, "csrc", source)) as f:
+        assert (text == f.read()) == (not variants[name])
+    # in this process the package is already imported from elsewhere
+    monkeypatch.setattr(sys, "path", list(sys.path))
+    with pytest.raises(RuntimeError, match="not the package of"):
+        stop_early.time_variant(tree, kernel, 8192)
+
+
 def test_radix_pass_script_refuses_a_tree_it_did_not_import(tmp_path):
     from tpu_qe_torch.bench import radix_pass
     with pytest.raises(RuntimeError, match="not that tree's"):

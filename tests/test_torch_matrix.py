@@ -182,8 +182,8 @@ def test_bench_matrix_trace_dir_profiles_one_more_radix_run(tmp_path,
     ("void (anonymous namespace)::histogram_kernel<true, false>(unsigned "
      "int const*, unsigned int const*, long, int, int, int, unsigned int*)",
      "B1 histogram"),
-    ("void (anonymous namespace)::histogram_wide_kernel(unsigned int const*)",
-     "B1 histogram"),
+    ("void (anonymous namespace)::histogram_group_kernel<true, false>("
+     "unsigned int const*)", "B1 histogram"),
     ("void (anonymous namespace)::scan_kernel<true>(unsigned int const*, "
      "unsigned int*, unsigned long*, unsigned int*, long)", "B2 scan"),
     ("void (anonymous namespace)::scan_kernel<false>(unsigned int const*)",

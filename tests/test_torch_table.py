@@ -151,6 +151,52 @@ def test_npz_round_trip_and_interchange_with_jax(tmp_path):
         Table({"x@lo": t["u"]}).save(str(tmp_path / "bad.npz"))
 
 
+def test_save_and_load_take_the_reference_format_argument(tmp_path):
+    cols = _cols(50, 9)
+    t, jt = Table.from_numpy(cols), JTable.from_numpy(cols)
+    # the reference's argument order: format second, by position or keyword
+    path = t.save(str(tmp_path / "a.npz"), "npz")
+    _same_dict(Table.load(path, "npz").to_numpy(), cols)
+    path = t.save(str(tmp_path / "b"), format="npz")
+    assert path.endswith("b.npz")
+    _same_dict(Table.load(path, format="npz", device="cpu").to_numpy(), cols)
+    _same_dict(JTable.load(path, format="npz").to_numpy(), cols)
+    jpath = jt.save(str(tmp_path / "j.npz"), format="npz")
+    _same_dict(Table.load(jpath, format="npz").to_numpy(), cols)
+
+
+@pytest.mark.parametrize("format", ["parquet", "", "NPZ"])
+def test_save_and_load_refuse_an_unknown_format_like_the_reference(
+        tmp_path, format):
+    cols = _cols(5, 10)
+    t, jt = Table.from_numpy(cols), JTable.from_numpy(cols)
+    path = t.save(str(tmp_path / "ok.npz"))
+    for table, cls in ((t, Table), (jt, JTable)):
+        with pytest.raises(ValueError, match="unknown format"):
+            table.save(str(tmp_path / "x"), format=format)
+        with pytest.raises(ValueError, match="unknown format"):
+            cls.load(path, format=format)
+    assert not (tmp_path / "x.npz").exists()
+
+
+def test_orbax_format_names_the_missing_package(tmp_path):
+    t = Table.from_numpy(_cols(5, 11))
+    with pytest.raises(ImportError, match="orbax"):
+        t.save(str(tmp_path / "ckpt"), format="orbax")
+    with pytest.raises(ImportError, match="orbax"):
+        Table.load(str(tmp_path / "ckpt"), format="orbax")
+    assert not (tmp_path / "ckpt").exists()
+
+
+def test_load_takes_the_device_by_keyword_only(tmp_path):
+    t = Table.from_numpy(_cols(5, 12))
+    path = t.save(str(tmp_path / "d.npz"))
+    assert Table.load(path, device=torch.device("cpu"))["u"].device.type \
+        == "cpu"
+    with pytest.raises(TypeError):
+        Table.load(path, "npz", "cpu")
+
+
 _style = st.sampled_from(["uniform", "few", "zipf", "edges"])
 
 

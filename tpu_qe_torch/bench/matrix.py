@@ -68,7 +68,7 @@ REPS = 2                     # timed calls per backend
 # port's own kernels live in an anonymous namespace.
 CATEGORIES = (
     ("B1 histogram", ("namespace)::histogram_kernel",
-                      "namespace)::histogram_wide_kernel")),
+                      "namespace)::histogram_group_kernel")),
     ("B2 scan", ("namespace)::scan_kernel",)),   # its memset: "copies"
     ("B3 rank+scatter", ("namespace)::rank_kernel",
                          "namespace)::rank_wide_kernel",

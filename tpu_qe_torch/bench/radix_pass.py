@@ -13,8 +13,12 @@ any tree of the port can be timed. Prints one JSON row: CUDA-event
 milliseconds per launch at n random keys, block BLOCK, the main path's 8-bit
 digit at shift 0 unless the name says otherwise, each the smaller of two
 means of 20 launches; B3's scatter also at 11- and 16-bit digits (at 11
-bits also with blocks of 32768 and 65535 keys) and its rank mode at 11
-bits; the sort of n keys and a payload in 8-, 6- and 11-bit passes
+bits also with blocks of 32768 and 65535 keys), its rank mode and B1 at 11
+and 16 bits (`block_rank_11bit`, `histogram_16bit`, ...); B5 on chunks of
+8192 keys with 0, 1 and 3 payloads (`sort_chunks_8192_p1`, ...: the first
+n // 8192 chunks) beside `torch.sort` of the same chunks' keys
+(`torch_sort_chunks_8192_ms`); the sort of n keys and a payload in 8-,
+6- and 11-bit passes
 (`sort_8bit_passes`, ...: 8, 11 and 6 of them); B2 at tables of 2^17 to
 2^28 words (`exclusive_scan_2pN`: n / 128 to 16 n) with
 `torch.cumsum(x, 0, dtype=torch.int32)` at the same sizes
@@ -112,8 +116,28 @@ def main(argv=None) -> int:
         cases[name] = (lambda wide=wide, bits=bits, block=block:
                        hk.rank_and_scatter(lo, hi, pays[:1], wide, 0, bits,
                                            block))
-    cases["block_rank_11bit"] = lambda: hk.block_rank_and_histogram(
-        lo, hi, 0, 11)
+    for bits in (11, 16):
+        cases[f"block_rank_{bits}bit"] = (
+            lambda bits=bits: hk.block_rank_and_histogram(lo, hi, 0, bits))
+        cases[f"histogram_{bits}bit"] = (
+            lambda bits=bits: hk.block_histogram(lo, hi, 0, bits))
+    # B5: the first n // 8192 chunks of 8192 keys (at least one), with 0, 1
+    # and 3 payloads, beside torch.sort of the same chunks' keys
+    from tpu_qe_torch.kernels import bitonic as bk
+    chunks = max(n // 8192, 1)
+    g = torch.Generator(device=dev).manual_seed(11)
+    c_lo, c_hi = (torch.randint(-(1 << 31), 1 << 31, (chunks, 8192),
+                                generator=g, device=dev, dtype=torch.int32)
+                  for _ in range(2))
+    c_pay = [torch.arange(chunks * 8192, dtype=torch.int32,
+                          device=dev).reshape(chunks, 8192) + i
+             for i in range(3)]
+    for count in (0, 1, 3):
+        cases[f"sort_chunks_8192_p{count}"] = (
+            lambda count=count: bk.sort_chunks(c_lo, c_hi, *c_pay[:count],
+                                               rows=64))
+    c_key = ((c_hi.to(torch.int64) ^ -(1 << 31)) * (1 << 32)
+             | (c_lo.to(torch.int64) & 0xFFFFFFFF))   # signed order = u64's
     # the whole sort of n keys and one payload by `verify`'s schedules
     for bits in (8, 6, 11):
         cases[f"sort_{bits}bit_passes"] = lambda bits=bits: sort_u64(
@@ -146,6 +170,8 @@ def main(argv=None) -> int:
                                  for name, fn in library.items()},
            "exclusive_scan_spread": [min(spread), max(spread)],
            "device": card()}
+    row["torch_sort_chunks_8192_ms"] = best(
+        lambda: torch.sort(c_key, dim=1))
     if hasattr(kernels, "empty_launch"):
         row["empty_launch_ms"] = best(lambda: kernels.empty_launch(dev))
         row["empty_launch_queued_ms"] = queued(

@@ -29,9 +29,12 @@
 // Digits of 1..8 bits take the kernels above the "wide digits" line; 9..16
 // bits (as the JAX kernels and SortConfig allow) take the wide kernels,
 // whose per-digit counters do not fit the 8-bit path's static tables. B1
-// and B3's rank mode keep one u16 counter per digit, two to a word, in
-// dynamic shared memory (radix * 2 bytes, 128 KB at 16 bits); a block then
-// holds at most 65535 keys, so no counter carries into its neighbour. B3's
+// and B3's rank mode keep u16 counters, two to a word, in dynamic shared
+// memory (up to 128 KB at 16 bits); a block then holds at most 65535 keys,
+// so no counter carries into its neighbour. There the dense (radix, nb)
+// table outweighs the keys (1.07 GB against 67 MB at 16 bits and 2^24
+// keys), so wide B1 is bound by how it writes the table: whole sectors from
+// groups of eight key blocks (see the note at histogram_group_kernel). B3's
 // wide scatter, which every sort with wide digits runs once per pass, keeps
 // no table for a block of one tile: it sorts the tile by the digit in
 // shared memory, so that a key's cost does not grow with the radix, reads
@@ -399,25 +402,131 @@ __device__ __forceinline__ uint32_t get_u16(const uint32_t* words,
   return (words[d >> 1] >> ((d & 1u) * 16u)) & 0xFFFFu;
 }
 
-// B1 for 9..16-bit digits: u16 counters in dynamic shared memory.
-__global__ void __launch_bounds__(kThreads)
-histogram_wide_kernel(const uint32_t* __restrict__ lo,
-                      const uint32_t* __restrict__ hi, int64_t n,
-                      int64_t block, int64_t nb, int shift, int bits,
-                      uint32_t* __restrict__ hist) {
-  extern __shared__ uint32_t words[];
-  const int radix = 1 << bits;
-  const int64_t b = blockIdx.x;
-  for (int w = threadIdx.x; w < radix / 2; w += kThreads) words[w] = 0u;
-  __syncthreads();
-  const int64_t start = b * block;
-  const int64_t end = start + block < n ? start + block : n;
-  for (int64_t g = start + threadIdx.x; g < end; g += kThreads) {
-    add_u16(words, load_digit(lo, hi, g, shift, bits), 1u);
+// Take digit d's u16 counter out of the table: returns it and leaves zero.
+// Of several threads that ask for one digit, one gets the count and the
+// others zero, so the table cleans itself where it was touched.
+__device__ __forceinline__ uint32_t take_u16(uint32_t* words, uint32_t d) {
+  const uint32_t sh = (d & 1u) * 16u;
+  return (atomicAnd(&words[d >> 1], ~(0xFFFFu << sh)) >> sh) & 0xFFFFu;
+}
+
+// The histogram store of a kernel that keeps one table of u16 counters per
+// key block, for digits so wide that nearly every counter is zero: the
+// (radix, nb) table in global memory was cleared before the launch, and
+// only the non-zero counters are stored, by a second walk over the block's
+// keys (they come from L1 or L2 now). Each key's thread takes its digit's
+// counter; the one that finds a count stores it. That is at most one
+// 4-byte store per key, where a store of every counter is radix stores per
+// block, each at a stride of nb words. Every thread of the CUDA block calls
+// it after a barrier that follows the last increment.
+template <typename Digit>
+__device__ __forceinline__ void store_counts(Digit digit, int64_t start,
+                                             int64_t end, uint32_t* words,
+                                             int64_t nb, int64_t b,
+                                             uint32_t* __restrict__ hist) {
+#pragma unroll 4
+  for (int64_t g = start + threadIdx.x; g < end; g += blockDim.x) {
+    const uint32_t d = digit(g);
+    const uint32_t c = take_u16(words, d);
+    if (c != 0u) hist[d * nb + b] = c;
   }
+}
+
+// B1 for 9..16-bit digits. What bounds it on an H100 is the dense
+// (radix, nb) table, not the keys: 34 MB at 11 bits and 1.07 GB at 16 for
+// the 67 MB of key words of 2^24 keys in blocks of 4096, and all but 4096
+// of a block's counters are zero. A kernel that stores every counter of its
+// key block does radix 4-byte stores at a stride of nb words, each into a
+// 32-byte sector that seven other CUDA blocks write too; storing only the
+// non-zero counters into a cleared table is still one scattered sector
+// write per key, which the card does at some 15 G a second. So the table
+// is written in whole sectors, once, and nothing else:
+//
+// A work item is a group of kGroup = 8 consecutive key blocks and a window
+// of 2^kWindowBits digits. Its CUDA block reads the group's keys, counts
+// those whose digit falls into the window into u16 counters laid out
+// [pair of key blocks][digit], so that the increments of one key block fall
+// on banks chosen by the digit, and then stores, per digit, the eight
+// counts as four 8-byte words side by side: hist[d * nb + b0 .. b0 + 7] is
+// one whole 32-byte sector where nb is a multiple of 8. The store puts the
+// counters back to zero, and a CUDA block walks over several items when
+// there are more than the card holds blocks. Rows are padded by 8 words so
+// that the 32 lanes of the store (8 digits x 4 pairs) read 32 banks. Up to
+// 12 bits one window covers the digit; a 16-bit digit has 16, so every key
+// is read 16 times, but the windows of a group are neighbouring items, run
+// at the same time, and all but the first find the keys in L2; so are the
+// four groups whose sectors make up one 128-byte line of a digit's row. LO
+// and HI are fixed at compile time as in histogram_kernel.
+//
+// On an H100 at 2^24 keys and block 4096 the 1.07 GB table of a 16-bit
+// digit takes 0.6 ms to store this way (0.32 by its bytes: the sectors of a
+// warp's store lie 16 KB apart), and the 16 reads of the keys 0.3 ms
+// before it; at 11 bits the kernel is at 0.6 of its byte bound. Groups of
+// 16 key blocks with half the window, or of 4 with twice, were slower.
+constexpr int kGroup = 8;                 // key blocks per group
+constexpr int kPairs = kGroup / 2;         // two u16 counters to a word
+constexpr int kGroupPad = 32 / kPairs;    // words between the group's rows
+constexpr int kWindowBits = 12;           // 4 rows of 2^12 words: 64 KB
+constexpr int kNearBits = 2;              // groups that run side by side
+constexpr int kGroupThreads = 256;
+
+template <bool LO, bool HI>
+__global__ void __launch_bounds__(kGroupThreads)
+histogram_group_kernel(const uint32_t* __restrict__ lo,
+                       const uint32_t* __restrict__ hi, int64_t n,
+                       int64_t block, int64_t nb, int shift, int bits,
+                       int64_t items, bool pairs,
+                       uint32_t* __restrict__ hist) {
+  extern __shared__ uint32_t words[];   // [kPairs][span + kGroupPad]
+  const int window_bits = bits < kWindowBits ? bits : kWindowBits;
+  const int windows_log = bits - window_bits;
+  const uint32_t span = 1u << window_bits;
+  const int row = span + kGroupPad;
+  const int tid = threadIdx.x;
+  for (int w = tid; w < kPairs * row; w += kGroupThreads) words[w] = 0u;
   __syncthreads();
-  for (int d = threadIdx.x; d < radix; d += kThreads) {
-    hist[d * nb + b] = get_u16(words, d);
+  // Items in the order (far, window, near) of a group far * 2^kNearBits +
+  // near: the CUDA blocks that run at the same time share their keys, and
+  // those of one window write neighbouring sectors. The last `far` may
+  // name groups past the end.
+  const int64_t groups = (nb + kGroup - 1) / kGroup;
+  for (int64_t item = blockIdx.x; item < items; item += gridDim.x) {
+    const int64_t grp = (item >> (windows_log + kNearBits) << kNearBits) |
+                        (item & ((1 << kNearBits) - 1));
+    if (grp >= groups) continue;   // the same for the whole CUDA block
+    const int64_t b0 = grp * kGroup;
+    const uint32_t d0 = (static_cast<uint32_t>(item >> kNearBits) &
+                         ((1u << windows_log) - 1u)) << window_bits;
+    for (int s = 0; s < kGroup && b0 + s < nb; ++s) {
+      uint32_t* const counts = words + (s >> 1) * row;
+      const uint32_t one = 1u << ((s & 1) * 16);
+      const int64_t start = (b0 + s) * block;
+      const int64_t end = start + block < n ? start + block : n;
+#pragma unroll 8
+      for (int64_t g = start + tid; g < end; g += kGroupThreads) {
+        const uint32_t d = select_digit(LO ? lo[g] : 0u, HI ? hi[g] : 0u,
+                                        shift, bits) - d0;
+        if (d < span) atomicAdd(&counts[d], one);
+      }
+    }
+    __syncthreads();
+    // Entry i is (digit d0 + i / kPairs, pair i % kPairs): the counts of
+    // key blocks b0 + 2 pair and b0 + 2 pair + 1, one shared-memory word.
+    for (uint32_t i = tid; i < kPairs * span; i += kGroupThreads) {
+      const uint32_t pair = i % kPairs;
+      const uint32_t d = i / kPairs;
+      const uint32_t w = words[pair * row + d];
+      words[pair * row + d] = 0u;
+      const int64_t b = b0 + 2 * pair;
+      uint32_t* const out = hist + ((d0 + d) * nb + b);
+      if (pairs && b + 1 < nb) {   // nb is even and hist 8-byte aligned
+        *reinterpret_cast<uint2*>(out) = make_uint2(w & 0xFFFFu, w >> 16);
+      } else {
+        if (b < nb) out[0] = w & 0xFFFFu;
+        if (b + 1 < nb) out[1] = w >> 16;
+      }
+    }
+    __syncthreads();
   }
 }
 
@@ -427,21 +536,23 @@ histogram_wide_kernel(const uint32_t* __restrict__ lo,
 // order, against one table of running in-block counts: warp w reads each
 // key's count, then one leader per match group adds the group's size, and a
 // barrier passes the turn on. So the rank is the key's occurrence index
-// among equal digits of its block in input order.
+// among equal digits of its block in input order. Above kSparseBits bits,
+// where a block of 4096 keys leaves most counters zero, the histogram goes
+// out as its non-zero counters only, into a cleared table (store_counts).
+constexpr int kSparseBits = 12;
 __global__ void __launch_bounds__(kThreads)
 rank_wide_kernel(const uint32_t* __restrict__ lo,
                  const uint32_t* __restrict__ hi, int64_t n, int64_t block,
                  int64_t nb, int shift, int bits,
                  uint32_t* __restrict__ ranks, uint32_t* __restrict__ hist) {
   extern __shared__ uint32_t words[];
-  const int radix = 1 << bits;
   const int64_t b = blockIdx.x;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const uint32_t lanemask_lt = (1u << lane) - 1u;
 
-  for (int w = tid; w < radix / 2; w += kThreads) words[w] = 0u;
+  for (int w = tid; w < (1 << bits) / 2; w += kThreads) words[w] = 0u;
   __syncthreads();
   const int64_t start = b * block;
   const int64_t end = start + block < n ? start + block : n;
@@ -464,9 +575,14 @@ rank_wide_kernel(const uint32_t* __restrict__ lo,
     }
     if (valid) ranks[g] = r;
   }
-  __syncthreads();
-  for (int d = tid; d < radix; d += kThreads) {
-    hist[d * nb + b] = get_u16(words, d);
+  // The last turn ended in a barrier.
+  if (bits > kSparseBits) {   // into the table that the entry point cleared
+    store_counts([&](int64_t g) { return load_digit(lo, hi, g, shift, bits); },
+                 start, end, words, nb, b, hist);
+  } else {
+    for (int d = tid; d < (1 << bits); d += kThreads) {
+      hist[d * nb + b] = get_u16(words, d);
+    }
   }
 }
 
@@ -726,6 +842,49 @@ inline bool wide_args_ok(int bits, int64_t block) {
   return bits <= kMaxWideBits && block <= kMaxWideBlock;
 }
 
+// As many CUDA blocks as the card holds at once, at most `work`: the grid
+// of a kernel whose blocks walk over the work in turns.
+template <typename Kernel>
+cudaError_t resident_grid(Kernel kernel, int threads, size_t smem, int device,
+                          int64_t work, unsigned* grid) {
+  int sms = 0, per_sm = 0;
+  cudaError_t err =
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
+                                                      smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const int64_t resident = static_cast<int64_t>(sms) * per_sm;
+  *grid = static_cast<unsigned>(work < resident ? work : resident);
+  return cudaSuccess;
+}
+
+// B1 for 9..16-bit digits: the note at histogram_group_kernel.
+template <bool LO, bool HI>
+cudaError_t histogram_wide(const uint32_t* lo, const uint32_t* hi, int64_t n,
+                           int64_t block, int64_t nb, int shift, int bits,
+                           uint32_t* hist, int device, cudaStream_t stream) {
+  const auto kernel = histogram_group_kernel<LO, HI>;
+  const int window_bits = bits < kWindowBits ? bits : kWindowBits;
+  const size_t bytes = kPairs * sizeof(uint32_t) *
+                       ((static_cast<size_t>(1) << window_bits) + kGroupPad);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  const int64_t groups = (nb + kGroup - 1) / kGroup;
+  const int64_t items = (((groups - 1) >> kNearBits) + 1)
+                        << (bits - window_bits + kNearBits);
+  unsigned grid;
+  err = resident_grid(kernel, kGroupThreads, bytes, device, items, &grid);
+  if (err != cudaSuccess) return err;
+  const bool pairs = nb % 2 == 0 && reinterpret_cast<uintptr_t>(hist) % 8 == 0;
+  kernel<<<grid, kGroupThreads, bytes, stream>>>(lo, hi, n, block, nb, shift,
+                                                 bits, items, pairs, hist);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -742,20 +901,18 @@ int tq_block_histogram(const uint32_t* lo, const uint32_t* hi, int64_t n,
   if (err != cudaSuccess) return err;
   const int64_t nb = num_blocks(n, block);
   if (nb == 0) return cudaSuccess;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bits > 8) {
     if (!wide_args_ok(bits, block)) return cudaErrorInvalidValue;
-    size_t bytes;
-    err = wide_smem(histogram_wide_kernel, 0, true, bits, &bytes);
-    if (err != cudaSuccess) return err;
-    histogram_wide_kernel<<<static_cast<unsigned>(nb), kThreads, bytes,
-                            static_cast<cudaStream_t>(stream)>>>(
-        lo, hi, n, block, nb, shift, bits, hist);
-    return cudaGetLastError();
+    const auto wide = shift >= 32          ? histogram_wide<false, true>
+                      : shift + bits <= 32 ? histogram_wide<true, false>
+                                           : histogram_wide<true, true>;
+    return wide(lo, hi, n, block, nb, shift, bits, hist, device, st);
   }
   const auto kernel = shift >= 32          ? histogram_kernel<false, true>
                       : shift + bits <= 32 ? histogram_kernel<true, false>
                                            : histogram_kernel<true, true>;
-  kernel<<<static_cast<unsigned>(nb), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<static_cast<unsigned>(nb), kThreads, 0, st>>>(
       lo, hi, n, block, nb, shift, bits, hist);
   return cudaGetLastError();
 }
@@ -775,6 +932,11 @@ int tq_block_rank_and_histogram(const uint32_t* lo, const uint32_t* hi,
     size_t bytes;
     err = wide_smem(rank_wide_kernel, 0, true, bits, &bytes);
     if (err != cudaSuccess) return err;
+    if (bits > kSparseBits) {
+      err = cudaMemsetAsync(hist, 0, (sizeof(uint32_t) << bits) * nb,
+                            static_cast<cudaStream_t>(stream));
+      if (err != cudaSuccess) return err;
+    }
     rank_wide_kernel<<<static_cast<unsigned>(nb), kThreads, bytes,
                        static_cast<cudaStream_t>(stream)>>>(
         lo, hi, n, block, nb, shift, bits, ranks, hist);

@@ -88,7 +88,7 @@ def library() -> ctypes.CDLL:
         lib.tq_empty_launch.restype = i
         lib.tq_morton_encode_lut.argtypes = [p, p, p, p, i64, i, p, p, i, p]
         lib.tq_morton_encode_lut.restype = i
-        lib.tq_sort_chunks.argtypes = [p, p, i, i64, i64, i, p]
+        lib.tq_sort_chunks.argtypes = [p, p, i, i64, i64, p, i, p]
         lib.tq_sort_chunks.restype = i
         lib.tq_sort_chunks_tile.argtypes = [i64, i, i]
         lib.tq_sort_chunks_tile.restype = i64

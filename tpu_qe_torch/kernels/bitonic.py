@@ -79,12 +79,12 @@ def sort_chunks_plain(lo: torch.Tensor, hi: torch.Tensor,
 
 
 def shared_tile(width: int, n_planes: int, device: torch.device) -> int:
-    """Elements per shared-memory tile that the CUDA kernel uses for chunks
-    of `width` with `n_planes` planes on `device`; a chunk wider than this
-    runs its long strides in global memory."""
+    """Elements per tile that the CUDA kernel sorts in registers and shared
+    memory for chunks of `width` with `n_planes` planes on `device`; a
+    chunk wider than this runs its long strides in global memory."""
     tile = library().tq_sort_chunks_tile(width, n_planes, device.index)
     if tile < 1:
-        raise RuntimeError(f"cannot read the shared memory size of {device}")
+        raise RuntimeError(f"cannot read the tile size for {device}")
     return tile
 
 
@@ -95,25 +95,33 @@ def sort_chunks(lo: torch.Tensor, hi: torch.Tensor, *payloads: torch.Tensor,
     lo, hi and each payload are (nb, rows * 128) int32 planes of u32 bit
     patterns; the chunk width must be a power of two. At most 8 payloads.
     Returns the tuple (lo, hi, *payloads) of new, chunk-wise sorted planes.
-    Widths whose planes exceed the shared memory of a block are taken: the
-    strides beyond the shared tile run as global-memory launches, and
-    LAUNCHES["sort_chunks"] counts every launch.
+    Chunks wider than the kernel's tile are taken: the strides beyond the
+    tile run as global-memory launches, and LAUNCHES["sort_chunks"] counts
+    every launch.
     """
     planes = [lo, hi, *payloads]
     dev = _check_args(planes, rows)
     if dev.type == "cpu":
         return sort_chunks_plain(lo, hi, *payloads, rows=rows)
     nb, width = lo.shape
+    # the kernel loads 16 bytes a thread: a view that starts off that
+    # alignment is copied
+    planes = [p if p.data_ptr() % 16 == 0 else p.clone() for p in planes]
     outs = [torch.empty_like(p) for p in planes]
     ptrs = ctypes.c_void_p * _MAX_PLANES
     lib = library()
+    # tile launches beyond the first, one per merge size beyond the tile
+    m = (width // shared_tile(width, len(planes), dev)).bit_length() - 1
+    # a wide chunk's payloads follow an index plane that is sorted with the
+    # keys; the kernel takes it as scratch
+    index = torch.empty_like(lo) if m and payloads else None
     check(lib, lib.tq_sort_chunks(
         ptrs(*[p.data_ptr() for p in planes]),
         ptrs(*[o.data_ptr() for o in outs]), len(planes), nb, width,
-        dev.index, stream_of(lo)), "sort_chunks")
+        None if index is None else index.data_ptr(), dev.index,
+        stream_of(lo)), "sort_chunks")
     if nb:
-        # one tile launch; then per merge size beyond the tile (m of them)
-        # its global-memory stages and one more tile launch
-        m = (width // shared_tile(width, len(planes), dev)).bit_length() - 1
+        # one tile launch; then per merge size beyond the tile its
+        # global-memory stages and one more tile launch
         LAUNCHES["sort_chunks"] += 1 + m * (m + 3) // 2
     return tuple(outs)

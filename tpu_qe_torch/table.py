@@ -68,6 +68,18 @@ def column_from_numpy(v: np.ndarray, device) -> Column:
     return from_plane(p, dtype)
 
 
+def _check_format(format: str) -> None:
+    """The persistence formats of the JAX package's Table: "npz" is
+    implemented; "orbax" (a checkpoint directory) needs a package that the
+    port does not carry."""
+    if format == "orbax":
+        raise ImportError("format 'orbax' needs the orbax-checkpoint package "
+                          "(orbax.checkpoint), which tpu_qe_torch does not "
+                          "use: save and load with format='npz'")
+    if format != "npz":
+        raise ValueError(f"unknown format {format!r}")
+
+
 class Table:
     """Immutable named-column table."""
 
@@ -241,9 +253,11 @@ class Table:
         return top_k(self, k, key=key, largest=largest, backend=backend)
 
     # -- persistence (the JAX package's npz layout) ------------------------
-    def save(self, path: str) -> str:
+    def save(self, path: str, format: str = "npz") -> str:
         """Write a single-file .npz: u64 columns as `name@lo` / `name@hi`
-        u32 planes, others as their numpy arrays."""
+        u32 planes, others as their numpy arrays. `format` is the JAX
+        package's argument: "npz" is the layout above."""
+        _check_format(format)
         out = {}
         for name, c in self._cols.items():
             if name.endswith("@lo") or name.endswith("@hi"):
@@ -259,9 +273,11 @@ class Table:
                                else path + ".npz")
 
     @staticmethod
-    def load(path: str, device: str | torch.device = "cpu") -> "Table":
+    def load(path: str, format: str = "npz", *,
+             device: str | torch.device = "cpu") -> "Table":
         """Load a Table written by save() (or by the JAX package's npz
-        checkpoint)."""
+        checkpoint) onto `device`."""
+        _check_format(format)
         cols = {}
         with np.load(path) as z:
             for k in z.files:
