@@ -46,9 +46,11 @@ Run from the root of the repository on a machine with a CUDA card. Phases:
    B5 (bitonic chunk sort; rows 1, 2, 4, 8 and 64 and a chunk wider than
    its tile, heavy ties, 0, 1, 3 and 8 payloads; all keys equal, chunks in
    and against order, one chunk and an odd number of chunks) and B6
-   (tensor-core rank; random and skewed digits, blocks 1024, 2048 and
-   4096), bit-exact against their twins and oracles; then each kernel's time beside its twin's, on
-   outputs that are compared again, and torch.sort's beside B5's;
+   (tensor-core rank; random and skewed digits, blocks 1024, 2048, 4096,
+   8192 and 65535, shifts 0, 28 and 40), bit-exact against their twins and
+   oracles; then each kernel's time beside its twin's, on outputs that are
+   compared again, and torch.sort's beside B5's; B6's beside its bound,
+   the tensor-core price of its products and the parent kernel's time;
 5. main path: `verify` at 2^24 triangles for the 8x8-bit, 6x11-bit and
    11x6-bit schedules, bit-exact against the C++ pipeline oracle, with the
    kernel launch counts of each run;
@@ -745,12 +747,12 @@ def main() -> int:
     n = (1 << 22) + 777
     rand = rng.integers(0, 1 << 64, size=n, dtype=np.uint64)
     for label, keys, shifts in (
-            ("random", rand, (0, 40)),
+            ("random", rand, (0, 28, 40)),
             ("digits {0,1}", rng.integers(0, 2, size=n, dtype=np.uint64),
              (0,)),
             ("one digit", (rand & ~u64(0xFF)) | u64(0x5A), (0,))):
         key = U64.from_numpy(keys, dev)
-        for block in (1024, 2048, 4096):
+        for block in (1024, 2048, 4096, 8192, 65535):
             nb = -(-n // block)
             blk = np.arange(n, dtype=np.int64) // block
             for shift in shifts:
@@ -804,9 +806,7 @@ def main() -> int:
         "sort_chunks": bound(n * 24, n * 91 * 4),
         # B3's rank-mode function (one key word in, a rank out), so B3's
         # bound: the function needs no matrix product. The kernel's own
-        # 160 m16n8k16 products (4096 operations each) per 128 keys would
-        # take n * 160 * 4096 / 128 / 989e12 s on the tensor cores, twice
-        # the byte time; that is the cost of the method, not of the function.
+        # products are the cost of the method, not of the function (below).
         "block_rank_and_histogram_mxu": bound(n * 8 + table, n * 40),
     })
     # torch.sort orders the chunks' keys as B5 does; its order of tied
@@ -817,6 +817,15 @@ def main() -> int:
     library["sort_chunks"] = lambda: torch.sort(skey8, dim=1)
     for name, (kern, plain) in timed.items():
         time_kernel(name, kern, plain, plain_iters=3, what="2^24 keys")
+    # B6's 8 m16n8k32 u8 products (8192 operations each) per 32 keys at the
+    # card's dense int8 rate; the fp16 kernel it replaced (160 m16n8k16
+    # products per 128 keys) took 0.768 ms on an H100 80GB HBM3 at 700 W
+    mxu_price = n / 32 * 8 * 8192 / 1979e12 * 1e3
+    log(f"      block_rank_and_histogram_mxu: kernel "
+        f"{ms['block_rank_and_histogram_mxu'][0]:.4f} ms, bound "
+        f"{bounds['block_rank_and_histogram_mxu'][0]:.4f} ms by bytes, its "
+        f"products {mxu_price:.4f} ms on the tensor cores, the fp16 kernel "
+        "it replaced 0.768 ms")
     for count in (0, 3):
         pays = [pay8 + i for i in range(count)]
         compare_outputs("sort_chunks",

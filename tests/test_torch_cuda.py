@@ -396,21 +396,27 @@ def test_bitonic_kernel_rejects_bad_arguments(cuda):
         bk.sort_chunks(lo, lo.to(torch.int64), rows=8)
 
 
-@pytest.mark.parametrize("block", [1024, 4096, 1000])
+@pytest.mark.parametrize("block", [1000, 1024, 2048, 4096, 8192, 65535])
 @pytest.mark.parametrize("n", [0, 1, 1023, 100_003])
 def test_rank_mxu_kernel_matches_twin_and_b3(cuda, n, block):
     rng = np.random.default_rng(n + block)
+    blk = np.arange(n, dtype=np.int64) // block
     for keys in (rng.integers(0, 1 << 64, n, dtype=np.uint64),
                  rng.integers(0, 2, n, dtype=np.uint64),
                  np.full(n, 0x5A, dtype=np.uint64)):
         k = U64.from_numpy(keys, cuda)
-        for shift in (0, 28, 56):
+        for shift in (0, 28, 40, 56):
             r, h = rk.block_rank_and_histogram_mxu(k.lo, k.hi, shift, block)
             tr, th = rk.block_rank_and_histogram_mxu_plain(k.lo, k.hi, shift,
                                                            block)
             r3, h3 = hk.block_rank_and_histogram(k.lo, k.hi, shift, 8, block)
             for a, b in ((r, tr), (h, th), (r, r3), (h, h3)):
                 _same(a, b)
+            d = ((keys >> np.uint64(shift)) & np.uint64(255)).astype(np.int64)
+            want = native.block_rank((blk * 256 + d).astype(np.uint32),
+                                     max(-(-n // block), 1) * 256)
+            np.testing.assert_array_equal(
+                r.cpu().numpy().view(np.uint32), want)
 
 
 def test_rank_mxu_kernel_rejects_bad_arguments(cuda):

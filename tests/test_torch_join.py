@@ -79,7 +79,7 @@ def _sides(rng, n_l, n_r, dup):
 
 
 def _both(cols):
-    return Table.from_numpy(cols), JTable.from_numpy(cols)
+    return Table.from_numpy(cols, device="cpu"), JTable.from_numpy(cols)
 
 
 @pytest.mark.parametrize("masks", [False, True])

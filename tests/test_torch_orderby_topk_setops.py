@@ -57,7 +57,7 @@ def _table(n, seed):
     [("a", "desc"), "b", ("f", "desc")], ["f"], [("b", "desc"), "u", "f"]])
 def test_order_by_matches_jax(by, backend):
     cols = _table(2000, len(by))
-    t, jt = Table.from_numpy(cols), JTable.from_numpy(cols)
+    t, jt = Table.from_numpy(cols, device="cpu"), JTable.from_numpy(cols)
     got = t.order_by(by, backend=backend)
     want = jsort_by_multi(jt, by)
     _same(got, want)
@@ -68,7 +68,7 @@ def test_order_by_matches_jax(by, backend):
 def test_top_k_matches_jax(k, largest):
     cols = _table(2000, k)
     cols["a"][::3] = np.uint64(0xFFFFFFFFFFFFFFFF)      # ties at the top
-    t, jt = Table.from_numpy(cols), JTable.from_numpy(cols)
+    t, jt = Table.from_numpy(cols, device="cpu"), JTable.from_numpy(cols)
     _same(top_k(t, k, key="a", largest=largest).table,
           jtop_k(jt, k, key="a", largest=largest).table)
     with pytest.raises(ValueError):

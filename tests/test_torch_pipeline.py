@@ -4,6 +4,7 @@ block 1024) and the C++ pipeline oracle; the CLI; and the rules that the
 port never imports JAX and never falls back from a requested CUDA device.
 Tolerance: exact equality of keys and payload order."""
 
+import ast
 import os
 import subprocess
 import sys
@@ -22,6 +23,8 @@ from tpu_qe_torch import morton, native, pipeline  # noqa: E402
 from tpu_qe_torch.__main__ import main  # noqa: E402
 from tpu_qe_torch.config import (EngineConfig, SceneConfig,  # noqa: E402
                                  SortConfig, resolve_device)
+from tpu_qe_torch.sort import sort_u64_numpy  # noqa: E402
+from tpu_qe_torch.table import Table  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -86,30 +89,98 @@ def test_verify_writes_a_trace_with_the_stage_markers(tmp_path, capsys):
 
 
 def test_package_never_imports_jax():
-    code = ("import sys\n"
-            "import tpu_qe_torch, tpu_qe_torch.__main__, tpu_qe_torch.bits\n"
-            "import tpu_qe_torch.config, tpu_qe_torch.constants\n"
-            "import tpu_qe_torch.native, tpu_qe_torch.morton\n"
-            "import tpu_qe_torch.pipeline, tpu_qe_torch.sort\n"
-            "import tpu_qe_torch.sort.driver, tpu_qe_torch.kernels\n"
-            "import tpu_qe_torch.kernels.histogram\n"
-            "import tpu_qe_torch.kernels.scan, tpu_qe_torch.bench.sol\n"
-            "import tpu_qe_torch.bench.headline\n"
-            "import tpu_qe_torch.utils.timing, tpu_qe_torch.utils.profiling\n"
-            "import tpu_qe_torch.utils.dump, tpu_qe_torch.utils.build\n"
-            "import tpu_qe_torch.kernels.morton, tpu_qe_torch.kernels.bitonic\n"
-            "import tpu_qe_torch.kernels.rank_mxu, tpu_qe_torch.selfcheck\n"
-            "import tpu_qe_torch.bench.kernels\n"
+    # every module of the package, then verify, with an audit hook that
+    # records each file opened under tpu_qe/
+    code = ("import os, pkgutil, sys, importlib\n"
+            "jax_pkg = os.path.join(os.getcwd(), 'tpu_qe') + os.sep\n"
+            "opened = []\n"
+            "def hook(event, args):\n"
+            "    if event == 'open' and isinstance(args[0], str) and \\\n"
+            "            os.path.abspath(args[0]).startswith(jax_pkg):\n"
+            "        opened.append(args[0])\n"
+            "sys.addaudithook(hook)\n"
+            "import tpu_qe_torch\n"
+            "names = [m.name for m in pkgutil.walk_packages(\n"
+            "    tpu_qe_torch.__path__, 'tpu_qe_torch.')]\n"
+            "for name in names:\n"
+            "    importlib.import_module(name)\n"
             "from tpu_qe_torch.__main__ import main\n"
             "assert main(['verify', '--device', 'cpu', '--triangles', '500'])"
             " == 0\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'tpu_qe'))\n"
             "assert not bad, bad\n"
-            "print('no jax')\n")
+            "assert not opened, opened\n"
+            "print(len(names), 'modules, no jax')\n")
     r = _run(["-c", code])
     assert r.returncode == 0, r.stderr
-    assert r.stdout.strip().endswith("no jax")
+    count, rest = r.stdout.strip().splitlines()[-1].split(" ", 1)
+    assert rest == "modules, no jax"
+    # ops.*, sort.planes, table, hashing, bench.* among them
+    assert int(count) >= 30
+
+
+def test_core_is_a_byte_identical_copy_of_the_jax_packages():
+    def read(*parts):
+        with open(os.path.join(REPO, *parts), "rb") as f:
+            return f.read()
+    assert read("tpu_qe_torch", "cpp", "core.cc") == read("tpu_qe", "cpp",
+                                                          "core.cc")
+    assert native._SRC == os.path.join(REPO, "tpu_qe_torch", "cpp",
+                                       "core.cc")
+
+
+def _paths_into_the_jax_package(path):
+    """String constants of a source file that name tpu_qe/ as a path: the
+    bare component "tpu_qe", or "tpu_qe/..." given to a call."""
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    found = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Constant) and node.value == "tpu_qe":
+            found.append(node.lineno)
+        if isinstance(node, ast.Call):
+            for a in [*node.args, *(k.value for k in node.keywords)]:
+                if isinstance(a, ast.Constant) and isinstance(a.value, str) \
+                        and a.value.startswith(("tpu_qe/", "tpu_qe\\")):
+                    found.append(a.lineno)
+    return sorted(found)
+
+
+def test_no_file_of_the_port_builds_a_path_into_the_jax_package():
+    files = [os.path.join(REPO, "chip_smoke.py")] + [
+        os.path.join(d, f)
+        for d, _, fs in os.walk(os.path.join(REPO, "tpu_qe_torch"))
+        for f in fs if f.endswith(".py")]
+    assert len(files) > 30
+    bad = {f: lines for f in files
+           if (lines := _paths_into_the_jax_package(f))}
+    assert not bad, bad
+
+
+def test_path_check_finds_the_old_binding(tmp_path):
+    src = tmp_path / "old.py"
+    src.write_text('import os\n_SRC = os.path.join(os.path.dirname(__file__),'
+                   ' "tpu_qe", "cpp", "core.cc")\n'
+                   'open("tpu_qe/cpp/core.cc")\n')
+    assert _paths_into_the_jax_package(str(src)) == [2, 3]
+
+
+def test_entry_points_default_to_the_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA")
+    cols = {"k": np.arange(5, dtype=np.uint64),
+            "v": np.arange(5, dtype=np.int32)}
+    path = Table.from_numpy(cols, device="cpu").save(str(tmp_path / "t"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Table.from_numpy(cols)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Table.load(path)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        sort_u64_numpy(cols["k"])
+    assert Table.load(path, device="cpu")["v"].device.type == "cpu"
+    np.testing.assert_array_equal(sort_u64_numpy(cols["k"][::-1],
+                                                 device="cpu"), cols["k"])
 
 
 def test_cuda_device_without_cuda_raises():

@@ -29,7 +29,8 @@ def _keys(n, seed=0, bits=64):
 def test_full_u64_sort_matches_stable_argsort(backend, n):
     keys = _keys(n, seed=n)
     payload = np.arange(n, dtype=np.uint32)
-    k, p = sort_u64_numpy(keys, payload, backend=backend, block=1024)
+    k, p = sort_u64_numpy(keys, payload, backend=backend, block=1024,
+                          device="cpu")
     order = np.argsort(keys, kind="stable")
     np.testing.assert_array_equal(k, keys[order])
     np.testing.assert_array_equal(p, order.astype(np.uint32))
@@ -41,7 +42,8 @@ def test_radix_matches_jax_hybrid(n):
     keys = _keys(n, seed=100 + n)
     payload = np.arange(n, dtype=np.uint32)
     jk, jp = jax_sort_numpy(keys, payload, backend="hybrid", block=1024)
-    k, p = sort_u64_numpy(keys, payload, backend="radix", block=1024)
+    k, p = sort_u64_numpy(keys, payload, backend="radix", block=1024,
+                          device="cpu")
     np.testing.assert_array_equal(k, jk)
     np.testing.assert_array_equal(p, jp)
 
@@ -54,7 +56,7 @@ def test_key_bits_match_jax_xla(backend, key_bits, bpp):
     payload = np.arange(3000, dtype=np.uint32)
     jk, jp = jax_sort_numpy(keys, payload, backend="xla", key_bits=key_bits)
     k, p = sort_u64_numpy(keys, payload, backend=backend, key_bits=key_bits,
-                          bits_per_pass=bpp, block=512)
+                          bits_per_pass=bpp, block=512, device="cpu")
     np.testing.assert_array_equal(k, jk)       # high bits kept
     np.testing.assert_array_equal(p, jp)
 
@@ -66,7 +68,7 @@ def test_matches_cpp_oracle(bpp, passes):
     ok, op = native.lsd_sort(keys, payload)
     cfg = SortConfig(bits_per_pass=bpp, num_passes=passes)
     k, p = sort_u64_numpy(keys, payload, bits_per_pass=bpp,
-                          key_bits=cfg.key_bits)
+                          key_bits=cfg.key_bits, device="cpu")
     np.testing.assert_array_equal(k, ok)
     np.testing.assert_array_equal(p, op)
 
@@ -75,7 +77,8 @@ def test_matches_cpp_oracle(bpp, passes):
 def test_duplicate_heavy_keys_stay_stable(backend):
     keys = _keys(4000, seed=11, bits=2)
     payload = np.arange(4000, dtype=np.uint32)
-    k, p = sort_u64_numpy(keys, payload, backend=backend, block=1024)
+    k, p = sort_u64_numpy(keys, payload, backend=backend, block=1024,
+                          device="cpu")
     np.testing.assert_array_equal(p, np.argsort(keys, kind="stable"))
 
 
@@ -118,13 +121,13 @@ def test_signed_key_orders_like_unsigned():
 
 def test_unstable_torch_backend_sorts_keys():
     keys = _keys(3000, seed=5, bits=8)
-    k = sort_u64_numpy(keys, backend="torch", stable=False)
+    k = sort_u64_numpy(keys, backend="torch", stable=False, device="cpu")
     np.testing.assert_array_equal(k, np.sort(keys))
 
 
 def test_unknown_backend_raises():
     with pytest.raises(ValueError):
-        sort_u64_numpy(_keys(10), backend="xla")
+        sort_u64_numpy(_keys(10), backend="xla", device="cpu")
 
 
 @pytest.mark.parametrize("key_bits", [64, 24])
@@ -163,7 +166,7 @@ def test_tiebreak_is_stable_with_stable_false():
     keys = _keys(3000, seed=12, bits=3)
     payload = np.arange(3000, dtype=np.uint32)
     k, p = sort_u64_numpy(keys, payload, backend="torch_tiebreak",
-                          stable=False)
+                          stable=False, device="cpu")
     order = np.argsort(keys, kind="stable")
     np.testing.assert_array_equal(k, keys[order])
     np.testing.assert_array_equal(p, order)
@@ -172,4 +175,5 @@ def test_tiebreak_is_stable_with_stable_false():
 def test_tiebreak_takes_no_payload():
     keys = _keys(100, seed=1)
     np.testing.assert_array_equal(
-        sort_u64_numpy(keys, backend="torch_tiebreak"), np.sort(keys))
+        sort_u64_numpy(keys, backend="torch_tiebreak", device="cpu"),
+        np.sort(keys))

@@ -52,7 +52,7 @@ def _cols(n, seed):
 
 def test_columns_keep_their_types_and_bits():
     cols = _cols(100, 1)
-    t = Table.from_numpy(cols)
+    t = Table.from_numpy(cols, device="cpu")
     assert t["u"].dtype == torch.uint32 and t["i"].dtype == torch.int32
     assert t["f"].dtype == torch.float32 and isinstance(t["key"], U64)
     _same_dict(t.to_numpy(), cols)
@@ -60,14 +60,14 @@ def test_columns_keep_their_types_and_bits():
     assert t.num_rows == 100 and t.column_names == sorted(cols)
     assert "u" in t and list(t) == sorted(cols)
     with pytest.raises(TypeError):
-        Table.from_numpy({"x": np.zeros(3, np.int64)})
+        Table.from_numpy({"x": np.zeros(3, np.int64)}, device="cpu")
     with pytest.raises(ValueError):
         Table({"a": torch.zeros(3), "b": torch.zeros(4)})
 
 
 def test_select_drop_with_column_take_head_match_jax():
     cols = _cols(500, 2)
-    t, jt = Table.from_numpy(cols), JTable.from_numpy(cols)
+    t, jt = Table.from_numpy(cols, device="cpu"), JTable.from_numpy(cols)
     idx = np.random.default_rng(3).integers(0, 500, 800)
     _same_dict(t.take(torch.from_numpy(idx)).to_numpy(),
                jt.take(jnp.asarray(idx)).to_numpy())
@@ -80,7 +80,7 @@ def test_select_drop_with_column_take_head_match_jax():
 @pytest.mark.parametrize("backend", ["radix", "torch"])
 def test_sort_by_filter_distinct_match_jax(backend):
     cols = _cols(3000, 4)
-    t, jt = Table.from_numpy(cols), JTable.from_numpy(cols)
+    t, jt = Table.from_numpy(cols, device="cpu"), JTable.from_numpy(cols)
     _same_dict(t.sort_by("key", backend=backend).to_numpy(),
                jt.sort_by("key").to_numpy())
     ft, fc = t.filter(lambda x: x["i"] < 0)
@@ -98,7 +98,7 @@ def test_sort_by_filter_distinct_match_jax(backend):
 
 def test_group_by_and_group_by_multi_match_jax():
     cols = _cols(2000, 5)
-    t, jt = Table.from_numpy(cols), JTable.from_numpy(cols)
+    t, jt = Table.from_numpy(cols, device="cpu"), JTable.from_numpy(cols)
     res = t.group_by("key", "u", aggs=("count", "sum", "max"))
     jres = jt.group_by("key", "u", aggs=("count", "sum", "max"))
     ng = int(jres.num_groups)
@@ -119,8 +119,8 @@ def test_table_join_methods_and_set_op_match_jax():
     lc, rc = _cols(900, 6), _cols(300, 7)
     rc["key"] = np.unique(rc["key"])
     rc = {k: v[:len(rc["key"])] for k, v in rc.items()}
-    lt, jlt = Table.from_numpy(lc), JTable.from_numpy(lc)
-    rt, jrt = Table.from_numpy(rc), JTable.from_numpy(rc)
+    lt, jlt = Table.from_numpy(lc, device="cpu"), JTable.from_numpy(lc)
+    rt, jrt = Table.from_numpy(rc, device="cpu"), JTable.from_numpy(rc)
     out, m = lt.join(rt)
     jout, jm = jlt.join(jrt)
     np.testing.assert_array_equal(m.numpy(), np.asarray(jm))
@@ -141,35 +141,35 @@ def test_table_join_methods_and_set_op_match_jax():
 
 def test_npz_round_trip_and_interchange_with_jax(tmp_path):
     cols = _cols(64, 8)
-    t, jt = Table.from_numpy(cols), JTable.from_numpy(cols)
+    t, jt = Table.from_numpy(cols, device="cpu"), JTable.from_numpy(cols)
     path = t.save(str(tmp_path / "port.npz"))
-    _same_dict(Table.load(path).to_numpy(), cols)
+    _same_dict(Table.load(path, device="cpu").to_numpy(), cols)
     _same_dict(load_table_npz(path).to_numpy(), cols)      # JAX reads it
     jpath = save_table_npz(jt, str(tmp_path / "jax.npz"))
-    _same_dict(Table.load(jpath).to_numpy(), cols)         # and back
+    _same_dict(Table.load(jpath, device="cpu").to_numpy(), cols)   # and back
     with pytest.raises(ValueError):
         Table({"x@lo": t["u"]}).save(str(tmp_path / "bad.npz"))
 
 
 def test_save_and_load_take_the_reference_format_argument(tmp_path):
     cols = _cols(50, 9)
-    t, jt = Table.from_numpy(cols), JTable.from_numpy(cols)
+    t, jt = Table.from_numpy(cols, device="cpu"), JTable.from_numpy(cols)
     # the reference's argument order: format second, by position or keyword
     path = t.save(str(tmp_path / "a.npz"), "npz")
-    _same_dict(Table.load(path, "npz").to_numpy(), cols)
+    _same_dict(Table.load(path, "npz", device="cpu").to_numpy(), cols)
     path = t.save(str(tmp_path / "b"), format="npz")
     assert path.endswith("b.npz")
     _same_dict(Table.load(path, format="npz", device="cpu").to_numpy(), cols)
     _same_dict(JTable.load(path, format="npz").to_numpy(), cols)
     jpath = jt.save(str(tmp_path / "j.npz"), format="npz")
-    _same_dict(Table.load(jpath, format="npz").to_numpy(), cols)
+    _same_dict(Table.load(jpath, format="npz", device="cpu").to_numpy(), cols)
 
 
 @pytest.mark.parametrize("format", ["parquet", "", "NPZ"])
 def test_save_and_load_refuse_an_unknown_format_like_the_reference(
         tmp_path, format):
     cols = _cols(5, 10)
-    t, jt = Table.from_numpy(cols), JTable.from_numpy(cols)
+    t, jt = Table.from_numpy(cols, device="cpu"), JTable.from_numpy(cols)
     path = t.save(str(tmp_path / "ok.npz"))
     for table, cls in ((t, Table), (jt, JTable)):
         with pytest.raises(ValueError, match="unknown format"):
@@ -180,16 +180,16 @@ def test_save_and_load_refuse_an_unknown_format_like_the_reference(
 
 
 def test_orbax_format_names_the_missing_package(tmp_path):
-    t = Table.from_numpy(_cols(5, 11))
+    t = Table.from_numpy(_cols(5, 11), device="cpu")
     with pytest.raises(ImportError, match="orbax"):
         t.save(str(tmp_path / "ckpt"), format="orbax")
     with pytest.raises(ImportError, match="orbax"):
-        Table.load(str(tmp_path / "ckpt"), format="orbax")
+        Table.load(str(tmp_path / "ckpt"), format="orbax", device="cpu")
     assert not (tmp_path / "ckpt").exists()
 
 
 def test_load_takes_the_device_by_keyword_only(tmp_path):
-    t = Table.from_numpy(_cols(5, 12))
+    t = Table.from_numpy(_cols(5, 12), device="cpu")
     path = t.save(str(tmp_path / "d.npz"))
     assert Table.load(path, device=torch.device("cpu"))["u"].device.type \
         == "cpu"
@@ -260,7 +260,7 @@ def test_fuzz_operators_match_jax(n, seed, style, dtype, masked, backend):
     rvals = rng.integers(0, 1 << 32, len(rkeys), dtype=np.uint64).astype(
         np.uint32)
     out, m = join_fk_scan(
-        Table({}), Table.from_numpy({"v": rvals}),
+        Table({}), Table.from_numpy({"v": rvals}, device="cpu"),
         U64.from_numpy(keys, "cpu"), U64.from_numpy(rkeys, "cpu"),
         backend=backend)
     jout, jm = jfk(JTable({}), JTable.from_numpy({"v": rvals}),

@@ -14,7 +14,9 @@ milliseconds per launch at n random keys, block BLOCK, the main path's 8-bit
 digit at shift 0 unless the name says otherwise, each the smaller of two
 means of 20 launches; B3's scatter also at 11- and 16-bit digits (at 11
 bits also with blocks of 32768 and 65535 keys), its rank mode and B1 at 11
-and 16 bits (`block_rank_11bit`, `histogram_16bit`, ...); B5 on chunks of
+and 16 bits (`block_rank_11bit`, `histogram_16bit`, ...); B6 at shifts 0
+and 40 and at blocks of 1024 and 8192 keys (`rank_mxu`, `rank_mxu_shift40`,
+`rank_mxu_b1024`, `rank_mxu_b8192`); B5 on chunks of
 8192 keys with 0, 1 and 3 payloads (`sort_chunks_8192_p1`, ...: the first
 n // 8192 chunks) beside `torch.sort` of the same chunks' keys
 (`torch_sort_chunks_8192_ms`); the sort of n keys and a payload in 8-,
@@ -121,6 +123,14 @@ def main(argv=None) -> int:
             lambda bits=bits: hk.block_rank_and_histogram(lo, hi, 0, bits))
         cases[f"histogram_{bits}bit"] = (
             lambda bits=bits: hk.block_histogram(lo, hi, 0, bits))
+    # B6 (the tensor-core rank; B3's rank-mode output) at block BLOCK and
+    # shifts 0 and 40, and at blocks 1024 and 8192
+    from tpu_qe_torch.kernels import rank_mxu as rk
+    for shift, block in ((0, BLOCK), (40, BLOCK), (0, 1024), (0, 8192)):
+        name = "rank_mxu" + (f"_shift{shift}" if shift else "") + (
+            f"_b{block}" if block != BLOCK else "")
+        cases[name] = (lambda shift=shift, block=block:
+                       rk.block_rank_and_histogram_mxu(lo, hi, shift, block))
     # B5: the first n // 8192 chunks of 8192 keys (at least one), with 0, 1
     # and 3 payloads, beside torch.sort of the same chunks' keys
     from tpu_qe_torch.kernels import bitonic as bk

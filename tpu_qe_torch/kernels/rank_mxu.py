@@ -3,17 +3,18 @@
 Port of tpu_qe/kernels/rank_mxu.py::block_rank_and_histogram_mxu as a CUDA
 kernel in csrc/rank_mxu.cu, with the flat-plane API of the port's B3
 (tpu_qe_torch.kernels.histogram.block_rank_and_histogram), so the two are
-interchangeable for 8-bit digits. Per row of 128 keys, with nibble one-hot
-matrices OH_hi and OH_lo:
+interchangeable for 8-bit digits. Each key gets a concatenated one-hot row
+X of 32 columns (16 for its high nibble, 16 for its low one); per step of 32
+keys of a block:
 
-  SAME = (OH_hi OH_hi^T) * (OH_lo OH_lo^T),  rank_in_row = sum_{j<i} SAME
-  H    = OH_hi^T OH_lo                        (the row's 16 x 16 histogram)
+  SAME = (X X^T == 2),  rank_in_step = sum_{j<i} SAME    (X X^T[i][j] is
+                                     [hi_i == hi_j] + [lo_i == lo_j])
+  H_s  = OH_hi^T OH_lo                the step's 16 x 16 histogram
 
-and a key's base is the count of its digit in the earlier rows of its
-block. Those counts reach the block size, beyond what fp16, tf32 or bf16
-hold exactly, so the kernel looks the base up in shared memory instead of
-passing it through a tensor-core operand, and the plain twin gathers it
-from an int64 prefix.
+and a key's base, the count of its digit in the block's earlier steps, is
+the running integer sum of the H_s before its step. The kernel sums H in
+the products' s32 accumulators, so the base is exact for any block; the
+plain twin takes the same steps, with an int64 running prefix.
 """
 
 from __future__ import annotations
@@ -25,11 +26,11 @@ from tpu_qe_torch.constants import BLOCK
 from tpu_qe_torch.kernels import (LAUNCHES, check, library, require_planes,
                                   stream_of)
 
-ROW = 128          # keys per row, as the TPU kernel's 128 lanes
+STEP = 32          # keys per step: the kernel's m16n8k32 products
 NIB = 16
 _NONE = NIB        # nibble of a masked key: matches no one-hot column
 _CHUNK_KEYS = 1 << 18   # plain twin: keys per batch of blocks (SAME is
-                        # 512 bytes a key in float32)
+                        # 128 bytes a key in float32)
 
 
 def _check_args(n: int, block: int, shift: int) -> int:
@@ -51,48 +52,50 @@ def nibble_hist_to_digit_major(hist_nib: torch.Tensor) -> torch.Tensor:
     return hist_nib.reshape(hist_nib.shape[0], NIB * NIB).T
 
 
-def _rank_rows_plain(nh: torch.Tensor, nl: torch.Tensor):
-    """Ranks and nibble histograms of (m, R, 128) nibble rows of m blocks."""
-    m, rows, _ = nh.shape
+def _rank_steps_plain(nh: torch.Tensor, nl: torch.Tensor):
+    """Ranks and nibble histograms of (m, S, 32) nibble steps of m blocks."""
+    m, steps, _ = nh.shape
     iota = torch.arange(NIB, device=nh.device)
-    oh_hi = (nh[..., None] == iota).to(torch.float32)    # (m, R, 128, 16)
+    oh_hi = (nh[..., None] == iota).to(torch.float32)    # (m, S, 32, 16)
     oh_lo = (nl[..., None] == iota).to(torch.float32)
-    same = (oh_hi @ oh_hi.transpose(-1, -2)) * (oh_lo @ oh_lo.transpose(-1, -2))
-    tri = torch.ones(ROW, ROW, device=nh.device).tril(-1)   # j < i
-    rank_in_row = (same * tri).sum(-1)                   # (m, R, 128)
-    h = oh_hi.transpose(-1, -2) @ oh_lo                  # (m, R, 16, 16)
-    counts = h.round().to(torch.int64).reshape(m, rows, NIB * NIB)
-    excl = torch.cumsum(counts, 1) - counts              # earlier rows
+    x = torch.cat([oh_hi, oh_lo], -1)                    # (m, S, 32, 32)
+    same = (x @ x.transpose(-1, -2) == 2).to(torch.float32)
+    tri = torch.ones(STEP, STEP, device=nh.device).tril(-1)   # j < i
+    rank_in_step = (same * tri).sum(-1)                  # (m, S, 32)
+    h = oh_hi.transpose(-1, -2) @ oh_lo                  # (m, S, 16, 16)
+    counts = h.round().to(torch.int64).reshape(m, steps, NIB * NIB)
+    excl = torch.cumsum(counts, 1) - counts              # earlier steps
     digit = (nh * NIB + nl).clamp(max=NIB * NIB - 1)
     base = torch.gather(excl, 2, digit)
-    ranks = rank_in_row.round().to(torch.int64) + base
+    ranks = rank_in_step.round().to(torch.int64) + base
     return ranks, counts.sum(1).reshape(m, NIB, NIB)
 
 
 def block_rank_and_histogram_mxu_plain(lo: torch.Tensor, hi: torch.Tensor,
                                        shift: int, block: int = BLOCK):
-    """Plain twin of B6: the same one-hot matrix algebra in float32 torch.
-    Returns (ranks (n,) int32, hist (256, nb) int32)."""
+    """Plain twin of B6: the same one-hot matrix algebra in float32 torch,
+    with an integer running prefix. Returns (ranks (n,) int32, hist (256,
+    nb) int32)."""
     n = lo.shape[0]
     nb = _check_args(n, block, shift)
-    rows = -(-block // ROW)
+    steps = -(-block // STEP)
     dev = lo.device
     d = select_digit(lo, hi, shift, 8)
     ranks = torch.empty(n, dtype=torch.int32, device=dev)
     hist_nib = torch.empty((nb, NIB, NIB), dtype=torch.int64, device=dev)
-    per_batch = max(1, _CHUNK_KEYS // (rows * ROW))
-    pos = torch.arange(rows * ROW, device=dev)
+    per_batch = max(1, _CHUNK_KEYS // (steps * STEP))
+    pos = torch.arange(steps * STEP, device=dev)
     for b0 in range(0, nb, per_batch):
         b1 = min(nb, b0 + per_batch)
-        # key index of every (block, row, lane) slot; masked past the
+        # key index of every (block, step, lane) slot; masked past the
         # block's end and past n
         g = torch.arange(b0, b1, device=dev)[:, None] * block + pos
         valid = (pos < block) & (g < n)
         dv = d[g.clamp(max=n - 1)]
-        nh = torch.where(valid, dv >> 4, _NONE).reshape(b1 - b0, rows, ROW)
-        nl = torch.where(valid, dv & 15, _NONE).reshape(b1 - b0, rows, ROW)
-        r, hn = _rank_rows_plain(nh, nl)
-        r = r.reshape(b1 - b0, rows * ROW)
+        nh = torch.where(valid, dv >> 4, _NONE).reshape(b1 - b0, steps, STEP)
+        nl = torch.where(valid, dv & 15, _NONE).reshape(b1 - b0, steps, STEP)
+        r, hn = _rank_steps_plain(nh, nl)
+        r = r.reshape(b1 - b0, steps * STEP)
         ranks[g[valid]] = r[valid].to(torch.int32)
         hist_nib[b0:b1] = hn
     hist = nibble_hist_to_digit_major(hist_nib).contiguous()

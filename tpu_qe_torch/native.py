@@ -1,10 +1,11 @@
-"""ctypes binding of the shared C++ core (tpu_qe/cpp/core.cc).
+"""ctypes binding of the port's copy of the C++ core (cpp/core.cc).
 
-The same source the JAX package binds, compiled here with g++ and the
-Makefile's flags into the port's own build directory, so that this package
-never imports tpu_qe (whose __init__ imports jax). The core holds the host
-side of the pipeline: ChaCha8 scene generation, the morton LUT builder and
-the CPU oracles that judge both packages bit for bit.
+The file is a byte-for-byte copy of the JAX package's tpu_qe/cpp/core.cc
+(a test holds the two equal, so both packages keep one judge), compiled
+here with g++ and that package's Makefile flags into the port's own build
+directory: this package reads no file of tpu_qe and never imports it. The
+core holds the host side of the pipeline: ChaCha8 scene generation, the
+morton LUT builder and the CPU oracles that judge both packages bit for bit.
 """
 
 from __future__ import annotations
@@ -17,9 +18,10 @@ import numpy as np
 
 from tpu_qe_torch.utils.build import build_library
 
-_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))), "tpu_qe", "cpp", "core.cc")
-# tpu_qe/cpp/Makefile; -ffp-contract=off keeps float quantization op-exact.
+_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "cpp",
+                    "core.cc")
+# The JAX package's Makefile flags; -ffp-contract=off keeps float
+# quantization op-exact.
 _CXX = ["g++", "-O2", "-std=c++17", "-fPIC", "-ffp-contract=off",
         "-fvisibility=hidden", "-shared"]
 
@@ -36,7 +38,7 @@ def _load() -> ctypes.CDLL:
     with _lock:
         if _lib is not None:
             return _lib
-        lib = ctypes.CDLL(build_library("tpuqe_core", [_SRC], _CXX))
+        lib = ctypes.CDLL(build_library("tpuqe_torch_core", [_SRC], _CXX))
         u64, u32 = ctypes.c_uint64, ctypes.c_uint32
         f32p = ctypes.POINTER(ctypes.c_float)
         u32p = ctypes.POINTER(ctypes.c_uint32)

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from tpu_qe_torch.bits import U64, digit_schedule, pack_columns, widen
+from tpu_qe_torch.config import resolve_device
 from tpu_qe_torch.constants import BLOCK
 from tpu_qe_torch.kernels.histogram import block_histogram, rank_and_scatter
 from tpu_qe_torch.kernels.scan import exclusive_scan
@@ -121,8 +122,11 @@ def sort_u64(key: U64, *payloads: torch.Tensor, key_bits: int = 64,
 
 
 def sort_u64_numpy(keys: np.ndarray, payload: np.ndarray | None = None, *,
-                   device: str | torch.device = "cpu", **kw):
-    """Numpy-in/numpy-out convenience wrapper (testing and benchmarking)."""
+                   device: str | torch.device = "cuda", **kw):
+    """Numpy-in/numpy-out convenience wrapper (testing and benchmarking);
+    sorts on `device`, the card unless the caller names another. A CUDA
+    device without CUDA raises."""
+    device = resolve_device(device)
     k = U64.from_numpy(keys, device)
     payloads = () if payload is None else (torch.from_numpy(
         np.ascontiguousarray(payload, dtype=np.uint32).view(np.int32)).to(

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from tpu_qe_torch.bits import U64, as_i32
+from tpu_qe_torch.config import resolve_device
 
 Column = torch.Tensor | U64
 DTYPES = (torch.uint32, torch.int32, torch.float32)
@@ -126,8 +127,11 @@ class Table:
     # -- conversion ---------------------------------------------------------
     @staticmethod
     def from_numpy(columns: Mapping[str, np.ndarray],
-                   device: str | torch.device = "cpu") -> "Table":
-        return Table({k: column_from_numpy(v, device)
+                   device: str | torch.device = "cuda") -> "Table":
+        """The columns on `device`, the card unless the caller names
+        another; a CUDA device without CUDA raises."""
+        dev = resolve_device(device)
+        return Table({k: column_from_numpy(v, dev)
                       for k, v in columns.items()})
 
     def to_numpy(self) -> dict[str, np.ndarray]:
@@ -274,10 +278,12 @@ class Table:
 
     @staticmethod
     def load(path: str, format: str = "npz", *,
-             device: str | torch.device = "cpu") -> "Table":
+             device: str | torch.device = "cuda") -> "Table":
         """Load a Table written by save() (or by the JAX package's npz
-        checkpoint) onto `device`."""
+        checkpoint) onto `device`, the card unless the caller names another;
+        a CUDA device without CUDA raises."""
         _check_format(format)
+        device = resolve_device(device)
         cols = {}
         with np.load(path) as z:
             for k in z.files:
