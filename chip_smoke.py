@@ -67,15 +67,29 @@ Run from the root of the repository on a machine with a CUDA card. Phases:
    count_distinct, setop and pipeline: each config bit-exact between the
    radix and torch backends and holding its invariants, B1, B2 and B3
    launched once per pass that the sort driver recorded; then
-   filter + GROUP BY and the join at 2^24 rows bit-exact against numpy.
+   filter + GROUP BY and the join at 2^24 rows bit-exact against numpy;
+11. quantile and window: `bench-matrix` through the CLI at full size
+   (2^27 rows) for window (two rows) and quantile, bit-exact across
+   backends, B1-B3 launched once per recorded pass; then at 2^22 rows
+   against numpy: group DISC and CONT p50 / p99, window row_number, rank,
+   dense_rank, exact running_sum and moving_sum(4 back, 3 ahead), and a
+   bounded range_sum over an int32 order that spans zero (per-partition
+   sort and binary searches in numpy);
+12. the out-of-core sort: `bench-big` through the CLI at 2^30 keys
+   (partition, merge, in-core) and with 3 payload columns at 2^28, every
+   certificate true and B1-B3 launched once per recorded pass;
+   sort_big(2^22, collect=True) against numpy's stable sort; a run
+   killed mid-merge (from consume, at the third of four buckets, at 2^28)
+   resumed from --checkpoint-dir with the whole run's per-bucket scalars.
 
 Then it prints the kernel summary as one JSON line (per kernel: launches on
-the main path, largest difference from its references, its time, its plain
-twin's, the least time the card could take for the same bytes or
-operations, and the time of the one PyTorch call that computes the same
-function, where there is one), the nvidia-smi line, and last the result
-line. Any failure exits nonzero; without CUDA, or outside
-the repository, it exits nonzero before printing a result.
+the main path and the paths of phases 10-12, largest difference from its
+references, its time, its plain twin's, the least time the card could
+take for the same bytes or operations, and the time of the one PyTorch
+call that computes the same function, where there is one), the
+nvidia-smi line, and last the result line. Any failure exits nonzero;
+without CUDA, or outside the repository, it exits nonzero before printing
+a result.
 """
 
 from __future__ import annotations
@@ -142,7 +156,7 @@ def main() -> int:
 
     # -- 1. device
     smi = nvidia_smi_line()
-    log(f"[1/10] device: {smi}; torch {torch.__version__}, "
+    log(f"[1/12] device: {smi}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.device_count()} card(s)")
 
     # -- 2. build
@@ -151,7 +165,7 @@ def main() -> int:
     t1 = time.perf_counter()
     native.pipeline_oracle(10, 10, 7)
     t2 = time.perf_counter()
-    log(f"[2/10] build: CUDA kernels {t1 - t0:.1f} s, C++ core {t2 - t1:.1f} s")
+    log(f"[2/12] build: CUDA kernels {t1 - t0:.1f} s, C++ core {t2 - t1:.1f} s")
 
     # -- 3. kernels against their twins and the C++ oracles
     err = {name: 0 for name in kernels.LAUNCHES}
@@ -450,7 +464,7 @@ def main() -> int:
     log("      exclusive_scan: 1000 scans back to back with fresh scratch "
         "and a scan beside a busy stream bit-exact")
     torch.cuda.synchronize()
-    log("[3/10] radix kernels bit-exact against twins and C++ oracles; "
+    log("[3/12] radix kernels bit-exact against twins and C++ oracles; "
         "max_abs_err " + json.dumps({k: err[k] for k in (
             "block_histogram", "exclusive_scan", "block_rank_and_histogram",
             "rank_and_scatter")}))
@@ -770,7 +784,7 @@ def main() -> int:
                 log(f"      n={n} {label} block={block} shift={shift}: "
                     "B6 bit-exact against twin, B3 and the C++ rank")
     torch.cuda.synchronize()
-    log("[4/10] B4, B5, B6 bit-exact against twins and oracles; max_abs_err "
+    log("[4/12] B4, B5, B6 bit-exact against twins and oracles; max_abs_err "
         + json.dumps({k: err[k] for k in ("encode_quantized_lut",
                                           "sort_chunks",
                                           "block_rank_and_histogram_mxu")}))
@@ -862,7 +876,7 @@ def main() -> int:
                      f"pass ({passes})")
         if launches is None:
             launches = counts
-    log("[5/10] main path: VERIFY PASS at 2^24 triangles for 8x8, 6x11 "
+    log("[5/12] main path: VERIFY PASS at 2^24 triangles for 8x8, 6x11 "
         "and 11x6")
 
     # -- 6. LUT encode path on the verify scene: B4 through morton.encode
@@ -890,7 +904,7 @@ def main() -> int:
     t_direct = cuda_time(lambda: morton.encode(verts_t, tris_t, params),
                          iters=5)
     del verts, tris, verts_t, tris_t, code
-    log(f"[6/10] LUT encode path: B4 bit-exact on the verify scene; encode "
+    log(f"[6/12] LUT encode path: B4 bit-exact on the verify scene; encode "
         f"(quantize + B4) {t_lut * 1e3:.4f} ms, plain direct encode "
         f"{t_direct * 1e3:.4f} ms at 2^24 triangles")
 
@@ -910,7 +924,7 @@ def main() -> int:
                 "block_rank_and_histogram_mxu")
     for name in off_path:
         launches[name] = counts[name]
-    log("[7/10] selfcheck: SELFCHECK PASS")
+    log("[7/12] selfcheck: SELFCHECK PASS")
 
     # -- 8. per-kernel bench
     kernels.reset_launches()
@@ -922,14 +936,14 @@ def main() -> int:
                  "block_rank_and_histogram"):
         if counts[name] < 1:
             fail(f"bench-kernels never launched {name}")
-    log(f"[8/10] bench-kernels at 2^24: launches {counts}")
+    log(f"[8/12] bench-kernels at 2^24: launches {counts}")
 
     # -- 9. headline sort
     res = headline.measure(1 << 26, seed=7, iters=10, device="cuda")
     log(f"      {json.dumps(res)}")
     if not res["verified"]:
         fail("radix sort of 2^26 keys differs from stable torch.sort")
-    log(f"[9/10] headline: radix {res['time_s'] * 1e3:.3f} ms, torch.sort "
+    log(f"[9/12] headline: radix {res['time_s'] * 1e3:.3f} ms, torch.sort "
         f"{res['torch_sort_time_s'] * 1e3:.3f} ms for 2^26 keys + payload; "
         "bit-exact")
 
@@ -1006,9 +1020,239 @@ def main() -> int:
     if not all(checks.values()):
         fail(f"operators differ from the numpy oracle at 2^24 rows: {checks}")
     del data, res, jd, out, matched
-    log(f"[10/10] operators: bench-matrix bit-exact across backends at full "
+    log(f"[10/12] operators: bench-matrix bit-exact across backends at full "
         f"size, launches as planned; numpy oracle at 2^24 rows "
         f"{json.dumps(checks)}; {time.perf_counter() - t0:.1f} s")
+
+    # -- 11. quantile and window: bench-matrix at full size, numpy oracles
+    t0 = time.perf_counter()
+    from tpu_qe_torch.sort import driver
+    path_launches = {name: 0 for name in kernels.LAUNCHES}
+
+    def counted(what: str, planned_from, fn):
+        """Drive one path with every count at 0 before it; B1, B2 and B3
+        must have launched once per LSD pass its sorts planned."""
+        kernels.reset_launches()
+        driver.RADIX_PASSES.clear()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = dict(kernels.LAUNCHES)
+        planned = planned_from(out)
+        for name in ("block_histogram", "exclusive_scan",
+                     "rank_and_scatter"):
+            if planned < 1 or counts[name] != planned:
+                fail(f"{what}: {name} launched {counts[name]} times, the "
+                     f"sorts planned {planned} passes")
+        for name in path_launches:
+            path_launches[name] += counts[name]
+        return out, counts, planned
+
+    def passes_recorded(_):
+        return sum(driver.RADIX_PASSES.values())
+
+    def cli_rows(argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli(argv)
+        rows = [json.loads(line) for line in buf.getvalue().splitlines()
+                if line.startswith("{")]
+        if rc != 0 or not rows:
+            fail(f"{' '.join(argv)}: rc {rc}, {len(rows)} rows")
+        return rows
+
+    for configs in ("window", "quantile"):
+        rows, counts, planned = counted(
+            f"bench-matrix {configs}",
+            lambda rows: sum(r["sort_passes"] * r["radix_runs"]
+                             for r in rows),
+            lambda: cli_rows(["bench-matrix", "--configs", configs]))
+        for row in rows:
+            log(f"      {json.dumps(row)}")
+        log(f"      {configs} (2^27 rows): radix and torch backends "
+            f"bit-exact, invariants hold; launches {counts} = planned "
+            f"passes {planned}")
+        torch.cuda.empty_cache()
+
+    from tpu_qe_torch.ops.quantile import (canon_qs, group_quantile,
+                                           group_quantile_cont)
+    from tpu_qe_torch.ops.window import window
+    n = 1 << 22
+    qd = matrix.quantile_data(n, dev)
+    disc, _, _ = counted("group_quantile at 2^22", passes_recorded,
+                         lambda: group_quantile(qd["key"], qd["val"],
+                                                matrix.QUANTILES))
+    cont = group_quantile_cont(qd["key"], qd["val"], matrix.QUANTILES,
+                               max_groups=qd["groups"])
+    keys = qd["key"].to_numpy()
+    val = host(qd["val"].view(torch.int32)).view(np.uint32)
+    order = np.lexsort((val, keys))
+    sk_, sv = keys[order], val[order]
+    starts = np.flatnonzero(np.r_[True, sk_[1:] != sk_[:-1]])
+    cnt = np.diff(np.r_[starts, n])
+    ng = len(starts)
+    checks = {"groups": int(disc.num_groups) == ng == int(cont.num_groups),
+              "keys": np.array_equal(disc.key.to_numpy()[:ng], sk_[starts])
+              and np.array_equal(cont.key.to_numpy()[:ng], sk_[starts])}
+    for qi, (num, sh) in enumerate(canon_qs(matrix.QUANTILES)):
+        r = np.clip(-((-num * cnt) >> sh) - 1, 0, cnt - 1)
+        f = (num * (cnt - 1)) >> sh
+        frac = (num * (cnt - 1)) & ((1 << sh) - 1)
+        lower, upper = sv[starts + f], sv[starts + np.minimum(
+            f + (frac != 0), cnt - 1)]
+        lo_f = lower.astype(np.float32)
+        value = lo_f + (upper.astype(np.float32) - lo_f) * (
+            frac.astype(np.float32) * np.float32(1 / (1 << sh)))
+
+        def got(t):
+            return host(t[qi].view(torch.int32)).view(np.uint32)[:ng]
+        checks[f"disc_q{qi}"] = np.array_equal(got(disc.quantiles),
+                                               sv[starts + r])
+        checks[f"cont_q{qi}"] = (
+            np.array_equal(got(cont.lower), lower)
+            and np.array_equal(got(cont.upper), upper)
+            and np.array_equal(host(cont.frac[qi])[:ng], frac)
+            and np.allclose(host(cont.value[qi])[:ng], value, rtol=1e-5,
+                            atol=1e-3))
+    del qd, disc, cont
+
+    wd = matrix.window_data(n, dev)
+    wd["order"] = (wd["order"].view(torch.int32) & 0x3F).view(torch.uint32)
+    funcs = {"rn": ("row_number",), "rk": ("rank",), "dr": ("dense_rank",),
+             "cum": ("running_sum", "v"), "ms": ("moving_sum", "v", 4, 3)}
+    res, _, _ = counted("window at 2^22", passes_recorded,
+                        lambda: matrix.window_op(wd, funcs, "radix"))
+    keys = wd["key"].to_numpy()
+    o = host(wd["order"].view(torch.int32)).view(np.uint32)
+    v = host(wd["val"].view(torch.int32)).view(np.uint32).astype(np.uint64)
+    perm = np.lexsort((o, keys))          # stable: ties by position
+    sk_, so, sv = keys[perm], o[perm], v[perm]
+    idx = np.arange(n)
+    new = np.r_[True, sk_[1:] != sk_[:-1]]
+    onew = new | np.r_[True, so[1:] != so[:-1]]
+    ps = np.maximum.accumulate(np.where(new, idx, 0))
+    pe = n - 1 - np.maximum.accumulate(
+        np.where(np.r_[new[1:], True][::-1], idx, 0))[::-1]
+    c = np.cumsum(onew)
+    p0 = np.concatenate([np.zeros(1, np.uint64), np.cumsum(sv)])
+    want = {"rn": idx - ps + 1,
+            "rk": np.maximum.accumulate(np.where(onew, idx, 0)) - ps + 1,
+            "dr": c - c[ps] + 1, "cum": p0[idx + 1] - p0[ps],
+            "ms": p0[np.minimum(idx + 3, pe) + 1]
+            - p0[np.maximum(idx - 3, ps)]}
+    for name, w in want.items():
+        col = res.cols[name]
+        g = col.to_numpy() if isinstance(col, U64) else host(
+            col.view(torch.int32)).view(np.uint32)
+        inp = np.empty_like(w)
+        inp[perm] = w
+        checks[f"window_{name}"] = np.array_equal(g.astype(np.uint64),
+                                                  inp.astype(np.uint64))
+    # bounded RANGE over an int32 order that spans zero: the SQL frame by a
+    # per-partition sort and binary searches in numpy
+    oi = (o.astype(np.int64) % 41 - 20).astype(np.int32)
+    res, _, _ = counted("bounded RANGE window at 2^22",
+                        passes_recorded,
+                        lambda: window(wd["key"],
+                                       {"rb": ("range_sum", "v", 5)},
+                                       order=torch.from_numpy(oi).to(dev),
+                                       values={"v": wd["val"]}))
+    perm = np.lexsort((oi, keys))
+    sk_, so, sv = keys[perm], oi[perm].astype(np.int64), v[perm]
+    part = np.cumsum(np.r_[True, sk_[1:] != sk_[:-1]]) - 1
+    comp = (part << 32) | (so + (1 << 31))
+    a = np.searchsorted(comp, (part << 32) | (np.maximum(
+        so - 5, -(1 << 31)) + (1 << 31)), side="left")
+    b = np.searchsorted(comp, comp, side="right")
+    p0 = np.concatenate([np.zeros(1, np.uint64), np.cumsum(sv)])
+    w = np.empty(n, np.uint64)
+    w[perm] = p0[b] - p0[a]
+    checks["window_range_sum_int32_order"] = np.array_equal(
+        res.cols["rb"].to_numpy(), w)
+    if not all(checks.values()):
+        fail(f"quantile / window differ from numpy at 2^22 rows: {checks}")
+    del wd, res
+    torch.cuda.empty_cache()
+    log(f"[11/12] quantile and window: bench-matrix bit-exact across "
+        f"backends at 2^27 rows, launches as planned; numpy oracle at 2^22 "
+        f"rows {json.dumps({k: bool(x) for k, x in checks.items()})}; "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # -- 12. the out-of-core sort: bench-big, a numpy oracle, a resume
+    t0 = time.perf_counter()
+    import tempfile
+
+    from tpu_qe_torch.hashing import keygen_hash_numpy
+    from tpu_qe_torch.sort import bigsort
+    from tpu_qe_torch.utils.checkpoint import RunState
+
+    for extra in (["--strategy", "partition"], ["--strategy", "merge"],
+                  ["--in-core"], ["--payload-cols", "3", "--n",
+                                  str(1 << 28)]):
+        argv = ["bench-big", "--n", str(1 << 30)] + extra
+        (row,), counts, planned = counted(" ".join(argv), passes_recorded,
+                                          lambda: cli_rows(argv))
+        log(f"      {json.dumps(row)}")
+        if not (row["verified"] and all(row["checks"].values())):
+            fail(f"{' '.join(argv)}: a certificate failed: {row}")
+        log(f"      {' '.join(extra)}: every certificate holds; launches "
+            f"{counts} = recorded passes {planned}")
+        torch.cuda.empty_cache()
+
+    n = 1 << 22
+    res, (skeys, spay) = bigsort.sort_big(n, run_size=1 << 20, n_buckets=4,
+                                          collect=True)
+    want = keygen_hash_numpy(np.arange(n, dtype=np.uint32))
+    order = np.argsort(want, kind="stable")
+    if not (res.all_ok and np.array_equal(skeys, np.sort(want))
+            and np.array_equal(spay, order.astype(np.uint32))):
+        fail("sort_big(2^22, collect=True) differs from numpy.sort")
+    log("      sort_big(2^22, run_size=2^20, 4 buckets, collect=True): "
+        "keys and payloads equal numpy's stable sort")
+
+    # a process killed mid-merge: consume exits with code 3 when the third
+    # bucket has been merged, after the first two were recorded
+    stopper = (
+        "import os, sys\n"
+        "from tpu_qe_torch.sort import bigsort\n"
+        "def stop_at_the_third(b, bucket):\n"
+        "    if b == 2:\n"
+        "        os._exit(3)\n"
+        "n, run_size, nb = (int(a) for a in sys.argv[2:])\n"
+        "bigsort.sort_big(n, run_size=run_size, n_buckets=nb,\n"
+        "                 checkpoint_dir=sys.argv[1],\n"
+        "                 consume=stop_at_the_third)\n")
+    n, run_size, nb = 1 << 28, 1 << 26, 4
+    meta = np.asarray([n, run_size, nb, 7, 4096, 1, 1], np.int64)
+    with tempfile.TemporaryDirectory() as full, \
+            tempfile.TemporaryDirectory() as part_dir:
+        whole = bigsort.sort_big(n, run_size=run_size, n_buckets=nb,
+                                 checkpoint_dir=full)
+        rc = subprocess.run([sys.executable, "-c", stopper, part_dir,
+                             str(n), str(run_size), str(nb)],
+                            timeout=600).returncode
+        if rc != 3:
+            fail(f"the run to stop at the third bucket exited with {rc}")
+        stopped = RunState.load(part_dir, meta)
+        if stopped is None or int(stopped.done.sum()) != 2:
+            fail("the stopped run did not leave two buckets recorded")
+        argv = ["bench-big", "--n", str(n), "--run-size", str(run_size),
+                "--buckets", str(nb), "--checkpoint-dir", part_dir]
+        (row,), counts, planned = counted("resumed bench-big",
+                                          passes_recorded,
+                                          lambda: cli_rows(argv))
+        a, b = RunState.load(full, meta), RunState.load(part_dir, meta)
+        if not (row["verified"] and whole.all_ok and b.done.all()
+                and np.array_equal(a.scalars, b.scalars)
+                and np.array_equal(a.bounds, b.bounds)):
+            fail(f"the resumed run differs from the whole run: {row}")
+    log(f"      resumed after two of {nb} buckets from --checkpoint-dir: "
+        f"per-bucket scalars identical to the whole run's; launches "
+        f"{counts} = recorded passes {planned}")
+    for name in ("block_histogram", "exclusive_scan", "rank_and_scatter"):
+        launches[name] += path_launches[name]
+    log(f"[12/12] out-of-core sort: bench-big certificates at 2^30 "
+        f"(partition, merge, in-core) and 2^28 with 3 payload columns, "
+        f"numpy oracle, resume; {time.perf_counter() - t0:.1f} s")
 
     src = "tpu_qe_torch/csrc/"
     summary = [
@@ -1030,7 +1274,8 @@ def main() -> int:
          "launches": launches[name],
          "launch_path": ("selfcheck" if name in off_path else
                          "verify 8x8 + encode(use_lut, quirk_lut) + "
-                         "bench-matrix"),
+                         "bench-matrix + window, quantile at 2^22 + "
+                         "bench-big"),
          "max_abs_err": err[name],
          "ms": ms[name][0], "plain_ms": ms[name][1],
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],

@@ -9,6 +9,7 @@ On a machine with the card (which need not have JAX):
 This file imports nothing of JAX or tpu_qe.
 """
 
+import importlib
 import json
 
 import numpy as np
@@ -817,3 +818,185 @@ def test_bench_matrix_profile_on_the_card(cuda, tmp_path, capsys):
     for cat in ("B1 histogram", "B2 scan", "B3 rank+scatter"):
         assert cats[cat] > 0
     assert "sort (torch)" not in cats
+
+
+# ---------------------------------------------------------- quantile, window
+
+WINDOW_SPEC = {
+    "rn": "row_number", "rk": ("rank",), "dr": ("dense_rank",),
+    "pr": ("percent_rank",), "nt": ("ntile", 5), "rs": ("running_sum", "v"),
+    "rmin": ("running_min", "v"), "lag": ("lag", "v", 0, 2),
+    "lead": ("lead", "v"), "fv": ("first_value", "v"),
+    "lv": ("last_value", "v"), "ms": ("moving_sum", "v", 4, 3),
+    "mmax": ("moving_max", "v", 5), "mavg": ("moving_avg", "v", None, 2),
+    "mc": ("moving_count", 3, 1), "ts": ("total_sum", "v"),
+    "tavg": ("total_avg", "v"), "pc": ("partition_count",),
+    "ravg": ("running_avg", "v"), "ru": ("range_sum", "v", "unbounded"),
+    "rb": ("range_sum", "v", 3), "rbmin": ("range_min", "v", 2),
+    "rba": ("range_avg", "v", 4)}
+
+
+def _window_inputs(dtype, odt, n=20000, seed=3):
+    rng = np.random.default_rng(seed)
+    k = rng.integers(0, 50, n).astype(np.uint64) * np.uint64(
+        0x9E3779B97F4A7C15)
+    o = rng.integers(-30, 30, n)
+    o = {"uint32": (o + 30).astype(np.uint32), "int32": o.astype(np.int32),
+         "float32": (o * 0.5).astype(np.float32)}[odt]
+    if dtype == "float32":
+        v = (rng.standard_normal(n) * 100).astype(np.float32)
+    else:
+        v = rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(
+            np.uint32).view(dtype)
+    return k, o, v
+
+
+def _cols(res):
+    out = {}
+    for name, c in res.cols.items():
+        if isinstance(c, U64):
+            out[name] = c.to_numpy()
+        else:
+            out[name] = c.cpu().view(torch.int32).numpy()
+    return out
+
+
+@pytest.mark.parametrize("dtype,odt", [("uint32", "uint32"),
+                                       ("int32", "int32"),
+                                       ("float32", "float32"),
+                                       ("uint32", "int32")])
+@pytest.mark.parametrize("output", ["input", "sorted"])
+def test_window_on_the_card_matches_the_cpu(cuda, dtype, odt, output):
+    from tpu_qe_torch.table import column_from_numpy
+    window = importlib.import_module("tpu_qe_torch.ops.window").window
+    k, o, v = _window_inputs(dtype, odt)
+    got = {}
+    for dev, backend in ((cuda, "radix"), (cuda, "torch"),
+                         ("cpu", "radix")):
+        kernels.reset_launches()
+        res = window(U64.from_numpy(k, dev), WINDOW_SPEC,
+                     order=column_from_numpy(o, dev),
+                     values={"v": column_from_numpy(v, dev)},
+                     output=output, backend=backend)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+        if (dev, backend) == (cuda, "radix"):
+            assert kernels.LAUNCHES["rank_and_scatter"] == 12
+        got[(str(dev), backend)] = (_cols(res), None if res.pos is None
+                                    else res.pos.cpu().numpy())
+    base_cols, base_pos = got[("cpu", "radix")]
+    for key, (cols, pos) in got.items():
+        if pos is not None:
+            np.testing.assert_array_equal(pos, base_pos)
+        for name, c in cols.items():
+            if name in ("pr", "mavg", "tavg", "ravg", "rba") or (
+                    dtype == "float32" and name not in (
+                        "rn", "rk", "dr", "nt", "mc", "pc", "lag", "lead",
+                        "fv", "lv", "rmin", "mmax", "rbmin")):
+                np.testing.assert_allclose(
+                    c.view(np.float32), base_cols[name].view(np.float32),
+                    rtol=1e-5, atol=1e-3, err_msg=f"{key} {name}")
+            else:
+                np.testing.assert_array_equal(c, base_cols[name],
+                                              err_msg=f"{key} {name}")
+
+
+@pytest.mark.parametrize("max_groups", [None, 64, 16])
+@pytest.mark.parametrize("dtype", ["uint32", "int32", "float32"])
+def test_group_quantile_on_the_card_matches_the_cpu(cuda, dtype,
+                                                    max_groups):
+    from tpu_qe_torch.table import column_from_numpy
+    tq = importlib.import_module("tpu_qe_torch.ops.quantile")
+    k, _, v = _window_inputs(dtype, "uint32", n=30000, seed=9)
+    qs = [(1, 1), 0.99, 0.0, 1.0, (3, 5)]
+    outs = []
+    for dev in (cuda, "cpu"):
+        kernels.reset_launches()
+        key, val = U64.from_numpy(k, dev), column_from_numpy(v, dev)
+        d = tq.group_quantile(key, val, qs, max_groups=max_groups)
+        c = tq.group_quantile_cont(key, val, qs, max_groups=max_groups)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert kernels.LAUNCHES["block_histogram"] == 24
+        ng = int(d.num_groups)
+        m = ng if max_groups is None else min(ng, max_groups)
+        outs.append((ng, d.key.to_numpy()[:m],
+                     d.quantiles.cpu().view(torch.int32).numpy()[:, :m],
+                     d.count.cpu().numpy()[:m],
+                     c.lower.cpu().view(torch.int32).numpy()[:, :m],
+                     c.upper.cpu().view(torch.int32).numpy()[:, :m],
+                     c.frac.cpu().numpy()[:, :m],
+                     c.value.cpu().numpy()[:, :m]))
+    for g, w in zip(outs[0][:-1], outs[1][:-1]):
+        np.testing.assert_array_equal(g, w)
+    np.testing.assert_allclose(outs[0][-1], outs[1][-1], rtol=1e-5,
+                               atol=1e-3)
+
+
+def test_global_quantiles_on_the_card(cuda):
+    tq = importlib.import_module("tpu_qe_torch.ops.quantile")
+    x = _keys(5000, 4)
+    got = tq.quantile(U64.from_numpy(x, cuda), [0.5, 0.99, (1, 0)])
+    s = np.sort(x)
+    want = [s[tq.disc_rank(num, sh, 5000)]
+            for num, sh in tq.canon_qs([0.5, 0.99, (1, 0)])]
+    np.testing.assert_array_equal(got.to_numpy(), want)
+
+
+# ------------------------------------------------------------- big sort
+
+@pytest.mark.parametrize("strategy", ["partition", "merge"])
+@pytest.mark.parametrize("payload_cols", [1, 3])
+def test_sort_big_on_the_card_matches_numpy(cuda, strategy, payload_cols):
+    from tpu_qe_torch.hashing import keygen_hash_numpy
+    from tpu_qe_torch.sort import bigsort, driver
+    n = 1 << 20
+    kernels.reset_launches()
+    driver.RADIX_PASSES.clear()
+    res, out = bigsort.sort_big(n, run_size=1 << 18, n_buckets=5,
+                                collect=True, strategy=strategy,
+                                payload_cols=payload_cols)
+    assert res.all_ok, res
+    assert kernels.LAUNCHES["rank_and_scatter"] == sum(
+        driver.RADIX_PASSES.values()) > 0
+    want = keygen_hash_numpy(np.arange(n, dtype=np.uint32))
+    order = np.argsort(want, kind="stable")
+    np.testing.assert_array_equal(out[0], want[order])
+    np.testing.assert_array_equal(out[1], order.astype(np.uint32))
+    for j, col in enumerate(out[2] if payload_cols > 1 else ()):
+        np.testing.assert_array_equal(
+            col, bigsort._value_col_numpy(order.astype(np.uint32), j))
+
+
+def test_sort_big_incore_on_the_card(cuda):
+    from tpu_qe_torch.sort import bigsort
+    res = bigsort.sort_big_incore(1 << 22)
+    assert res.all_ok and res.seconds > 0
+
+
+def test_bench_big_cli_on_the_card(cuda, capsys, tmp_path):
+    for extra in ([], ["--in-core"], ["--strategy", "merge",
+                                      "--payload-cols", "2"]):
+        assert main(["bench-big", "--n", str(1 << 22), "--run-size",
+                     str(1 << 20), "--checkpoint-dir",
+                     str(tmp_path / "ck")] + extra) == 0
+        row = json.loads([ln for ln in capsys.readouterr().out.splitlines()
+                          if ln.startswith("{")][-1])
+        assert row["verified"] and row["value"] > 0
+        assert row["peak_mem_bytes"] > 0 and "H100" in row["device"]
+        assert (row["sol_fraction"] is None) == ("--in-core" in extra)
+    assert main(["bench-big", "--n", str(1 << 22), "--run-size",
+                 str(1 << 20), "--trace-dir", str(tmp_path / "tr")]) == 0
+    row = json.loads([ln for ln in capsys.readouterr().out.splitlines()
+                      if ln.startswith("{")][-1])
+    prof = row["profile"]
+    assert (tmp_path / "tr" / "trace.json").exists()
+    assert 0 < prof["device_busy_ms"] <= prof["wall_ms"]
+    assert prof["by_category_ms"]["B3 rank+scatter"] > 0
+
+
+def test_bench_matrix_quantile_window_on_the_card(cuda, capsys):
+    assert main(["bench-matrix", "--scale", "0.001",
+                 "--configs", "window,quantile"]) == 0
+    out = capsys.readouterr().out
+    assert out.count('"backend_parity": true') == 3

@@ -8,8 +8,11 @@
   bench-kernels  one JSON row per kernel against the card's HBM
            speed of light (tpu_qe_torch/bench/kernels.py)
   bench-matrix   the operator configs (filter + GROUP BY, joins, ORDER
-           BY, ...), radix backend beside torch.sort, one JSON row each
-           (tpu_qe_torch/bench/matrix.py)
+           BY, window, quantile, ...), radix backend beside torch.sort, one
+           JSON row each (tpu_qe_torch/bench/matrix.py)
+  bench-big      the out-of-core sort of 2^30 generated u64 keys + u32
+           payload with its certificates, one JSON line
+           (tpu_qe_torch/bench/big.py)
   info     device + configuration report
 
 The on-card self-check of every kernel and sort backend against its
@@ -123,6 +126,11 @@ def _cmd_bench_matrix(args) -> int:
                        args.trace_dir)
 
 
+def _cmd_bench_big(args) -> int:
+    from tpu_qe_torch.bench import big
+    return big.main(args)
+
+
 def _cmd_info(args) -> int:
     import torch
 
@@ -194,8 +202,8 @@ def main(argv=None) -> int:
     pm.add_argument("--configs", type=str,
                     default="pipeline,filter_agg,join,join_agg",
                     help="comma-separated: pipeline, filter_agg, join, "
-                         "join_agg, orderby, count_distinct, setop "
-                         "(window, quantile, dsort: not ported yet)")
+                         "join_agg, orderby, count_distinct, setop, window, "
+                         "quantile (dsort: not ported yet)")
     pm.add_argument("--scale", type=float, default=1.0,
                     help="row-count multiplier (e.g. 0.1 for smoke runs)")
     pm.add_argument("--device", type=str, default="cuda")
@@ -204,6 +212,30 @@ def main(argv=None) -> int:
                          "traces here, device time by kernel category in "
                          "the rows")
     pm.set_defaults(fn=_cmd_bench_matrix)
+
+    pg = sub.add_parser("bench-big",
+                        help="out-of-core big sort (north-star config)")
+    pg.add_argument("--n", type=int, default=1 << 30)
+    pg.add_argument("--run-size", type=int, default=1 << 26)
+    pg.add_argument("--buckets", type=int, default=None)
+    pg.add_argument("--verbose-big", action="store_true")
+    pg.add_argument("--in-core", action="store_true",
+                    help="one resident sort + verification of all rows")
+    pg.add_argument("--checkpoint-dir", type=str, default=None,
+                    help="persist the plan + per-bucket completion here; "
+                         "a killed run resumes with identical output")
+    pg.add_argument("--strategy", default="partition",
+                    choices=["partition", "merge"],
+                    help="partition-first (one key sort per row) or "
+                         "sort-runs-then-merge (two)")
+    pg.add_argument("--trace-dir", type=str, default=None,
+                    help="write a torch.profiler Chrome trace of the whole "
+                         "run here")
+    pg.add_argument("--payload-cols", type=int, default=1,
+                    help="u32 payload columns per row (>= 1): index + "
+                         "carried value columns")
+    pg.add_argument("--device", type=str, default="cuda")
+    pg.set_defaults(fn=_cmd_bench_big)
 
     pi = sub.add_parser("info", help="device + config report")
     pi.add_argument("--device", type=str, default="cuda")

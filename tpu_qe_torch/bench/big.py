@@ -1,0 +1,117 @@
+"""bench-big: the out-of-core sort of sort/bigsort.py at the north-star
+size, one JSON line.
+
+    python -m tpu_qe_torch bench-big [--n 2^30] [--run-size 2^26]
+        [--buckets B] [--in-core] [--strategy partition|merge]
+        [--payload-cols P] [--checkpoint-dir DIR] [--trace-dir DIR]
+        [--verbose-big] [--device cuda]
+
+The line has the JAX package's fields (keys/s, time, phase times, compile
+time, the certificates and `sol_fraction` against the port's envelope,
+bench/sol.bigsort_sol_seconds, for the out-of-core paths), plus the plan's
+time, the peak device memory and the card's name and power limit. On the
+card an untimed run of the same path at 2^18 keys comes first (the build
+and the kernels' first launches). With --trace-dir one more run is
+profiled (torch.profiler, DIR/trace.json) and the line gains `profile`:
+that run's wall time, its summed kernel time and idle share, the idle
+share of the timed run against the same kernel time, and the kernel time
+by category (bench/matrix.CATEGORIES). On a CPU device the certificates
+hold the same and every time is "not measured". Exit 0 when every
+certificate holds, else 1.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import time
+
+import torch
+
+from tpu_qe_torch.config import resolve_device
+
+
+WARMUP_N, WARMUP_RUN = 1 << 18, 1 << 14
+
+
+def _sort(args, dev, n: int, run_size: int, buckets: int, **kw):
+    from tpu_qe_torch.sort.bigsort import sort_big, sort_big_incore
+    if args.in_core:
+        return sort_big_incore(n, device=dev)
+    return sort_big(n, run_size=run_size, n_buckets=buckets,
+                    payload_cols=args.payload_cols, strategy=args.strategy,
+                    device=dev, **kw)
+
+
+def run(args) -> dict:
+    assert args.payload_cols >= 1, "--payload-cols must be >= 1"
+    assert args.payload_cols == 1 or not args.in_core, \
+        "--payload-cols > 1 applies to the out-of-core paths"
+    dev = resolve_device(args.device)
+    cuda = dev.type == "cuda"
+    buckets = args.buckets or max(2, -(-args.n // (1 << 26)))
+    if args.checkpoint_dir:
+        os.makedirs(args.checkpoint_dir, exist_ok=True)
+    compile_s = 0.0
+    if cuda:
+        # one untimed run of the same path at 2^18 keys: the timed run pays
+        # neither the kernels' build nor any kernel's first launch, as the
+        # JAX package's timed run pays no compile
+        compile_s = _sort(args, dev, WARMUP_N, WARMUP_RUN, buckets).compile_s
+        torch.cuda.reset_peak_memory_stats(dev)
+    res = _sort(args, dev, args.n, args.run_size, buckets,
+                verbose=args.verbose_big, checkpoint_dir=args.checkpoint_dir)
+    kind = "in-core" if args.in_core else f"out-of-core [{args.strategy}]"
+    if args.payload_cols > 1:
+        kind += f" ({args.payload_cols}-col rows)"
+    row = {
+        "metric": f"{kind} sort {res.n} u64 keys + u32 payload, 1 card",
+        "verified": res.all_ok,
+        "checks": {"sorted": res.sorted_ok, "hash": res.hash_ok,
+                   "count": res.count_ok, "perm": res.perm_ok,
+                   "boundary": res.boundary_ok},
+        "unit": "keys/s",
+    }
+    if not cuda:
+        row.update({"value": "not measured", "time_s": "not measured",
+                    "device": "cpu"})
+        return row
+    from tpu_qe_torch.bench.sol import bigsort_sol_seconds, card
+    info = card()
+    sol = None if args.in_core else bigsort_sol_seconds(
+        res.n, args.run_size, buckets, args.payload_cols, args.strategy)
+    row.update({
+        "value": res.keys_per_s, "time_s": res.seconds,
+        "phase_runs_s": res.phase_a_s,
+        "phase_plan_s": res.seconds - res.phase_a_s - res.phase_c_s,
+        "phase_merge_s": res.phase_c_s, "compile_s": compile_s,
+        "sol_fraction": None if sol is None else sol / res.seconds,
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
+        "device": info["name"], "power_limit": info["power_limit"]})
+    if args.trace_dir:
+        row["profile"] = _profile(args, dev, buckets, res.seconds)
+    return row
+
+
+def _profile(args, dev, buckets: int, seconds: float) -> dict:
+    """One more run of the path under torch.profiler (no checkpoint): its
+    kernel time by category, and the idle share both of the traced run and
+    of the timed run (1 - kernel time / its time): the profiler slows the
+    host, and bench-big's host enqueues many small kernels."""
+    from tpu_qe_torch.bench.matrix import device_time
+    from tpu_qe_torch.utils.profiling import trace_session
+    with trace_session(args.trace_dir) as prof:
+        t0 = time.perf_counter()
+        _sort(args, dev, args.n, args.run_size, buckets)
+        torch.cuda.synchronize(dev)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    out = {"trace": os.path.join(args.trace_dir, "trace.json"),
+           **device_time(prof, wall_ms)}
+    out["timed_run_idle_share"] = 1 - out["device_busy_ms"] / (seconds * 1e3)
+    return out
+
+
+def main(args) -> int:
+    row = run(args)
+    print(json.dumps(row), flush=True)
+    return 0 if row["verified"] else 1

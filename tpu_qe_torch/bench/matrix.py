@@ -17,7 +17,13 @@ Configs, at the JAX package's default sizes (scaled by --scale):
   orderby         ORDER BY a DESC, b, f DESC (+ payload) over 2^27 rows
   count_distinct  GROUP BY COUNT(DISTINCT value) over 2^27 rows
   setop           INTERSECT of 2^27 and 2^26 u64 keys
-Not ported yet (ROADMAP Queue A): window, quantile, dsort.
+  window          row_number + rank + exact running sum, then a centered
+                  ROWS frame (moving_sum 4 back, 3 ahead) + the tie-aware
+                  unbounded RANGE sum, over 2^27 rows and 2^16 partitions
+                  (two rows)
+  quantile        per-group exact PERCENTILE_DISC p50 + p99 over 2^27 rows
+                  and 2^14 groups, max_groups = 2^14
+Not ported yet (ROADMAP Queue A): dsort.
 
 Data is made on the device from seeded torch.Generators in the JAX
 package's shapes (the numbers differ from jax.random's). Each config runs
@@ -55,11 +61,11 @@ from tpu_qe_torch.config import resolve_device
 from tpu_qe_torch.sort import driver
 from tpu_qe_torch.table import Table, from_plane, plane
 
-NOT_PORTED = ("window", "quantile", "dsort")
+NOT_PORTED = ("dsort",)
 DEFAULT_ROWS = {"pipeline": 1 << 26, "filter_agg": 1 << 28,
                 "join": 100_000_000, "join_agg": 100_000_000,
                 "orderby": 1 << 27, "count_distinct": 1 << 27,
-                "setop": 1 << 27}
+                "setop": 1 << 27, "window": 1 << 27, "quantile": 1 << 27}
 GOLDEN = 2654435761          # the JAX matrix's multiplicative key mix
 REPS = 2                     # timed calls per backend
 
@@ -350,9 +356,138 @@ def _setop(n: int, device) -> list[Config]:
                    checks, 3)]
 
 
+def window_data(n: int, device, partitions: int = 1 << 16) -> dict:
+    """The JAX window config's shapes: partition key (pid * 2654435761,
+    pid >> 9), random u32 order and value."""
+    g = _gen(device, 13)
+    pid = torch.randint(0, partitions, (n,), generator=g, device=device)
+    return {"key": _mixed_key(pid, 9), "pid": pid.to(torch.int32),
+            "order": from_plane(rand_u32(n, g, device), torch.uint32),
+            "val": from_plane(rand_u32(n, g, device), torch.uint32),
+            "partitions": partitions}
+
+
+WINDOW_FUNCS = ({"rn": ("row_number",), "rk": ("rank",),
+                 "cum": ("running_sum", "v")},
+                {"cs": ("moving_sum", "v", 4, 3),
+                 "ru": ("range_sum", "v", "unbounded")})
+
+
+def window_op(data: dict, funcs: dict, backend: str):
+    from tpu_qe_torch.ops.window import window
+    return window(data["key"], funcs, order=data["order"],
+                  values={"v": data["val"]}, backend=backend)
+
+
+def _per_partition(data: dict, x: torch.Tensor, how: str) -> torch.Tensor:
+    """Per-partition max ("amax") or sum ("sum") of int64 row values."""
+    out = torch.zeros(data["partitions"], dtype=torch.int64,
+                      device=x.device)
+    return out.scatter_reduce_(0, data["pid"].to(torch.int64), x, how)
+
+
+def _window(n: int, device) -> list[Config]:
+    data = window_data(n, device)
+    val = widen(plane(data["val"]))
+    sizes = _per_partition(data, torch.ones_like(val), "sum")
+    totals = _per_partition(data, val, "sum")
+
+    def run(funcs, backend):
+        out = {}
+        for name, c in window_op(data, funcs, backend).cols.items():
+            if isinstance(c, U64):
+                out[f"{name}_lo"], out[f"{name}_hi"] = c.lo, c.hi
+            else:
+                out[name] = plane(c)
+        return out
+
+    def u64(out, name):
+        return widen(out[f"{name}_hi"]) * (1 << 32) + widen(out[f"{name}_lo"])
+
+    def ends_at_totals(out, name):
+        # values are >= 0: a partition's largest running sum is its total
+        return bool(torch.equal(_per_partition(data, u64(out, name), "amax"),
+                                totals))
+
+    def checks_rank(out):
+        rn, rk = widen(out["rn"]), widen(out["rk"])
+        return {
+            "row_numbers_reach_partition_sizes": bool(torch.equal(
+                _per_partition(data, rn, "amax"), sizes)),
+            "rank_within_row_number": bool(((rk >= 1) & (rk <= rn)).all()),
+            "running_sums_end_at_partition_totals": ends_at_totals(out,
+                                                                   "cum"),
+        }
+
+    def checks_frames(out):
+        cs = u64(out, "cs")
+        return {
+            "frame_sums_hold_their_row_and_at_most_eight": bool(
+                ((cs >= val) & (cs <= 8 * 0xFFFFFFFF)).all()),
+            "range_sums_end_at_partition_totals": ends_at_totals(out, "ru"),
+        }
+
+    # scans: one-plane scans of the envelope; the int64 running max and sum
+    # of a row index or value count as two planes each
+    return [Config(f"window {label}, {n} rows, 1 card", n,
+                   lambda b, f=funcs: run(f, b), checks, scans,
+                   {"partitions": data["partitions"]})
+            for funcs, checks, scans, label in (
+                (WINDOW_FUNCS[0], checks_rank, 6, "rn+rank+running_sum"),
+                (WINDOW_FUNCS[1], checks_frames, 10,
+                 "centered frame + RANGE unbounded"))]
+
+
+def quantile_data(n: int, device, groups: int = 1 << 14) -> dict:
+    """The JAX quantile config's shapes: group key (g * 2654435761,
+    g >> 7) and a random u32 value."""
+    g = _gen(device, 23)
+    gid = torch.randint(0, groups, (n,), generator=g, device=device)
+    return {"key": _mixed_key(gid, 7),
+            "present": int((torch.bincount(gid, minlength=groups) > 0)
+                           .sum()),
+            "val": from_plane(rand_u32(n, g, device), torch.uint32),
+            "groups": groups}
+
+
+QUANTILES = [(1, 1), 0.99]
+
+
+def quantile_op(data: dict, backend: str):
+    from tpu_qe_torch.ops.quantile import group_quantile
+    return group_quantile(data["key"], data["val"], QUANTILES,
+                          max_groups=data["groups"], backend=backend)
+
+
+def _quantile(n: int, device) -> list[Config]:
+    data = quantile_data(n, device)
+
+    def run(backend):
+        res = quantile_op(data, backend)
+        return {"num_groups": res.num_groups, "overflow": res.overflow,
+                "key_lo": res.key.lo, "key_hi": res.key.hi,
+                "count": res.count, "q": plane(res.quantiles)}
+
+    def checks(out):
+        ng = int(out["num_groups"])
+        q = widen(out["q"][:, :ng])
+        return {
+            "groups_are_the_present_ids": ng == data["present"]
+            and int(out["overflow"]) == 0,
+            "counts_sum_to_rows": int(out["count"].sum()) == n,
+            "keys_ascending": bool(is_sorted_u64(out["key_lo"][:ng],
+                                                 out["key_hi"][:ng])),
+            "p50_at_most_p99": bool((q[0] <= q[1]).all()),
+        }
+
+    return [Config(f"GROUP BY p50+p99 (exact), {n} rows, 1 card", n, run,
+                   checks, 2, {"groups": data["groups"]})]
+
+
 BUILDERS = {"pipeline": _pipeline, "filter_agg": _filter_agg, "join": _join,
             "join_agg": _join_agg, "orderby": _orderby,
-            "count_distinct": _count_distinct, "setop": _setop}
+            "count_distinct": _count_distinct, "setop": _setop,
+            "window": _window, "quantile": _quantile}
 
 
 # ------------------------------------------------------------------- runner
@@ -384,6 +519,13 @@ def profile(cfg: Config, device: torch.device, path: str) -> dict:
         return {"trace": path, "wall_ms": wall_ms,
                 "device_busy_ms": "not measured",
                 "idle_share": "not measured"}
+    return {"trace": path, **device_time(prof, wall_ms)}
+
+
+def device_time(prof, wall_ms: float) -> dict:
+    """Kernel time of a CUDA profile over a run of `wall_ms`: the summed
+    kernel time, the device's idle share (1 - kernel time / wall) and the
+    kernel time by category (CATEGORIES) and for the largest kernels."""
     events = prof.events()
     # a trace range shows on the device too, under its host-side name
     ranges = {e.name for e in events
@@ -396,7 +538,7 @@ def profile(cfg: Config, device: torch.device, path: str) -> dict:
             by_cat[_category(e.name)] += ms
             by_kernel[e.name[:80]] += ms
     busy = sum(by_cat.values())
-    return {"trace": path, "wall_ms": wall_ms, "device_busy_ms": busy,
+    return {"wall_ms": wall_ms, "device_busy_ms": busy,
             "idle_share": 1 - busy / wall_ms,
             "by_category_ms": dict(by_cat.most_common()),
             "top_kernels_ms": dict(by_kernel.most_common(6))}

@@ -87,3 +87,30 @@ def card() -> dict:
     if out.returncode == 0 and "," in out.stdout:
         info["power_limit"] = out.stdout.strip().split(",")[-1].strip()
     return info
+
+
+def bigsort_sol_seconds(n: int, run_size: int, n_buckets: int,
+                        payload_cols: int = 1, strategy: str = "partition",
+                        device_name: str | None = None) -> float:
+    """Envelope of the out-of-core sort (sort/bigsort.py) at ideal bucket
+    balance: the bytes of its radix passes (each carrying the row
+    permutation, as ``sort_planes`` runs them) plus generating every row's
+    8 + 4 * payload_cols bytes once and reading them once for the
+    certificates. partition: one bucket-id pass per run (a 4-byte key of
+    up to 8 bits), then 8 passes per bucket; merge: 8 passes per run and
+    again per bucket. Gathers and capacity padding are left out."""
+    from tpu_qe_torch.bits import digit_schedule
+    from tpu_qe_torch.constants import BITS_PER_PASS
+    n_runs = max(n // run_size, 1)
+    m_bucket = max(n // max(n_buckets, 1), 1)
+    if strategy == "partition":
+        bid_bits = max(1, (n_buckets - 1).bit_length())
+        runs = {(run_size, 4, 1): n_runs * len(digit_schedule(
+            bid_bits, BITS_PER_PASS))}
+    else:
+        runs = {(run_size, 8, 1): n_runs * 8}
+    rows = 2 * n * (8 + 4 * payload_cols)
+    return (operator_sol_seconds(runs, 0, 0, device_name)
+            + operator_sol_seconds({(m_bucket, 8, 1): n_buckets * 8}, 0, 0,
+                                   device_name)
+            + rows / hbm_peak_bytes_per_s(device_name))

@@ -157,3 +157,19 @@ def sortable_u32_inverse(b: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     if dtype == torch.uint32:
         return b.view(torch.uint32)
     raise TypeError(f"unsupported sort-key dtype {dtype}")
+
+
+def mul_u32_wide(a: torch.Tensor, b) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact widening u32 x u32 -> u64 multiply as (lo, hi) int32 planes of
+    u32 bit patterns: the port of tpu_qe.bits.mul_u32_wide.
+
+    `a` is an int32 plane; `b` an int32 plane of the same shape or a u32
+    constant. The product can pass 2^63, so it is split at bit 16 of b: both
+    partial products stay below 2^48 in int64.
+    """
+    wa = widen(a)
+    wb = widen(b) if isinstance(b, torch.Tensor) else b & U32_MASK
+    t1 = wa * (wb & 0xFFFF)                 # < 2^48
+    t2 = wa * (wb >> 16)                    # < 2^48
+    s = t1 + ((t2 & 0xFFFF) << 16)          # < 2^49
+    return narrow(s), narrow((t2 >> 16) + (s >> 32))

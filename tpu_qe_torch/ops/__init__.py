@@ -1,8 +1,8 @@
 """In-core query operators (the port of tpu_qe/ops, in-core part).
 
 Every data sort goes through tpu_qe_torch.sort.planes (the radix kernels
-on the card; ``backend="torch"`` for the torch.sort baseline). Quantile,
-window and the out-of-core family are not ported yet (ROADMAP Queue A).
+on the card; ``backend="torch"`` for the torch.sort baseline). The
+out-of-core family is not ported yet (ROADMAP Queue A).
 """
 
 from tpu_qe_torch.ops.filter import compact, filter_table  # noqa: F401
@@ -14,4 +14,7 @@ from tpu_qe_torch.ops.join import (expand_ranges, join_fk,  # noqa: F401
                                    join_sorted)
 from tpu_qe_torch.ops.orderby import sort_by_multi  # noqa: F401
 from tpu_qe_torch.ops.setops import set_op  # noqa: F401
+from tpu_qe_torch.ops.quantile import (group_quantile, median,  # noqa: F401
+                                       quantile)
 from tpu_qe_torch.ops.topk import top_k  # noqa: F401
+from tpu_qe_torch.ops.window import window  # noqa: F401

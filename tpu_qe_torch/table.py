@@ -22,7 +22,7 @@ from typing import Iterator, Mapping
 import numpy as np
 import torch
 
-from tpu_qe_torch.bits import U64, as_i32
+from tpu_qe_torch.bits import U64
 from tpu_qe_torch.config import resolve_device
 
 Column = torch.Tensor | U64
@@ -256,23 +256,71 @@ class Table:
         from tpu_qe_torch.ops.topk import top_k
         return top_k(self, k, key=key, largest=largest, backend=backend)
 
+    def window(self, key: str, funcs: dict, order: str | None = None,
+               backend: str = "radix") -> "Table":
+        """Window functions OVER (PARTITION BY key [ORDER BY order]): this
+        table plus one new column per entry of `funcs` (rows stay in input
+        order; specs as in ops.window.window)."""
+        from tpu_qe_torch.ops.window import window
+        k = self._cols[key]
+        if not isinstance(k, U64):
+            raise TypeError(f"window partition key {key!r} must be u64")
+        for name in funcs:
+            if name in self._cols:
+                raise ValueError(f"output column {name!r} already exists")
+        # ntile's bucket count and moving_count's widths ride the column
+        # slot: only names are value columns (the JAX Table.window looks
+        # those up as columns too and raises KeyError)
+        needed = {f[1] for f in (tuple(v) if not isinstance(v, str)
+                                 else (v,) for v in funcs.values())
+                  if len(f) > 1 and isinstance(f[1], str)}
+        res = window(k, funcs,
+                     order=None if order is None else self._cols[order],
+                     values={nm: self._cols[nm] for nm in needed},
+                     backend=backend)
+        cols = dict(self._cols)
+        cols.update(res.cols)
+        return Table(cols)
+
+    def quantile(self, qs, key: str = "key", backend: str = "radix"):
+        """Exact global PERCENTILE_DISC over a column (U64 or u32/i32/f32);
+        qs per ops.quantile.canon_qs."""
+        from tpu_qe_torch.ops.quantile import quantile
+        return quantile(self._cols[key], qs, backend=backend)
+
+    def group_quantile(self, key: str, value: str, qs,
+                       max_groups: int | None = None,
+                       backend: str = "radix"):
+        """Per-group exact PERCENTILE_DISC: GROUP BY key over value;
+        max_groups bounds the extraction (ops/quantile.py)."""
+        from tpu_qe_torch.ops.quantile import group_quantile
+        return group_quantile(self._u64(key, "group"), self._cols[value], qs,
+                              max_groups=max_groups, backend=backend)
+
+    def quantile_cont(self, qs, key: str = "key", backend: str = "radix"):
+        """Exact global PERCENTILE_CONT (lower/upper/frac exact; float32
+        interpolation for 32-bit numeric columns)."""
+        from tpu_qe_torch.ops.quantile import quantile_cont
+        return quantile_cont(self._cols[key], qs, backend=backend)
+
+    def group_quantile_cont(self, key: str, value: str, qs,
+                            max_groups: int | None = None,
+                            backend: str = "radix"):
+        """Per-group exact PERCENTILE_CONT: GROUP BY key over value."""
+        from tpu_qe_torch.ops.quantile import group_quantile_cont
+        return group_quantile_cont(self._u64(key, "group"),
+                                   self._cols[value], qs,
+                                   max_groups=max_groups, backend=backend)
+
     # -- persistence (the JAX package's npz layout) ------------------------
     def save(self, path: str, format: str = "npz") -> str:
-        """Write a single-file .npz: u64 columns as `name@lo` / `name@hi`
-        u32 planes, others as their numpy arrays. `format` is the JAX
-        package's argument: "npz" is the layout above."""
+        """Write a single-file .npz (utils/checkpoint.save_table_npz: u64
+        columns as `name@lo` / `name@hi` u32 planes, others as their numpy
+        arrays); returns its path. `format` is the JAX package's argument:
+        "npz" is the layout above."""
+        from tpu_qe_torch.utils.checkpoint import save_table_npz
         _check_format(format)
-        out = {}
-        for name, c in self._cols.items():
-            if name.endswith("@lo") or name.endswith("@hi"):
-                raise ValueError(f"column name {name!r} collides with the "
-                                 "u64 plane encoding ('@lo'/'@hi')")
-            if isinstance(c, U64):
-                out[f"{name}@lo"] = c.lo.cpu().numpy().view(np.uint32)
-                out[f"{name}@hi"] = c.hi.cpu().numpy().view(np.uint32)
-            else:
-                out[name] = column_to_numpy(c)
-        np.savez(path, **out)
+        save_table_npz(self, path)
         return os.path.abspath(path if path.endswith(".npz")
                                else path + ".npz")
 
@@ -282,19 +330,9 @@ class Table:
         """Load a Table written by save() (or by the JAX package's npz
         checkpoint) onto `device`, the card unless the caller names another;
         a CUDA device without CUDA raises."""
+        from tpu_qe_torch.utils.checkpoint import load_table_npz
         _check_format(format)
-        device = resolve_device(device)
-        cols = {}
-        with np.load(path) as z:
-            for k in z.files:
-                if k.endswith("@lo"):
-                    lo, hi = z[k], z[k[:-3] + "@hi"]
-                    cols[k[:-3]] = U64(
-                        torch.from_numpy(as_i32(lo)).to(device),
-                        torch.from_numpy(as_i32(hi)).to(device))
-                elif not k.endswith("@hi"):
-                    cols[k] = column_from_numpy(z[k], device)
-        return Table(cols)
+        return load_table_npz(path, device=device)
 
     def __repr__(self) -> str:
         parts = ", ".join(
