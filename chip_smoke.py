@@ -80,10 +80,21 @@ Run from the root of the repository on a machine with a CUDA card. Phases:
    certificate true and B1-B3 launched once per recorded pass;
    sort_big(2^22, collect=True) against numpy's stable sort; a run
    killed mid-merge (from consume, at the third of four buckets, at 2^28)
-   resumed from --checkpoint-dir with the whole run's per-bucket scalars.
+   resumed from --checkpoint-dir with the whole run's per-bucket scalars;
+13. the out-of-core operators through their CLIs at the JAX CLI's default
+   sizes: bench-bigagg (2^30 rows, 2^20 groups, runs of 2^26; --minmax;
+   --value-cols 4 at 2^28), bench-bigjoin 2^29 x 2^29 and --outer (full),
+   bench-bigpipe, bench-bigtopk (and --largest), bench-bigdistinct and
+   bench-bigsetops (union, intersect, except), every check true and B1-B3
+   launched once per recorded pass; then with collect=True against numpy:
+   aggregate_big at 2^22 rows, join_big and join_big_outer(full) at 2^21 x
+   2^21, count_distinct_big and set_op_big at 2^22; then a bench-bigjoin
+   process stopped from consume at its third of four buckets and a
+   bench-bigagg process stopped after two of four run tables, each
+   resumed through the CLI from --checkpoint-dir.
 
 Then it prints the kernel summary as one JSON line (per kernel: launches on
-the main path and the paths of phases 10-12, largest difference from its
+the main path and the paths of phases 10-13, largest difference from its
 references, its time, its plain twin's, the least time the card could
 take for the same bytes or operations, and the time of the one PyTorch
 call that computes the same function, where there is one), the
@@ -156,7 +167,7 @@ def main() -> int:
 
     # -- 1. device
     smi = nvidia_smi_line()
-    log(f"[1/12] device: {smi}; torch {torch.__version__}, "
+    log(f"[1/13] device: {smi}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.device_count()} card(s)")
 
     # -- 2. build
@@ -165,7 +176,7 @@ def main() -> int:
     t1 = time.perf_counter()
     native.pipeline_oracle(10, 10, 7)
     t2 = time.perf_counter()
-    log(f"[2/12] build: CUDA kernels {t1 - t0:.1f} s, C++ core {t2 - t1:.1f} s")
+    log(f"[2/13] build: CUDA kernels {t1 - t0:.1f} s, C++ core {t2 - t1:.1f} s")
 
     # -- 3. kernels against their twins and the C++ oracles
     err = {name: 0 for name in kernels.LAUNCHES}
@@ -464,7 +475,7 @@ def main() -> int:
     log("      exclusive_scan: 1000 scans back to back with fresh scratch "
         "and a scan beside a busy stream bit-exact")
     torch.cuda.synchronize()
-    log("[3/12] radix kernels bit-exact against twins and C++ oracles; "
+    log("[3/13] radix kernels bit-exact against twins and C++ oracles; "
         "max_abs_err " + json.dumps({k: err[k] for k in (
             "block_histogram", "exclusive_scan", "block_rank_and_histogram",
             "rank_and_scatter")}))
@@ -784,7 +795,7 @@ def main() -> int:
                 log(f"      n={n} {label} block={block} shift={shift}: "
                     "B6 bit-exact against twin, B3 and the C++ rank")
     torch.cuda.synchronize()
-    log("[4/12] B4, B5, B6 bit-exact against twins and oracles; max_abs_err "
+    log("[4/13] B4, B5, B6 bit-exact against twins and oracles; max_abs_err "
         + json.dumps({k: err[k] for k in ("encode_quantized_lut",
                                           "sort_chunks",
                                           "block_rank_and_histogram_mxu")}))
@@ -876,7 +887,7 @@ def main() -> int:
                      f"pass ({passes})")
         if launches is None:
             launches = counts
-    log("[5/12] main path: VERIFY PASS at 2^24 triangles for 8x8, 6x11 "
+    log("[5/13] main path: VERIFY PASS at 2^24 triangles for 8x8, 6x11 "
         "and 11x6")
 
     # -- 6. LUT encode path on the verify scene: B4 through morton.encode
@@ -904,7 +915,7 @@ def main() -> int:
     t_direct = cuda_time(lambda: morton.encode(verts_t, tris_t, params),
                          iters=5)
     del verts, tris, verts_t, tris_t, code
-    log(f"[6/12] LUT encode path: B4 bit-exact on the verify scene; encode "
+    log(f"[6/13] LUT encode path: B4 bit-exact on the verify scene; encode "
         f"(quantize + B4) {t_lut * 1e3:.4f} ms, plain direct encode "
         f"{t_direct * 1e3:.4f} ms at 2^24 triangles")
 
@@ -924,7 +935,7 @@ def main() -> int:
                 "block_rank_and_histogram_mxu")
     for name in off_path:
         launches[name] = counts[name]
-    log("[7/12] selfcheck: SELFCHECK PASS")
+    log("[7/13] selfcheck: SELFCHECK PASS")
 
     # -- 8. per-kernel bench
     kernels.reset_launches()
@@ -936,14 +947,14 @@ def main() -> int:
                  "block_rank_and_histogram"):
         if counts[name] < 1:
             fail(f"bench-kernels never launched {name}")
-    log(f"[8/12] bench-kernels at 2^24: launches {counts}")
+    log(f"[8/13] bench-kernels at 2^24: launches {counts}")
 
     # -- 9. headline sort
     res = headline.measure(1 << 26, seed=7, iters=10, device="cuda")
     log(f"      {json.dumps(res)}")
     if not res["verified"]:
         fail("radix sort of 2^26 keys differs from stable torch.sort")
-    log(f"[9/12] headline: radix {res['time_s'] * 1e3:.3f} ms, torch.sort "
+    log(f"[9/13] headline: radix {res['time_s'] * 1e3:.3f} ms, torch.sort "
         f"{res['torch_sort_time_s'] * 1e3:.3f} ms for 2^26 keys + payload; "
         "bit-exact")
 
@@ -1020,7 +1031,7 @@ def main() -> int:
     if not all(checks.values()):
         fail(f"operators differ from the numpy oracle at 2^24 rows: {checks}")
     del data, res, jd, out, matched
-    log(f"[10/12] operators: bench-matrix bit-exact across backends at full "
+    log(f"[10/13] operators: bench-matrix bit-exact across backends at full "
         f"size, launches as planned; numpy oracle at 2^24 rows "
         f"{json.dumps(checks)}; {time.perf_counter() - t0:.1f} s")
 
@@ -1172,13 +1183,14 @@ def main() -> int:
         fail(f"quantile / window differ from numpy at 2^22 rows: {checks}")
     del wd, res
     torch.cuda.empty_cache()
-    log(f"[11/12] quantile and window: bench-matrix bit-exact across "
+    log(f"[11/13] quantile and window: bench-matrix bit-exact across "
         f"backends at 2^27 rows, launches as planned; numpy oracle at 2^22 "
         f"rows {json.dumps({k: bool(x) for k, x in checks.items()})}; "
         f"{time.perf_counter() - t0:.1f} s")
 
     # -- 12. the out-of-core sort: bench-big, a numpy oracle, a resume
     t0 = time.perf_counter()
+    import os
     import tempfile
 
     from tpu_qe_torch.hashing import keygen_hash_numpy
@@ -1250,9 +1262,201 @@ def main() -> int:
         f"{counts} = recorded passes {planned}")
     for name in ("block_histogram", "exclusive_scan", "rank_and_scatter"):
         launches[name] += path_launches[name]
-    log(f"[12/12] out-of-core sort: bench-big certificates at 2^30 "
+    log(f"[12/13] out-of-core sort: bench-big certificates at 2^30 "
         f"(partition, merge, in-core) and 2^28 with 3 payload columns, "
         f"numpy oracle, resume; {time.perf_counter() - t0:.1f} s")
+
+    # -- 13. the out-of-core operators: their CLIs at the JAX CLI's default
+    # sizes, numpy oracles with collect=True, resumes from a checkpoint
+    t0 = time.perf_counter()
+    for name in path_launches:
+        path_launches[name] = 0
+    from tpu_qe_torch.hashing import murmur_fmix32_numpy
+    from tpu_qe_torch.ops import (bigagg, bigdistinct, bigjoin, bigouter,
+                                  bigsetops)
+
+    big_rows = []
+    for argv in (["bench-bigagg"], ["bench-bigagg", "--minmax"],
+                 ["bench-bigagg", "--value-cols", "4", "--n", str(1 << 28)],
+                 ["bench-bigjoin"], ["bench-bigjoin", "--outer"],
+                 ["bench-bigpipe"], ["bench-bigtopk"],
+                 ["bench-bigtopk", "--largest"], ["bench-bigdistinct"],
+                 ["bench-bigsetops", "--op", "union"],
+                 ["bench-bigsetops", "--op", "intersect"],
+                 ["bench-bigsetops", "--op", "except"]):
+        (row,), counts, planned = counted(" ".join(argv), passes_recorded,
+                                          lambda: cli_rows(argv))
+        log(f"      {json.dumps(row)}")
+        if not (row["verified"] and all(row["checks"].values())):
+            fail(f"{' '.join(argv)}: a check failed: {row}")
+        big_rows.append(row)
+        log(f"      {' '.join(argv[1:]) or 'defaults'}: every check holds; "
+            f"launches {counts} = recorded passes {planned}")
+        torch.cuda.empty_cache()
+
+    # collect=True against numpy
+    checks = {}
+    n, g, rs = 1 << 22, 1 << 12, 1 << 18
+    res, table = counted("aggregate_big(2^22, collect=True)",
+                         passes_recorded,
+                         lambda: bigagg.aggregate_big(
+                             n, n_groups=g, run_size=rs, collect=True))[0]
+    idx = np.arange(n, dtype=np.uint32)
+    gid = bigagg.group_of_index_numpy(idx, g)
+    cnt = np.bincount(gid, minlength=g)
+    sums = np.zeros(g, np.uint64)
+    np.add.at(sums, gid, idx.astype(np.uint64))
+    keep = cnt > 0
+    checks["bigagg"] = bool(
+        res.all_ok and np.array_equal(table["key"],
+                                      np.flatnonzero(keep).astype(np.uint32))
+        and np.array_equal(table["count"], cnt[keep].astype(np.uint32))
+        and np.array_equal(table["sum"], sums[keep]))
+
+    n = 1 << 21
+    res, out = counted("join_big(2^21 x 2^21, collect=True)",
+                       passes_recorded,
+                       lambda: bigjoin.join_big(n, n, n_buckets=4,
+                                                collect=True))[0]
+    j = np.arange(n, dtype=np.uint32)
+    rkeys = keygen_hash_numpy((j * np.uint32(2654435761)) % np.uint32(n))
+    want_keys = np.where(j % 2 == 0, rkeys & ~np.uint64(1),
+                         keygen_hash_numpy(j, 8) | np.uint64(1))
+    keys, lidx = out["key"], out["lidx"]
+    want_val = murmur_fmix32_numpy(
+        (keys & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+        ^ (keys >> np.uint64(32)).astype(np.uint32) ^ np.uint32(0xABCD1234))
+    checks["bigjoin"] = bool(
+        res.all_ok and (keys[1:] >= keys[:-1]).all()
+        and np.array_equal(np.sort(lidx), j)
+        and np.array_equal(keys, want_keys[lidx])
+        and np.array_equal(out["matched"], lidx % 2 == 0)
+        and np.array_equal(out["value"],
+                           np.where(out["matched"], want_val, 0)))
+
+    res, out = counted("join_big_outer(2^21 x 2^21, full, collect=True)",
+                       passes_recorded,
+                       lambda: bigouter.join_big_outer(
+                           n, n, how="full", n_buckets=4, collect=True))[0]
+    keys, lidx, matched = out["key"], out["lidx"], out["matched"]
+    checks["bigouter"] = bool(
+        res.all_ok and (keys[1:] >= keys[:-1]).all()
+        and np.array_equal(np.sort(lidx), j)
+        and np.array_equal(keys, bigouter.lkeys_numpy(n, n)[lidx])
+        and np.array_equal(matched, lidx % 2 == 0)
+        and np.array_equal(out["value"], np.where(
+            matched, bigouter.rval_numpy(keys), 0))
+        and np.array_equal(np.sort(out["ro_ridx"]),
+                           np.arange(1, n, 2, dtype=np.uint32)))
+
+    n, g, v = 1 << 22, 1 << 10, 1 << 6
+    res = counted("count_distinct_big(2^22, collect=True)", passes_recorded,
+                  lambda: bigdistinct.count_distinct_big(
+                      n, n_groups=g, n_values=v, run_size=1 << 20,
+                      collect=True))[0]
+    k_, v_ = bigdistinct.rows_of_index_numpy(np.arange(n), g, v)
+    pairs = np.unique((k_.astype(np.uint64) << np.uint64(32)) | v_)
+    checks["bigdistinct"] = bool(
+        res.all_ok and np.array_equal(res.table["key"],
+                                      np.arange(g, dtype=np.uint32))
+        and np.array_equal(res.table["count_distinct"], np.bincount(
+            (pairs >> np.uint64(32)).astype(np.int64), minlength=g))
+        and np.array_equal(res.table["count"], np.bincount(k_,
+                                                           minlength=g)))
+
+    for op in ("union", "intersect", "except"):
+        res = counted(f"set_op_big({op}, collect=True)", passes_recorded,
+                      lambda: bigsetops.set_op_big(
+                          op, 1 << 22, 1 << 22, g_a=3 << 12, g_b=1 << 13,
+                          offset=1 << 12, run_size=1 << 20,
+                          collect=True))[0]
+        want = bigsetops.expected_result_numpy(op, 1 << 22, 3 << 12,
+                                               1 << 22, 1 << 13, 1 << 12)
+        checks[f"bigsetops_{op}"] = bool(res.all_ok and all(
+            np.array_equal(res.table[c], w)
+            for c, w in zip(("key", "count_a", "count_b"), want)))
+    if not all(checks.values()):
+        fail(f"the out-of-core operators differ from numpy: {checks}")
+    log(f"      collect=True against numpy: {json.dumps(checks)}")
+
+    # resumes: a bench-bigjoin process stopped from consume at its third
+    # of four buckets (two recorded), a bench-bigagg process stopped after
+    # two of four run tables, each resumed through the CLI
+    stopper = (
+        "import os, sys\n"
+        "from tpu_qe_torch.ops import bigagg, bigjoin\n"
+        "def stop_at_the_third(b, bucket):\n"
+        "    if b == 2:\n"
+        "        os._exit(3)\n"
+        "save, saved = bigagg._run_ck_save, []\n"
+        "def stop_after_two(*a):\n"
+        "    save(*a)\n"
+        "    saved.append(1)\n"
+        "    if len(saved) == 2:\n"
+        "        os._exit(3)\n"
+        "bigagg._run_ck_save = stop_after_two\n"
+        "n, run_size = int(sys.argv[3]), int(sys.argv[4])\n"
+        "if sys.argv[1] == 'join':\n"
+        "    bigjoin.join_big(n, n, n_buckets=4, checkpoint_dir=sys.argv[2],\n"
+        "                     consume=stop_at_the_third)\n"
+        "else:\n"
+        "    bigagg.aggregate_big(n, run_size=run_size,\n"
+        "                         checkpoint_dir=sys.argv[2])\n")
+    n = 1 << 27
+    meta = np.asarray([n, n, 4, 7, 8192], np.int64)
+    with tempfile.TemporaryDirectory() as full, \
+            tempfile.TemporaryDirectory() as part_dir:
+        whole = bigjoin.join_big(n, n, n_buckets=4, checkpoint_dir=full)
+        rc = subprocess.run([sys.executable, "-c", stopper, "join",
+                             part_dir, str(n), "0"], timeout=600).returncode
+        stopped = bigjoin._JoinState.load(part_dir, meta)
+        if rc != 3 or stopped is None or int(stopped.done.sum()) != 2:
+            fail(f"the join stopped at its third bucket exited with {rc} "
+                 "and did not leave two buckets recorded")
+        argv = ["bench-bigjoin", "--n-left", str(n), "--n-right", str(n),
+                "--buckets", "4", "--checkpoint-dir", part_dir]
+        (row,), counts, planned = counted("resumed bench-bigjoin",
+                                          passes_recorded,
+                                          lambda: cli_rows(argv))
+        a = bigjoin._JoinState.load(full, meta)
+        b = bigjoin._JoinState.load(part_dir, meta)
+        if not (row["verified"] and whole.all_ok and b.done.all()
+                and row["matched"] == whole.matched
+                and np.array_equal(a.scalars, b.scalars)
+                and np.array_equal(a.bounds, b.bounds)):
+            fail(f"the resumed join differs from the whole run: {row}")
+    log(f"      bench-bigjoin 2^27 x 2^27 resumed after two of 4 buckets: "
+        f"per-bucket scalars identical to the whole run's; launches "
+        f"{counts} = recorded passes {planned}")
+    n, run_size = 1 << 28, 1 << 26
+    with tempfile.TemporaryDirectory() as part_dir:
+        rc = subprocess.run([sys.executable, "-c", stopper, "agg", part_dir,
+                             str(n), str(run_size)], timeout=600).returncode
+        tables = sorted(os.listdir(part_dir))
+        if rc != 3 or tables != ["bigagg_run0.npz", "bigagg_run1.npz"]:
+            fail(f"the GROUP BY stopped after two runs exited with {rc} "
+                 f"and left {tables}")
+        argv = ["bench-bigagg", "--n", str(n), "--run-size", str(run_size),
+                "--checkpoint-dir", part_dir]
+        (row,), counts, planned = counted("resumed bench-bigagg",
+                                          passes_recorded,
+                                          lambda: cli_rows(argv))
+        _, got = bigagg.aggregate_big(n, run_size=run_size,
+                                      checkpoint_dir=part_dir, collect=True)
+        _, want = bigagg.aggregate_big(n, run_size=run_size, collect=True)
+        if not (row["verified"] and all(np.array_equal(got[k], want[k])
+                                        for k in want)):
+            fail(f"the resumed GROUP BY differs from a whole run: {row}")
+    log(f"      bench-bigagg 2^28 resumed with two of 4 run tables: every "
+        f"check holds, the table equals a whole run's; launches {counts} "
+        f"= recorded passes {planned}")
+    for name in ("block_histogram", "exclusive_scan", "rank_and_scatter"):
+        launches[name] += path_launches[name]
+    log(f"[13/13] out-of-core operators: 12 CLI runs at the JAX CLI's "
+        f"sizes, every check true and B1-B3 launched once per recorded "
+        f"pass; numpy oracles; two resumes; "
+        f"{time.perf_counter() - t0:.1f} s")
+    log(f"      phase 13 wall time: {time.perf_counter() - t0:.1f} s")
 
     src = "tpu_qe_torch/csrc/"
     summary = [
@@ -1275,7 +1479,7 @@ def main() -> int:
          "launch_path": ("selfcheck" if name in off_path else
                          "verify 8x8 + encode(use_lut, quirk_lut) + "
                          "bench-matrix + window, quantile at 2^22 + "
-                         "bench-big"),
+                         "bench-big + the out-of-core operators"),
          "max_abs_err": err[name],
          "ms": ms[name][0], "plain_ms": ms[name][1],
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],

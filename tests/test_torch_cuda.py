@@ -1000,3 +1000,183 @@ def test_bench_matrix_quantile_window_on_the_card(cuda, capsys):
                  "--configs", "window,quantile"]) == 0
     out = capsys.readouterr().out
     assert out.count('"backend_parity": true') == 3
+
+
+# ------------------------------------------------ out-of-core operators
+
+def _launched_as_recorded(run):
+    from tpu_qe_torch.sort import driver
+    kernels.reset_launches()
+    driver.RADIX_PASSES.clear()
+    out = run()
+    torch.cuda.synchronize()
+    planned = sum(driver.RADIX_PASSES.values())
+    for name in ("block_histogram", "exclusive_scan", "rank_and_scatter"):
+        assert kernels.LAUNCHES[name] == planned > 0, name
+    return out
+
+
+@pytest.mark.parametrize("minmax", [False, True])
+def test_aggregate_big_on_the_card_matches_numpy(cuda, minmax):
+    from tpu_qe_torch.ops import bigagg
+    n, g = 1 << 20, 1 << 10
+    res, table = _launched_as_recorded(lambda: bigagg.aggregate_big(
+        n, n_groups=g, run_size=1 << 18, minmax=minmax, collect=True))
+    assert res.all_ok, res
+    idx = np.arange(n, dtype=np.uint32)
+    gid = bigagg.group_of_index_numpy(idx, g)
+    cnt = np.bincount(gid, minlength=g)
+    sums = np.zeros(g, np.uint64)
+    np.add.at(sums, gid, idx.astype(np.uint64))
+    keep = cnt > 0
+    np.testing.assert_array_equal(table["key"], np.flatnonzero(keep))
+    np.testing.assert_array_equal(table["count"], cnt[keep])
+    np.testing.assert_array_equal(table["sum"], sums[keep])
+    if minmax:
+        omin = np.full(g, 0xFFFFFFFF, np.uint32)
+        np.minimum.at(omin, gid, idx)
+        np.testing.assert_array_equal(table["min"], omin[keep])
+
+
+def test_aggregate_big_multi_on_the_card_matches_numpy(cuda):
+    from tpu_qe_torch.ops import bigagg
+    n, g = 1 << 20, 1 << 12
+    res, table = _launched_as_recorded(lambda: bigagg.aggregate_big_multi(
+        n, n_groups=g, run_size=1 << 18, value_cols=3, collect=True))
+    assert res.all_ok
+    idx = np.arange(n, dtype=np.uint32)
+    gid = bigagg.group_of_index_numpy(idx, g)
+    keep = np.bincount(gid, minlength=g) > 0
+    for c in range(3):
+        s = np.zeros(g, np.uint64)
+        np.add.at(s, gid, (idx + c).astype(np.uint64))
+        np.testing.assert_array_equal(table[f"sum{c}"], s[keep])
+
+
+def _np_join_keys(n_l, n_r):
+    from tpu_qe_torch.hashing import keygen_hash_numpy
+    j = np.arange(n_l, dtype=np.uint32)
+    hit = keygen_hash_numpy((j * np.uint32(2654435761)) % np.uint32(n_r))
+    return np.where(j % 2 == 0, hit & ~np.uint64(1),
+                    keygen_hash_numpy(j, 8) | np.uint64(1))
+
+
+def test_join_big_on_the_card_matches_numpy(cuda):
+    from tpu_qe_torch.hashing import murmur_fmix32_numpy
+    from tpu_qe_torch.ops import bigjoin
+    n_l, n_r = 1 << 20, 1 << 19
+    res, out = _launched_as_recorded(lambda: bigjoin.join_big(
+        n_l, n_r, n_buckets=5, collect=True))
+    assert res.all_ok and res.matched == n_l // 2
+    keys, lidx = out["key"], out["lidx"]
+    assert (keys[1:] >= keys[:-1]).all()
+    np.testing.assert_array_equal(np.sort(lidx), np.arange(n_l))
+    np.testing.assert_array_equal(keys, _np_join_keys(n_l, n_r)[lidx])
+    np.testing.assert_array_equal(out["matched"], lidx % 2 == 0)
+    val = murmur_fmix32_numpy((keys & np.uint64(0xFFFFFFFF)).astype(
+        np.uint32) ^ (keys >> np.uint64(32)).astype(np.uint32)
+        ^ np.uint32(0xABCD1234))
+    np.testing.assert_array_equal(out["value"],
+                                  np.where(out["matched"], val, 0))
+
+
+def test_join_aggregate_big_on_the_card_matches_numpy(cuda):
+    from tpu_qe_torch.hashing import murmur_fmix32_numpy
+    from tpu_qe_torch.ops import bigpipe
+    n, g = 1 << 20, 1 << 10
+    res, table = _launched_as_recorded(lambda: bigpipe.join_aggregate_big(
+        n, n, n_groups=g, n_buckets=3, collect=True))
+    assert res.all_ok
+    keys = _np_join_keys(n, n)[::2]
+    vals = murmur_fmix32_numpy((keys & np.uint64(0xFFFFFFFF)).astype(
+        np.uint32) ^ (keys >> np.uint64(32)).astype(np.uint32)
+        ^ np.uint32(0xABCD1234)).astype(np.uint64)
+    gid = bigpipe.group_of_join_key_numpy(keys, g)
+    cnt = np.bincount(gid, minlength=g)
+    sums = np.zeros(g, np.uint64)
+    np.add.at(sums, gid, vals)
+    keep = cnt > 0
+    np.testing.assert_array_equal(table["key"], np.flatnonzero(keep))
+    np.testing.assert_array_equal(table["count"], cnt[keep])
+    np.testing.assert_array_equal(table["sum"], sums[keep])
+
+
+@pytest.mark.parametrize("how", ["left", "full"])
+def test_join_big_outer_on_the_card_matches_numpy(cuda, how):
+    from tpu_qe_torch.ops import bigouter
+    n_l, n_r = 1 << 20, 1 << 19
+    res, out = _launched_as_recorded(lambda: bigouter.join_big_outer(
+        n_l, n_r, how=how, n_buckets=4, collect=True))
+    assert res.all_ok and res.num_out == n_l
+    keys, lidx, matched = out["key"], out["lidx"], out["matched"]
+    np.testing.assert_array_equal(np.sort(lidx), np.arange(n_l))
+    np.testing.assert_array_equal(keys,
+                                  bigouter.lkeys_numpy(n_l, n_r)[lidx])
+    np.testing.assert_array_equal(matched, lidx % 2 == 0)
+    np.testing.assert_array_equal(out["value"], np.where(
+        matched, bigouter.rval_numpy(keys), 0))
+    if how == "full":
+        np.testing.assert_array_equal(np.sort(out["ro_ridx"]),
+                                      np.arange(1, n_r, 2))
+
+
+@pytest.mark.parametrize("largest", [False, True])
+def test_top_k_big_on_the_card_matches_numpy(cuda, largest):
+    from tpu_qe_torch.hashing import keygen_hash_numpy
+    from tpu_qe_torch.ops import bigtopk
+    n, k = 1 << 20, 1000
+    res, (keys, pay) = _launched_as_recorded(lambda: bigtopk.top_k_big(
+        n, k, run_size=1 << 18, largest=largest, collect=True))
+    assert res.all_ok
+    allk = keygen_hash_numpy(np.arange(n, dtype=np.uint32))
+    order = np.argsort(~allk if largest else allk, kind="stable")[:k]
+    np.testing.assert_array_equal(keys, allk[order])
+    np.testing.assert_array_equal(pay, order)
+
+
+def test_count_distinct_big_on_the_card_matches_numpy(cuda):
+    from tpu_qe_torch.ops import bigdistinct
+    n, g, v = 1 << 20, 1000, 37
+    res = _launched_as_recorded(lambda: bigdistinct.count_distinct_big(
+        n, n_groups=g, n_values=v, run_size=1 << 18, collect=True))
+    assert res.all_ok
+    keys, vals = bigdistinct.rows_of_index_numpy(np.arange(n), g, v)
+    pairs = np.unique((keys.astype(np.uint64) << np.uint64(32)) | vals)
+    np.testing.assert_array_equal(res.table["key"], np.arange(g))
+    np.testing.assert_array_equal(res.table["count"], np.bincount(keys))
+    np.testing.assert_array_equal(res.table["count_distinct"], np.bincount(
+        (pairs >> np.uint64(32)).astype(np.int64)))
+
+
+@pytest.mark.parametrize("op", ["union", "intersect", "except"])
+def test_set_op_big_on_the_card_matches_numpy(cuda, op):
+    from tpu_qe_torch.ops import bigsetops
+    args = (op, 1 << 20, 1 << 20)
+    kw = dict(g_a=3000, g_b=5000, offset=1000, run_size=1 << 18)
+    res = _launched_as_recorded(lambda: bigsetops.set_op_big(
+        *args, collect=True, **kw))
+    assert res.all_ok
+    for c, w in zip(("key", "count_a", "count_b"),
+                    bigsetops.expected_result_numpy(
+                        op, 1 << 20, 3000, 1 << 20, 5000, 1000)):
+        np.testing.assert_array_equal(res.table[c], w)
+
+
+@pytest.mark.parametrize("argv", [
+    ["bench-bigagg", "--n", str(1 << 20), "--run-size", str(1 << 18)],
+    ["bench-bigjoin", "--n-left", str(1 << 20), "--n-right", str(1 << 20)],
+    ["bench-bigjoin", "--n-left", str(1 << 20), "--n-right", str(1 << 20),
+     "--outer"],
+    ["bench-bigpipe", "--n-left", str(1 << 20), "--n-right", str(1 << 20)],
+    ["bench-bigtopk", "--n", str(1 << 20), "--run-size", str(1 << 18)],
+    ["bench-bigdistinct", "--n", str(1 << 20), "--run-size", str(1 << 18)],
+    ["bench-bigsetops", "--n-a", str(1 << 20), "--n-b", str(1 << 20),
+     "--run-size", str(1 << 18)]])
+def test_big_operator_clis_on_the_card(cuda, capsys, tmp_path, argv):
+    assert main(argv + ["--trace-dir", str(tmp_path)]) == 0
+    row = json.loads([ln for ln in capsys.readouterr().out.splitlines()
+                      if ln.startswith("{")][-1])
+    assert row["verified"] and all(row["checks"].values())
+    assert row["value"] > 0 and row["peak_mem_bytes"] > 0
+    assert row["sort_passes"] > 0 and "H100" in row["device"]
+    assert row["profile"]["by_category_ms"]["B3 rank+scatter"] > 0

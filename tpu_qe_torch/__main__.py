@@ -13,6 +13,10 @@
   bench-big      the out-of-core sort of 2^30 generated u64 keys + u32
            payload with its certificates, one JSON line
            (tpu_qe_torch/bench/big.py)
+  bench-bigagg, bench-bigjoin (--outer), bench-bigpipe, bench-bigtopk,
+  bench-bigdistinct, bench-bigsetops
+           the out-of-core operators at the JAX CLI's sizes, verified on
+           the device, one JSON line each (tpu_qe_torch/bench/bigops.py)
   info     device + configuration report
 
 The on-card self-check of every kernel and sort backend against its
@@ -131,6 +135,94 @@ def _cmd_bench_big(args) -> int:
     return big.main(args)
 
 
+def _cmd_bench_bigops(args) -> int:
+    from tpu_qe_torch.bench import bigops
+    return bigops.main(args.cmd[len("bench-"):], args)
+
+
+def _add_bigops(sub) -> None:
+    """The out-of-core operators' subcommands, with the JAX CLI's options
+    and defaults (tpu_qe/__main__.py)."""
+
+    def parser(name, help, run_size_help=None):
+        p = sub.add_parser(name, help=help)
+        p.add_argument("--run-size", type=int, default=1 << 26,
+                       help=run_size_help)
+        p.add_argument("--distributed", action="store_true",
+                       help="not ported yet: exits 2 (ROADMAP Queue A "
+                            "item 10)")
+        p.add_argument("--devices", type=int, default=None,
+                       help="mesh size for --distributed (not ported)")
+        p.add_argument("--force-composed", action="store_true",
+                       help="the distributed path's option (not ported)")
+        p.add_argument("--verbose-big", action="store_true")
+        p.add_argument("--trace-dir", type=str, default=None,
+                       help="profile one more run: a Chrome trace here, "
+                            "kernel time by category in the line")
+        p.add_argument("--device", type=str, default="cuda")
+        p.set_defaults(fn=_cmd_bench_bigops)
+        return p
+
+    pj = parser("bench-bigjoin", "out-of-core FK join (key-range buckets "
+                "past join_fk_scan's 2^30 combined rows)",
+                "per-device run size for --distributed")
+    pj.add_argument("--n-left", type=int, default=1 << 29)
+    pj.add_argument("--n-right", type=int, default=1 << 29)
+    pj.add_argument("--buckets", type=int, default=None)
+    pj.add_argument("--checkpoint-dir", type=str, default=None,
+                    help="persist the bucket plan + completion here; a "
+                         "killed run resumes with identical output")
+    pj.add_argument("--outer", nargs="?", const="full",
+                    choices=("left", "full"), default=None,
+                    help="the out-of-core OUTER join instead "
+                         "(ops/bigouter.py; default FULL)")
+
+    pa = parser("bench-bigagg", "out-of-core GROUP BY (partial-aggregate "
+                "runs + one combine)")
+    pa.add_argument("--n", type=int, default=1 << 30)
+    pa.add_argument("--groups", type=int, default=1 << 20)
+    pa.add_argument("--minmax", action="store_true",
+                    help="also aggregate per-group min + max")
+    pa.add_argument("--value-cols", type=int, default=1,
+                    help="SQL-shaped multi-column sums sharing one key "
+                         "sort per run")
+    pa.add_argument("--checkpoint-dir", type=str, default=None,
+                    help="persist per-run partial tables here; a killed "
+                         "run resumes from them")
+
+    pp = parser("bench-bigpipe", "fused out-of-core join -> GROUP BY (the "
+                "join output never stored)",
+                "per-device run size for --distributed")
+    pp.add_argument("--n-left", type=int, default=1 << 29)
+    pp.add_argument("--n-right", type=int, default=1 << 29)
+    pp.add_argument("--groups", type=int, default=1 << 16)
+    pp.add_argument("--buckets", type=int, default=None)
+
+    pt = parser("bench-bigtopk", "out-of-core top-k (per-run selection + "
+                "one candidate combine)")
+    pt.add_argument("--n", type=int, default=1 << 30)
+    pt.add_argument("--k", type=int, default=1 << 10)
+    pt.add_argument("--largest", action="store_true")
+
+    pd = parser("bench-bigdistinct", "out-of-core COUNT(DISTINCT) GROUP BY "
+                "(per-run pair dedup + one combine)")
+    pd.add_argument("--n", type=int, default=1 << 30)
+    pd.add_argument("--groups", type=int, default=1 << 16)
+    pd.add_argument("--values", type=int, default=1 << 8,
+                    help="distinct values per group")
+
+    ps = parser("bench-bigsetops", "out-of-core UNION / INTERSECT / EXCEPT "
+                "(per-run key dedup + one combine)")
+    ps.add_argument("--op", choices=["union", "intersect", "except"],
+                    default="intersect")
+    ps.add_argument("--n-a", type=int, default=1 << 29)
+    ps.add_argument("--n-b", type=int, default=1 << 29)
+    ps.add_argument("--g-a", type=int, default=1 << 20)
+    ps.add_argument("--g-b", type=int, default=1 << 20)
+    ps.add_argument("--offset", type=int, default=1 << 19,
+                    help="B key-range offset (dials the overlap)")
+
+
 def _cmd_info(args) -> int:
     import torch
 
@@ -236,6 +328,8 @@ def main(argv=None) -> int:
                          "carried value columns")
     pg.add_argument("--device", type=str, default="cuda")
     pg.set_defaults(fn=_cmd_bench_big)
+
+    _add_bigops(sub)
 
     pi = sub.add_parser("info", help="device + config report")
     pi.add_argument("--device", type=str, default="cuda")

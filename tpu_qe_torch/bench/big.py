@@ -89,23 +89,26 @@ def run(args) -> dict:
         "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
         "device": info["name"], "power_limit": info["power_limit"]})
     if args.trace_dir:
-        row["profile"] = _profile(args, dev, buckets, res.seconds)
+        row["profile"] = profile(
+            args.trace_dir, res.seconds,
+            lambda: _sort(args, dev, args.n, args.run_size, buckets))
     return row
 
 
-def _profile(args, dev, buckets: int, seconds: float) -> dict:
-    """One more run of the path under torch.profiler (no checkpoint): its
-    kernel time by category, and the idle share both of the traced run and
-    of the timed run (1 - kernel time / its time): the profiler slows the
-    host, and bench-big's host enqueues many small kernels."""
+def profile(trace_dir: str, seconds: float, run) -> dict:
+    """One more run of the path (`run()`, no checkpoint) under
+    torch.profiler: its kernel time by category, and the idle share both
+    of the traced run and of the timed run of `seconds` (1 - kernel time /
+    its time): the profiler slows the host, and these paths' host enqueues
+    many small kernels."""
     from tpu_qe_torch.bench.matrix import device_time
     from tpu_qe_torch.utils.profiling import trace_session
-    with trace_session(args.trace_dir) as prof:
+    with trace_session(trace_dir) as prof:
         t0 = time.perf_counter()
-        _sort(args, dev, args.n, args.run_size, buckets)
-        torch.cuda.synchronize(dev)
+        run()
+        torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    out = {"trace": os.path.join(args.trace_dir, "trace.json"),
+    out = {"trace": os.path.join(trace_dir, "trace.json"),
            **device_time(prof, wall_ms)}
     out["timed_run_idle_share"] = 1 - out["device_busy_ms"] / (seconds * 1e3)
     return out

@@ -1,0 +1,268 @@
+"""The out-of-core operators' CLIs, one JSON line each:
+
+    python -m tpu_qe_torch bench-bigagg [--n 2^30] [--groups 2^20]
+        [--run-size 2^26] [--minmax] [--value-cols V] [--checkpoint-dir D]
+    python -m tpu_qe_torch bench-bigjoin [--n-left 2^29] [--n-right 2^29]
+        [--buckets B] [--outer [left|full]] [--checkpoint-dir D]
+    python -m tpu_qe_torch bench-bigpipe [--n-left 2^29] [--n-right 2^29]
+        [--groups 2^16] [--buckets B]
+    python -m tpu_qe_torch bench-bigtopk [--n 2^30] [--k 1024] [--largest]
+    python -m tpu_qe_torch bench-bigdistinct [--n 2^30] [--groups 2^16]
+        [--values 2^8]
+    python -m tpu_qe_torch bench-bigsetops [--op union|intersect|except]
+        [--n-a 2^29] [--n-b 2^29] [--g-a 2^20] [--g-b 2^20] [--offset 2^19]
+
+each with [--verbose-big] [--trace-dir DIR] [--device cuda]. The defaults
+and the fields are the JAX package's CLI's (tpu_qe/__main__.py); the line
+adds the passes its sorts ran (`sort_passes`, sort.driver.RADIX_PASSES),
+the peak device memory and the card's name and power limit, and for
+bench-bigagg, -bigjoin and -bigpipe `sol_fraction` against the port's
+envelope (bench/sol.py). On the card an untimed run of the same path at a
+small size comes first (the kernels' build and first launches), as the JAX
+package compiles outside its timed region. With --trace-dir one more run
+is profiled (torch.profiler, DIR/trace.json) and the line gains `profile`
+(bench/big.py). On a CPU device the checks hold the same and every time
+is "not measured". Exit 0 when every check holds, else 1.
+
+--distributed, --devices and --force-composed are accepted and refused
+(exit 2): the distributed out-of-core operators are ROADMAP Queue A item
+10.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+
+import torch
+
+from tpu_qe_torch.config import resolve_device
+
+NOT_PORTED = ("the distributed out-of-core operators (--distributed, "
+              "--devices, --force-composed) are not ported yet: ROADMAP "
+              "Queue A item 10")
+WARM_N = 1 << 16            # rows of the untimed warm-up run
+WARM_RUN = 1 << 14
+
+
+def _bigagg(args, dev, warm: bool, **kw):
+    from tpu_qe_torch.ops.bigagg import aggregate_big, aggregate_big_multi
+    n, run, g = ((WARM_N, WARM_RUN, min(args.groups, 1 << 12)) if warm
+                 else (args.n, args.run_size, args.groups))
+    if args.value_cols > 1:
+        return aggregate_big_multi(n, n_groups=g, run_size=run,
+                                   value_cols=args.value_cols, device=dev,
+                                   **kw)
+    return aggregate_big(n, n_groups=g, run_size=run, minmax=args.minmax,
+                         device=dev, **kw)
+
+
+def _bigjoin(args, dev, warm: bool, **kw):
+    n_l, n_r, b = ((WARM_N, WARM_N, 2) if warm
+                   else (args.n_left, args.n_right, args.buckets))
+    if args.outer is not None:
+        from tpu_qe_torch.ops.bigouter import join_big_outer
+        return join_big_outer(n_l, n_r, how=args.outer, n_buckets=b,
+                              device=dev, **kw)
+    from tpu_qe_torch.ops.bigjoin import join_big
+    return join_big(n_l, n_r, n_buckets=b, device=dev, **kw)
+
+
+def _bigpipe(args, dev, warm: bool, **kw):
+    from tpu_qe_torch.ops.bigpipe import join_aggregate_big
+    n_l, n_r, g, b = ((WARM_N, WARM_N, min(args.groups, 1 << 10), 2)
+                      if warm else (args.n_left, args.n_right, args.groups,
+                                    args.buckets))
+    return join_aggregate_big(n_l, n_r, n_groups=g, n_buckets=b,
+                              device=dev, **kw)
+
+
+def _bigtopk(args, dev, warm: bool, **kw):
+    from tpu_qe_torch.ops.bigtopk import top_k_big
+    n, k, run = ((WARM_N, min(args.k, WARM_RUN), WARM_RUN) if warm
+                 else (args.n, args.k, args.run_size))
+    return top_k_big(n, k, run_size=run, largest=args.largest, device=dev,
+                     **kw)
+
+
+def _bigdistinct(args, dev, warm: bool, **kw):
+    from tpu_qe_torch.ops.bigdistinct import count_distinct_big
+    n, run, g = ((WARM_N, WARM_RUN, min(args.groups, 1 << 8)) if warm
+                 else (args.n, args.run_size, args.groups))
+    return count_distinct_big(n, n_groups=g, n_values=args.values,
+                              run_size=run, device=dev, **kw)
+
+
+def _bigsetops(args, dev, warm: bool, **kw):
+    from tpu_qe_torch.ops.bigsetops import set_op_big
+    if warm:
+        sizes = dict(n_a=WARM_N, n_b=WARM_N, g_a=min(args.g_a, 1 << 10),
+                     g_b=min(args.g_b, 1 << 10),
+                     offset=min(args.offset, 1 << 9), run_size=WARM_RUN)
+    else:
+        sizes = dict(n_a=args.n_a, n_b=args.n_b, g_a=args.g_a, g_b=args.g_b,
+                     offset=args.offset, run_size=args.run_size)
+    return set_op_big(args.op, device=dev, **sizes, **kw)
+
+
+def _row_bigagg(args, res) -> dict:
+    where = (f"1 card, {args.value_cols} value cols" if args.value_cols > 1
+             else "1 card")
+    return {
+        "metric": f"out-of-core GROUP BY {res.n} rows -> "
+                  f"{res.n_groups} groups, {where}",
+        "unit": "rows/s", "value": res.rows_per_s, "time_s": res.seconds,
+        "phase_partial_s": res.phase_a_s, "phase_combine_s": res.phase_b_s,
+        "verified": res.all_ok,
+        "checks": {"count": res.count_ok, "sum": res.sum_ok,
+                   "keys": res.keys_ok, "groups": res.groups_ok,
+                   "minmax": res.minmax_ok}}
+
+
+def _row_bigjoin(args, res) -> dict:
+    row = {"unit": "left rows/s", "value": res.rows_per_s,
+           "time_s": res.seconds, "matched": res.matched,
+           "phase_sort_s": res.phase_a_s,
+           "phase_plan_s": res.seconds - res.phase_a_s - res.phase_c_s,
+           "phase_join_s": res.phase_c_s, "verified": res.all_ok,
+           "checks": {"match_flags": res.match_ok, "values": res.val_ok,
+                      "counts": res.count_ok}}
+    if args.outer is not None:
+        row["metric"] = (f"out-of-core {args.outer.upper()} OUTER join "
+                         f"{res.n_l} x {res.n_r} rows, 1 card")
+        row["right_only"] = res.right_only
+        row["checks"]["right_only"] = res.ro_ok
+    else:
+        row["metric"] = (f"out-of-core FK join {res.n_l} x {res.n_r} rows, "
+                         "1 card")
+    return row
+
+
+def _row_bigpipe(args, res) -> dict:
+    return {
+        "metric": f"fused out-of-core join+GROUP BY {res.n_l} x {res.n_r} "
+                  f"rows -> {res.n_groups} groups, 1 card",
+        "unit": "left rows/s", "value": res.rows_per_s,
+        "time_s": res.seconds, "matched": res.matched,
+        "verified": res.all_ok,
+        "checks": {"join": res.join_ok, "count": res.count_ok,
+                   "keys": res.keys_ok}}
+
+
+def _row_bigtopk(args, res) -> dict:
+    return {
+        "metric": f"out-of-core top-{res.k} of {res.n} rows, 1 card",
+        "unit": "rows/s", "value": res.rows_per_s, "time_s": res.seconds,
+        "phase_select_s": res.phase_a_s, "phase_combine_s": res.phase_b_s,
+        "verified": res.all_ok,
+        "checks": {"hash": res.hash_ok, "order": res.order_ok,
+                   "distinct": res.distinct_ok}}
+
+
+def _row_bigdistinct(args, res) -> dict:
+    return {
+        "metric": f"out-of-core COUNT(DISTINCT) {res.n} rows -> "
+                  f"{res.num_groups} groups, 1 card",
+        "unit": "rows/s", "value": res.rows_per_s, "time_s": res.seconds,
+        "phase_dedup_s": res.dedup_s, "phase_combine_s": res.combine_s,
+        "runs": res.n_runs, "verified": res.all_ok,
+        "checks": {"groups": res.groups_ok and res.num_groups == min(
+                       res.n_groups, res.n),
+                   "count_distinct": res.cd_ok, "count": res.cnt_ok,
+                   "keys": res.keys_ok, "no_overflow": not res.overflow}}
+
+
+def _row_bigsetops(args, res) -> dict:
+    return {
+        "metric": f"out-of-core {res.op.upper()} {res.n_a}+{res.n_b} rows "
+                  f"-> {res.num} keys, 1 card",
+        "unit": "rows/s", "value": res.rows_per_s, "time_s": res.seconds,
+        "phase_dedup_s": res.dedup_s, "phase_combine_s": res.combine_s,
+        "verified": res.all_ok,
+        "checks": {"counts": res.counts_ok, "keys": res.keys_ok,
+                   "no_overflow": not res.overflow,
+                   "num": res.num == res.expected_num}}
+
+
+def _sol(cmd, args, res) -> float | None:
+    from tpu_qe_torch.bench import sol
+    if cmd == "bigagg":
+        return sol.bigagg_sol_seconds(res.n, args.run_size, args.groups,
+                                      args.value_cols, args.minmax)
+    if cmd not in ("bigjoin", "bigpipe"):
+        return None
+    buckets = args.buckets or max(2, -(-(res.n_l + res.n_r) // (1 << 26)))
+    if cmd == "bigjoin" and args.outer is None:
+        return sol.bigjoin_sol_seconds(res.n_l, res.n_r, buckets)
+    if cmd == "bigpipe":
+        return sol.bigpipe_sol_seconds(res.n_l, res.n_r, buckets,
+                                       args.groups)
+    return None     # the OUTER join has no envelope yet
+
+
+COMMANDS = {
+    "bigagg": (_bigagg, _row_bigagg),
+    "bigjoin": (_bigjoin, _row_bigjoin),
+    "bigpipe": (_bigpipe, _row_bigpipe),
+    "bigtopk": (_bigtopk, _row_bigtopk),
+    "bigdistinct": (_bigdistinct, _row_bigdistinct),
+    "bigsetops": (_bigsetops, _row_bigsetops),
+}
+
+
+def run(cmd: str, args) -> dict:
+    from tpu_qe_torch.sort import driver
+    from tpu_qe_torch.sort.bigsort import _build_seconds
+    call, make_row = COMMANDS[cmd]
+    if cmd == "bigagg":
+        assert args.value_cols >= 1, "--value-cols must be >= 1"
+        assert args.value_cols == 1 or not (
+            args.minmax or args.checkpoint_dir), \
+            "--value-cols>1 composes with neither --minmax nor " \
+            "--checkpoint-dir yet"
+    dev = resolve_device(args.device)
+    cuda = dev.type == "cuda"
+    kw = {"verbose": args.verbose_big}
+    if cmd in ("bigagg", "bigjoin") and args.checkpoint_dir:
+        os.makedirs(args.checkpoint_dir, exist_ok=True)
+        kw["checkpoint_dir"] = args.checkpoint_dir
+    compile_s = _build_seconds(dev)
+    if cuda:
+        # an untimed run of the same path at a small size: the timed run
+        # pays neither the kernels' build nor any kernel's first launch
+        call(args, dev, True)
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    before = sum(driver.RADIX_PASSES.values())
+    res = call(args, dev, False, **kw)
+    row = make_row(args, res)
+    row["sort_passes"] = sum(driver.RADIX_PASSES.values()) - before
+    if not cuda:
+        for k in row:
+            if k == "time_s" or k == "value" or k.startswith("phase_"):
+                row[k] = "not measured"
+        row["device"] = "cpu"
+        return row
+    from tpu_qe_torch.bench.sol import card
+    info = card()
+    sol = _sol(cmd, args, res)
+    row.update({
+        "compile_s": compile_s,
+        "sol_fraction": None if sol is None else sol / res.seconds,
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
+        "device": info["name"], "power_limit": info["power_limit"]})
+    if args.trace_dir:
+        from tpu_qe_torch.bench.big import profile
+        row["profile"] = profile(args.trace_dir, res.seconds,
+                                 lambda: call(args, dev, False))
+    return row
+
+
+def main(cmd: str, args) -> int:
+    if args.distributed or args.devices is not None or args.force_composed:
+        print(f"bench-{cmd}: {NOT_PORTED}", file=sys.stderr)
+        return 2
+    row = run(cmd, args)
+    print(json.dumps(row), flush=True)
+    return 0 if row["verified"] else 1

@@ -18,6 +18,7 @@ the card's bandwidth, not the JAX package's TPU sort model.
 from __future__ import annotations
 
 import subprocess
+from collections import Counter
 
 import torch
 
@@ -114,3 +115,79 @@ def bigsort_sol_seconds(n: int, run_size: int, n_buckets: int,
             + operator_sol_seconds({(m_bucket, 8, 1): n_buckets * 8}, 0, 0,
                                    device_name)
             + rows / hbm_peak_bytes_per_s(device_name))
+
+
+def _radix_seconds(passes, device_name) -> float:
+    return operator_sol_seconds(passes, 0, 0, device_name)
+
+
+def _rows_seconds(nbytes: int, device_name) -> float:
+    return nbytes / hbm_peak_bytes_per_s(device_name)
+
+
+def bigagg_sol_seconds(n: int, run_size: int, n_groups: int,
+                       value_cols: int = 1, minmax: bool = False,
+                       device_name: str | None = None) -> float:
+    """Envelope of the out-of-core GROUP BY (ops/bigagg.py) in the port's
+    terms: per run, the 8 passes of the (hi, lo) group-key sort (12 with
+    minmax: the value is a sort key too, and the lone hi plane takes 4
+    passes of 4-byte keys), each carrying the row permutation; the
+    combine's 8 passes over R * min(G, run_size) table rows; 2 one-plane
+    scans per u64 or int64 prefix sum (each sum column and the compaction,
+    in the runs and the combine; 2 more segmented scans in the combine with
+    minmax); and each row's group id and value columns written once.
+    Gathers are left out."""
+    n_runs = max(n // run_size, 1)
+    m = n_runs * min(n_groups, run_size)
+    passes = Counter()
+    passes[(run_size, 8, 1)] += 8 * n_runs
+    passes[(m, 8, 1)] += 8
+    if minmax:
+        passes[(run_size, 4, 1)] += 4 * n_runs
+    scans = 2 * value_cols + 2
+    return (_radix_seconds(passes, device_name)
+            + (scan_bytes(n, scans)
+               + scan_bytes(m, scans + (2 if minmax else 0)))
+            / hbm_peak_bytes_per_s(device_name)
+            + _rows_seconds(n * 4 * (1 + value_cols), device_name))
+
+
+def bigjoin_sol_seconds(n_l: int, n_r: int, n_buckets: int,
+                        samples_per_side: int = 8192,
+                        device_name: str | None = None) -> float:
+    """Envelope of the out-of-core FK join (ops/bigjoin.py) in the port's
+    terms, at ideal bucket balance: 8 passes per side sort and over the
+    plan's 2 * samples_per_side samples, 8 per bucket over its n_l + n_r /
+    B rows (join_fk_scan's combined key sort), each carrying the row
+    permutation; the two int64 running maxima of each bucket's fill (4
+    one-plane scans a row); generating the left side's 12 bytes a row and
+    the right side's 8 once."""
+    b = max(n_buckets, 1)
+    passes = Counter()
+    for rows in (n_l, n_r, 2 * samples_per_side):
+        passes[(rows, 8, 1)] += 8
+    passes[(max((n_l + n_r) // b, 1), 8, 1)] += 8 * b
+    return (_radix_seconds(passes, device_name)
+            + scan_bytes(n_l + n_r, 4) / hbm_peak_bytes_per_s(device_name)
+            + _rows_seconds(12 * n_l + 8 * n_r, device_name))
+
+
+def bigpipe_sol_seconds(n_l: int, n_r: int, n_buckets: int, n_groups: int,
+                        samples_per_side: int = 8192,
+                        device_name: str | None = None) -> float:
+    """Envelope of the fused join -> GROUP BY (ops/bigpipe.py): the join's,
+    plus per bucket the partial GROUP BY over its n_l / B left rows (8
+    passes of the group key and 1 of the 1-bit valid flag, a lone plane;
+    the sum's and the compaction's prefix sums, 4 one-plane scans a row)
+    and the combine's 8 passes over B * min(G, n_l / B) table rows."""
+    b = max(n_buckets, 1)
+    rows = max(n_l // b, 1)
+    m = b * min(n_groups, rows)
+    passes = Counter()
+    passes[(rows, 8, 1)] += 8 * b
+    passes[(rows, 4, 1)] += b
+    passes[(m, 8, 1)] += 8
+    return (bigjoin_sol_seconds(n_l, n_r, n_buckets, samples_per_side,
+                                device_name)
+            + _radix_seconds(passes, device_name)
+            + scan_bytes(n_l, 4) / hbm_peak_bytes_per_s(device_name))

@@ -1,8 +1,15 @@
-"""In-core query operators (the port of tpu_qe/ops, in-core part).
+"""Query operators (the port of tpu_qe/ops).
 
 Every data sort goes through tpu_qe_torch.sort.planes (the radix kernels
-on the card; ``backend="torch"`` for the torch.sort baseline). The
-out-of-core family is not ported yet (ROADMAP Queue A).
+on the card; ``backend="torch"`` for the torch.sort baseline in the
+in-core operators).
+
+The out-of-core family is exported lazily (PEP 562), as in the reference:
+its modules import the sort drivers, which import ops.join, so eager
+imports here would cycle through this package's init. Ported: bigagg,
+bigjoin, bigpipe, bigouter, bigtopk, bigdistinct, bigsetops. Not yet
+ported: bigquantile, bigwindow, bigorderby, and the distributed dbig*
+modules (ROADMAP Queue A items 6 and 10).
 """
 
 from tpu_qe_torch.ops.filter import compact, filter_table  # noqa: F401
@@ -18,3 +25,28 @@ from tpu_qe_torch.ops.quantile import (group_quantile, median,  # noqa: F401
                                        quantile)
 from tpu_qe_torch.ops.topk import top_k  # noqa: F401
 from tpu_qe_torch.ops.window import window  # noqa: F401
+
+_BIG_EXPORTS = {
+    "aggregate_big": "bigagg",
+    "aggregate_big_multi": "bigagg",
+    "join_big": "bigjoin",
+    "join_big_outer": "bigouter",
+    "count_distinct_big": "bigdistinct",
+    "set_op_big": "bigsetops",
+    "top_k_big": "bigtopk",
+    "join_aggregate_big": "bigpipe",
+}
+
+
+def __getattr__(name):
+    if name in _BIG_EXPORTS:
+        import importlib
+        mod = importlib.import_module(
+            f"tpu_qe_torch.ops.{_BIG_EXPORTS[name]}")
+        return getattr(mod, name)
+    raise AttributeError(
+        f"module 'tpu_qe_torch.ops' has no attribute {name!r}")
+
+
+def __dir__():
+    return sorted(list(globals()) + list(_BIG_EXPORTS))
