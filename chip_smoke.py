@@ -91,10 +91,21 @@ Run from the root of the repository on a machine with a CUDA card. Phases:
    2^21, count_distinct_big and set_op_big at 2^22; then a bench-bigjoin
    process stopped from consume at its third of four buckets and a
    bench-bigagg process stopped after two of four run tables, each
-   resumed through the CLI from --checkpoint-dir.
+   resumed through the CLI from --checkpoint-dir;
+14. the last single-device out-of-core operators through their CLIs at
+   the JAX CLI's default sizes: bench-bigquantile (2^30 keys, 16 runs) and
+   --cont, bench-bigwindow (2^29 rows, 2^19 partitions, 8 runs, 8 buckets)
+   and bench-bigorderby (2^30 rows, a_card 2^22, 16 runs, 16 buckets),
+   every check true and B1-B3 launched once per recorded pass; then with
+   collect=True against numpy at 2^22 rows: window_big with 1 and 2^12
+   partitions (lexsort and the sequential recurrences, vectorised),
+   order_by_big with a_card 7 (lexsort) and quantile_big with key_bits 64
+   and 8 (numpy's sort of the regenerated keys); then a bench-bigwindow
+   process stopped after two of four buckets were recorded and resumed
+   through the CLI from --checkpoint-dir.
 
 Then it prints the kernel summary as one JSON line (per kernel: launches on
-the main path and the paths of phases 10-13, largest difference from its
+the main path and the paths of phases 10-14, largest difference from its
 references, its time, its plain twin's, the least time the card could
 take for the same bytes or operations, and the time of the one PyTorch
 call that computes the same function, where there is one), the
@@ -167,7 +178,7 @@ def main() -> int:
 
     # -- 1. device
     smi = nvidia_smi_line()
-    log(f"[1/13] device: {smi}; torch {torch.__version__}, "
+    log(f"[1/14] device: {smi}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.device_count()} card(s)")
 
     # -- 2. build
@@ -176,7 +187,7 @@ def main() -> int:
     t1 = time.perf_counter()
     native.pipeline_oracle(10, 10, 7)
     t2 = time.perf_counter()
-    log(f"[2/13] build: CUDA kernels {t1 - t0:.1f} s, C++ core {t2 - t1:.1f} s")
+    log(f"[2/14] build: CUDA kernels {t1 - t0:.1f} s, C++ core {t2 - t1:.1f} s")
 
     # -- 3. kernels against their twins and the C++ oracles
     err = {name: 0 for name in kernels.LAUNCHES}
@@ -475,7 +486,7 @@ def main() -> int:
     log("      exclusive_scan: 1000 scans back to back with fresh scratch "
         "and a scan beside a busy stream bit-exact")
     torch.cuda.synchronize()
-    log("[3/13] radix kernels bit-exact against twins and C++ oracles; "
+    log("[3/14] radix kernels bit-exact against twins and C++ oracles; "
         "max_abs_err " + json.dumps({k: err[k] for k in (
             "block_histogram", "exclusive_scan", "block_rank_and_histogram",
             "rank_and_scatter")}))
@@ -795,7 +806,7 @@ def main() -> int:
                 log(f"      n={n} {label} block={block} shift={shift}: "
                     "B6 bit-exact against twin, B3 and the C++ rank")
     torch.cuda.synchronize()
-    log("[4/13] B4, B5, B6 bit-exact against twins and oracles; max_abs_err "
+    log("[4/14] B4, B5, B6 bit-exact against twins and oracles; max_abs_err "
         + json.dumps({k: err[k] for k in ("encode_quantized_lut",
                                           "sort_chunks",
                                           "block_rank_and_histogram_mxu")}))
@@ -887,7 +898,7 @@ def main() -> int:
                      f"pass ({passes})")
         if launches is None:
             launches = counts
-    log("[5/13] main path: VERIFY PASS at 2^24 triangles for 8x8, 6x11 "
+    log("[5/14] main path: VERIFY PASS at 2^24 triangles for 8x8, 6x11 "
         "and 11x6")
 
     # -- 6. LUT encode path on the verify scene: B4 through morton.encode
@@ -915,7 +926,7 @@ def main() -> int:
     t_direct = cuda_time(lambda: morton.encode(verts_t, tris_t, params),
                          iters=5)
     del verts, tris, verts_t, tris_t, code
-    log(f"[6/13] LUT encode path: B4 bit-exact on the verify scene; encode "
+    log(f"[6/14] LUT encode path: B4 bit-exact on the verify scene; encode "
         f"(quantize + B4) {t_lut * 1e3:.4f} ms, plain direct encode "
         f"{t_direct * 1e3:.4f} ms at 2^24 triangles")
 
@@ -935,7 +946,7 @@ def main() -> int:
                 "block_rank_and_histogram_mxu")
     for name in off_path:
         launches[name] = counts[name]
-    log("[7/13] selfcheck: SELFCHECK PASS")
+    log("[7/14] selfcheck: SELFCHECK PASS")
 
     # -- 8. per-kernel bench
     kernels.reset_launches()
@@ -947,14 +958,14 @@ def main() -> int:
                  "block_rank_and_histogram"):
         if counts[name] < 1:
             fail(f"bench-kernels never launched {name}")
-    log(f"[8/13] bench-kernels at 2^24: launches {counts}")
+    log(f"[8/14] bench-kernels at 2^24: launches {counts}")
 
     # -- 9. headline sort
     res = headline.measure(1 << 26, seed=7, iters=10, device="cuda")
     log(f"      {json.dumps(res)}")
     if not res["verified"]:
         fail("radix sort of 2^26 keys differs from stable torch.sort")
-    log(f"[9/13] headline: radix {res['time_s'] * 1e3:.3f} ms, torch.sort "
+    log(f"[9/14] headline: radix {res['time_s'] * 1e3:.3f} ms, torch.sort "
         f"{res['torch_sort_time_s'] * 1e3:.3f} ms for 2^26 keys + payload; "
         "bit-exact")
 
@@ -1031,7 +1042,7 @@ def main() -> int:
     if not all(checks.values()):
         fail(f"operators differ from the numpy oracle at 2^24 rows: {checks}")
     del data, res, jd, out, matched
-    log(f"[10/13] operators: bench-matrix bit-exact across backends at full "
+    log(f"[10/14] operators: bench-matrix bit-exact across backends at full "
         f"size, launches as planned; numpy oracle at 2^24 rows "
         f"{json.dumps(checks)}; {time.perf_counter() - t0:.1f} s")
 
@@ -1183,7 +1194,7 @@ def main() -> int:
         fail(f"quantile / window differ from numpy at 2^22 rows: {checks}")
     del wd, res
     torch.cuda.empty_cache()
-    log(f"[11/13] quantile and window: bench-matrix bit-exact across "
+    log(f"[11/14] quantile and window: bench-matrix bit-exact across "
         f"backends at 2^27 rows, launches as planned; numpy oracle at 2^22 "
         f"rows {json.dumps({k: bool(x) for k, x in checks.items()})}; "
         f"{time.perf_counter() - t0:.1f} s")
@@ -1262,7 +1273,7 @@ def main() -> int:
         f"{counts} = recorded passes {planned}")
     for name in ("block_histogram", "exclusive_scan", "rank_and_scatter"):
         launches[name] += path_launches[name]
-    log(f"[12/13] out-of-core sort: bench-big certificates at 2^30 "
+    log(f"[12/14] out-of-core sort: bench-big certificates at 2^30 "
         f"(partition, merge, in-core) and 2^28 with 3 payload columns, "
         f"numpy oracle, resume; {time.perf_counter() - t0:.1f} s")
 
@@ -1452,11 +1463,133 @@ def main() -> int:
         f"= recorded passes {planned}")
     for name in ("block_histogram", "exclusive_scan", "rank_and_scatter"):
         launches[name] += path_launches[name]
-    log(f"[13/13] out-of-core operators: 12 CLI runs at the JAX CLI's "
+    log(f"[13/14] out-of-core operators: 12 CLI runs at the JAX CLI's "
         f"sizes, every check true and B1-B3 launched once per recorded "
         f"pass; numpy oracles; two resumes; "
         f"{time.perf_counter() - t0:.1f} s")
     log(f"      phase 13 wall time: {time.perf_counter() - t0:.1f} s")
+
+    # -- 14. the last single-device out-of-core operators: their CLIs at the
+    # JAX CLI's default sizes, numpy oracles with collect=True, a resume
+    t0 = time.perf_counter()
+    for name in path_launches:
+        path_launches[name] = 0
+    from tpu_qe_torch.ops import bigorderby, bigquantile, bigwindow
+    from tpu_qe_torch.ops.quantile import canon_qs, disc_rank
+
+    for argv in (["bench-bigquantile"], ["bench-bigquantile", "--cont"],
+                 ["bench-bigwindow"], ["bench-bigorderby"]):
+        (row,), counts, planned = counted(" ".join(argv), passes_recorded,
+                                          lambda: cli_rows(argv))
+        log(f"      {json.dumps(row)}")
+        if not (row["verified"] and all(row["checks"].values())):
+            fail(f"{' '.join(argv)}: a check failed: {row}")
+        big_rows.append(row)
+        log(f"      {' '.join(argv)}: every check holds; launches {counts} "
+            f"= recorded passes {planned}")
+        torch.cuda.empty_cache()
+
+    # collect=True against numpy
+    checks = {}
+    n = 1 << 22
+    idx = np.arange(n, dtype=np.uint32)
+    pos = np.arange(n)
+    for parts in (1, 1 << 12):
+        res, got = counted(f"window_big(2^22, {parts} partitions)",
+                           passes_recorded,
+                           lambda: bigwindow.window_big(
+                               n, partitions=parts, run_size=1 << 20,
+                               n_buckets=4, collect=True))[0]
+        key, o, v = bigwindow.rows_numpy(idx, parts)
+        perm = np.lexsort((idx, o, key))
+        sk_, so, sv = key[perm], o[perm], v[perm].astype(np.uint64)
+        new = np.r_[True, sk_[1:] != sk_[:-1]]
+        onew = new | np.r_[True, so[1:] != so[:-1]]
+        ps = np.maximum.accumulate(np.where(new, pos, 0))
+        p0 = np.concatenate([np.zeros(1, np.uint64), np.cumsum(sv)])
+        want = {"key": sk_, "order": so, "idx": perm, "value": sv,
+                "rn": pos - ps + 1,
+                "rk": np.maximum.accumulate(np.where(onew, pos, 0)) - ps + 1,
+                "cum": p0[pos + 1] - p0[ps],
+                "lg": np.where(new, 0, np.r_[0, sv[:-1]])}
+        checks[f"bigwindow_{parts}"] = bool(res.all_ok and all(
+            np.array_equal(got[k].astype(np.uint64), w.astype(np.uint64))
+            for k, w in want.items()))
+
+    res, got = counted("order_by_big(2^22, a_card 7)", passes_recorded,
+                       lambda: bigorderby.order_by_big(
+                           n, a_card=7, run_size=1 << 20, n_buckets=4,
+                           collect=True))[0]
+    a, b, pay = bigorderby.rows_numpy(idx, 7)
+    perm = np.lexsort((idx, b, ~a))
+    checks["bigorderby"] = bool(
+        res.all_ok and np.array_equal(got["a"], a[perm])
+        and np.array_equal(got["b"], b[perm])
+        and np.array_equal(got["idx"], perm.astype(np.uint32))
+        and np.array_equal(got["pay"], pay[perm]))
+
+    qs = [0.0, 0.01, 0.25, 0.5, (3, 2), 0.99, 1.0]
+    for key_bits in (64, 8):
+        res = counted(f"quantile_big(2^22, key_bits {key_bits})",
+                      passes_recorded,
+                      lambda: bigquantile.quantile_big(
+                          n, qs, run_size=1 << 20, key_bits=key_bits))[0]
+        keys = keygen_hash_numpy(idx)
+        if key_bits < 64:
+            keys &= np.uint64((1 << key_bits) - 1)
+        keys.sort()
+        checks[f"bigquantile_{key_bits}"] = bool(
+            res.all_ok and np.array_equal(res.values, np.array(
+                [keys[disc_rank(num, sh, n)] for num, sh in canon_qs(qs)],
+                dtype=np.uint64)))
+    if not all(checks.values()):
+        fail(f"window_big / order_by_big / quantile_big differ from numpy: "
+             f"{checks}")
+    log(f"      collect=True against numpy: {json.dumps(checks)}")
+
+    # a bench-bigwindow process stopped after two of four buckets were
+    # recorded, resumed through the CLI
+    stopper = (
+        "import os, sys\n"
+        "from tpu_qe_torch.__main__ import main\n"
+        "from tpu_qe_torch.utils.checkpoint import RunState\n"
+        "record, done = RunState.record, []\n"
+        "def stop_after_two(self, b, vals):\n"
+        "    record(self, b, vals)\n"
+        "    done.append(b)\n"
+        "    if len(done) == 2:\n"
+        "        os._exit(3)\n"
+        "RunState.record = stop_after_two\n"
+        "main(sys.argv[1:])\n")
+    n = 1 << 28
+    meta = np.asarray([n, n // 1024, 1 << 26, 4, 7, 4096, 0xB16], np.int64)
+    with tempfile.TemporaryDirectory() as full, \
+            tempfile.TemporaryDirectory() as part_dir:
+        whole = bigwindow.window_big(n, n_buckets=4, checkpoint_dir=full)
+        argv = ["bench-bigwindow", "--n", str(n), "--buckets", "4",
+                "--checkpoint-dir", part_dir]
+        rc = subprocess.run([sys.executable, "-c", stopper, *argv],
+                            timeout=600).returncode
+        stopped = RunState.load(part_dir, meta)
+        if rc != 3 or stopped is None or int(stopped.done.sum()) != 2:
+            fail(f"the bench-bigwindow process stopped after two buckets "
+                 f"exited with {rc} and did not leave two buckets recorded")
+        (row,), counts, planned = counted("resumed bench-bigwindow",
+                                          passes_recorded,
+                                          lambda: cli_rows(argv))
+        a, b = RunState.load(full, meta), RunState.load(part_dir, meta)
+        if not (row["verified"] and whole.all_ok and b.done.all()
+                and np.array_equal(a.scalars, b.scalars)
+                and np.array_equal(a.bounds, b.bounds)):
+            fail(f"the resumed window differs from the whole run: {row}")
+    log(f"      bench-bigwindow 2^28 resumed after two of 4 buckets: "
+        f"per-bucket scalars and carries identical to the whole run's; "
+        f"launches {counts} = recorded passes {planned}")
+    for name in ("block_histogram", "exclusive_scan", "rank_and_scatter"):
+        launches[name] += path_launches[name]
+    log(f"[14/14] last out-of-core operators: 4 CLI runs at the JAX CLI's "
+        f"sizes, every check true and B1-B3 launched once per recorded "
+        f"pass; numpy oracles; a resume; {time.perf_counter() - t0:.1f} s")
 
     src = "tpu_qe_torch/csrc/"
     summary = [
@@ -1479,7 +1612,8 @@ def main() -> int:
          "launch_path": ("selfcheck" if name in off_path else
                          "verify 8x8 + encode(use_lut, quirk_lut) + "
                          "bench-matrix + window, quantile at 2^22 + "
-                         "bench-big + the out-of-core operators"),
+                         "bench-big + the out-of-core operators + "
+                         "bigquantile, bigwindow, bigorderby"),
          "max_abs_err": err[name],
          "ms": ms[name][0], "plain_ms": ms[name][1],
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],

@@ -1180,3 +1180,79 @@ def test_big_operator_clis_on_the_card(cuda, capsys, tmp_path, argv):
     assert row["value"] > 0 and row["peak_mem_bytes"] > 0
     assert row["sort_passes"] > 0 and "H100" in row["device"]
     assert row["profile"]["by_category_ms"]["B3 rank+scatter"] > 0
+
+
+# ------------------------------- out-of-core quantiles, window, ORDER BY
+
+@pytest.mark.parametrize("key_bits", [64, 8])
+def test_quantile_big_on_the_card_matches_numpy(cuda, key_bits):
+    from tpu_qe_torch.hashing import keygen_hash_numpy
+    from tpu_qe_torch.ops import bigquantile
+    from tpu_qe_torch.ops.quantile import canon_qs, disc_rank
+    n, qs = 1 << 22, [0.0, 0.01, 0.5, (3, 2), 0.99, 1.0]
+    res = _launched_as_recorded(lambda: bigquantile.quantile_big(
+        n, qs, run_size=1 << 20, key_bits=key_bits))
+    keys = keygen_hash_numpy(np.arange(n, dtype=np.uint32))
+    if key_bits < 64:
+        keys &= np.uint64((1 << key_bits) - 1)
+    keys.sort()
+    assert res.all_ok
+    np.testing.assert_array_equal(res.values, np.array(
+        [keys[disc_rank(num, sh, n)] for num, sh in canon_qs(qs)],
+        dtype=np.uint64))
+
+
+@pytest.mark.parametrize("partitions", [1, 1 << 12])
+def test_window_big_on_the_card_matches_numpy(cuda, partitions):
+    from tpu_qe_torch.ops import bigwindow
+    n = 1 << 22
+    res, got = _launched_as_recorded(lambda: bigwindow.window_big(
+        n, partitions=partitions, run_size=1 << 20, n_buckets=4,
+        collect=True))
+    assert res.all_ok
+    idx = np.arange(n, dtype=np.uint32)
+    key, o, v = bigwindow.rows_numpy(idx, partitions)
+    perm = np.lexsort((idx, o, key))
+    sk, so, sv = key[perm], o[perm], v[perm].astype(np.uint64)
+    pos = np.arange(n)
+    new = np.r_[True, sk[1:] != sk[:-1]]
+    onew = new | np.r_[True, so[1:] != so[:-1]]
+    ps = np.maximum.accumulate(np.where(new, pos, 0))
+    p0 = np.concatenate([np.zeros(1, np.uint64), np.cumsum(sv)])
+    want = {"key": sk, "order": so, "idx": perm.astype(np.uint32),
+            "value": v[perm], "rn": pos - ps + 1,
+            "rk": np.maximum.accumulate(np.where(onew, pos, 0)) - ps + 1,
+            "cum": p0[pos + 1] - p0[ps],
+            "lg": np.where(new, 0, np.r_[0, sv[:-1]])}
+    for k, w in want.items():
+        np.testing.assert_array_equal(got[k].astype(np.uint64),
+                                      w.astype(np.uint64), err_msg=k)
+
+
+def test_order_by_big_on_the_card_matches_numpy(cuda):
+    from tpu_qe_torch.ops import bigorderby
+    n = 1 << 22
+    res, got = _launched_as_recorded(lambda: bigorderby.order_by_big(
+        n, a_card=7, run_size=1 << 20, n_buckets=4, collect=True))
+    assert res.all_ok
+    a, b, pay = bigorderby.rows_numpy(np.arange(n, dtype=np.uint32), 7)
+    perm = np.lexsort((np.arange(n), b, ~a))
+    for k, w in (("a", a[perm]), ("b", b[perm]),
+                 ("idx", perm.astype(np.uint32)), ("pay", pay[perm])):
+        np.testing.assert_array_equal(got[k], w, err_msg=k)
+
+
+@pytest.mark.parametrize("argv", [
+    ["bench-bigquantile", "--n", str(1 << 22), "--run-size", str(1 << 20)],
+    ["bench-bigquantile", "--n", str(1 << 22), "--run-size", str(1 << 20),
+     "--cont"],
+    ["bench-bigwindow", "--n", str(1 << 22), "--run-size", str(1 << 20)],
+    ["bench-bigorderby", "--n", str(1 << 22), "--run-size", str(1 << 20)]])
+def test_last_big_operator_clis_on_the_card(cuda, capsys, tmp_path, argv):
+    assert main(argv + ["--trace-dir", str(tmp_path)]) == 0
+    row = json.loads([ln for ln in capsys.readouterr().out.splitlines()
+                      if ln.startswith("{")][-1])
+    assert row["verified"] and all(row["checks"].values())
+    assert row["value"] > 0 and row["peak_mem_bytes"] > 0
+    assert row["sort_passes"] > 0 and "H100" in row["device"]
+    assert row["profile"]["by_category_ms"]["B3 rank+scatter"] > 0

@@ -111,13 +111,18 @@ def test_package_never_imports_jax():
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'tpu_qe'))\n"
             "assert not bad, bad\n"
             "assert not opened, opened\n"
+            "print(' '.join(names))\n"
             "print(len(names), 'modules, no jax')\n")
     r = _run(["-c", code])
     assert r.returncode == 0, r.stderr
-    count, rest = r.stdout.strip().splitlines()[-1].split(" ", 1)
+    *_, walked, last = r.stdout.strip().splitlines()
+    count, rest = last.split(" ", 1)
     assert rest == "modules, no jax"
     # ops.*, sort.planes, table, hashing, bench.* among them
     assert int(count) >= 30
+    assert {f"tpu_qe_torch.ops.big{m}" for m in ("quantile", "window",
+                                                  "orderby")} | {
+        "tpu_qe_torch.sql", "tpu_qe_torch.sql.parser"} <= set(walked.split())
 
 
 def test_core_is_a_byte_identical_copy_of_the_jax_packages():

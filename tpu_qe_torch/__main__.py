@@ -14,7 +14,8 @@
            payload with its certificates, one JSON line
            (tpu_qe_torch/bench/big.py)
   bench-bigagg, bench-bigjoin (--outer), bench-bigpipe, bench-bigtopk,
-  bench-bigdistinct, bench-bigsetops
+  bench-bigdistinct, bench-bigsetops, bench-bigquantile (--cont),
+  bench-bigwindow, bench-bigorderby
            the out-of-core operators at the JAX CLI's sizes, verified on
            the device, one JSON line each (tpu_qe_torch/bench/bigops.py)
   info     device + configuration report
@@ -221,6 +222,30 @@ def _add_bigops(sub) -> None:
     ps.add_argument("--g-b", type=int, default=1 << 20)
     ps.add_argument("--offset", type=int, default=1 << 19,
                     help="B key-range offset (dials the overlap)")
+
+    pq = parser("bench-bigquantile", "out-of-core exact quantiles (sorted "
+                "runs + bitwise selection; no merge phase)")
+    pq.add_argument("--n", type=int, default=1 << 30)
+    pq.add_argument("--qs", type=str, default="0.01,0.25,0.5,0.9,0.99",
+                    help="comma-separated quantiles in [0,1]")
+    pq.add_argument("--cont", action="store_true",
+                    help="PERCENTILE_CONT (floor/ceil rank pairs + exact "
+                         "fractional numerators)")
+
+    pw = parser("bench-bigwindow", "out-of-core window functions (bucketed "
+                "sort + sequential carry chain)")
+    pw.add_argument("--n", type=int, default=1 << 29)
+    pw.add_argument("--partitions", type=int, default=None)
+    pw.add_argument("--buckets", type=int, default=None)
+    pw.add_argument("--checkpoint-dir", type=str, default=None,
+                    help="persist the plan + done-prefix carries here")
+
+    po = parser("bench-bigorderby", "out-of-core multi-column ORDER BY "
+                "(transformed-plane external sample sort)")
+    po.add_argument("--n", type=int, default=1 << 30)
+    po.add_argument("--a-card", type=int, default=None,
+                    help="distinct values of the DESC u64 column")
+    po.add_argument("--buckets", type=int, default=None)
 
 
 def _cmd_info(args) -> int:

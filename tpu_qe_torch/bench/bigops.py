@@ -11,15 +11,21 @@
         [--values 2^8]
     python -m tpu_qe_torch bench-bigsetops [--op union|intersect|except]
         [--n-a 2^29] [--n-b 2^29] [--g-a 2^20] [--g-b 2^20] [--offset 2^19]
+    python -m tpu_qe_torch bench-bigquantile [--n 2^30]
+        [--qs 0.01,0.25,0.5,0.9,0.99] [--cont] [--run-size 2^26]
+    python -m tpu_qe_torch bench-bigwindow [--n 2^29] [--partitions P]
+        [--run-size 2^26] [--buckets B] [--checkpoint-dir D]
+    python -m tpu_qe_torch bench-bigorderby [--n 2^30] [--a-card A]
+        [--run-size 2^26] [--buckets B]
 
 each with [--verbose-big] [--trace-dir DIR] [--device cuda]. The defaults
 and the fields are the JAX package's CLI's (tpu_qe/__main__.py); the line
 adds the passes its sorts ran (`sort_passes`, sort.driver.RADIX_PASSES),
 the peak device memory and the card's name and power limit, and for
-bench-bigagg, -bigjoin and -bigpipe `sol_fraction` against the port's
-envelope (bench/sol.py). On the card an untimed run of the same path at a
-small size comes first (the kernels' build and first launches), as the JAX
-package compiles outside its timed region. With --trace-dir one more run
+bench-bigagg, -bigjoin, -bigpipe and -bigwindow `sol_fraction` against
+the port's envelope (bench/sol.py). On the card an untimed run of the
+same path at a small size comes first (the kernels' build and first
+launches), as the JAX package compiles outside its timed region. With --trace-dir one more run
 is profiled (torch.profiler, DIR/trace.json) and the line gains `profile`
 (bench/big.py). On a CPU device the checks hold the same and every time
 is "not measured". Exit 0 when every check holds, else 1.
@@ -106,6 +112,31 @@ def _bigsetops(args, dev, warm: bool, **kw):
     return set_op_big(args.op, device=dev, **sizes, **kw)
 
 
+def _bigquantile(args, dev, warm: bool, **kw):
+    from tpu_qe_torch.ops.bigquantile import quantile_big, quantile_cont_big
+    n, run = (WARM_N, WARM_RUN) if warm else (args.n, args.run_size)
+    qs = [float(q) for q in args.qs.split(",")]
+    fn = quantile_cont_big if args.cont else quantile_big
+    return fn(n, qs, run_size=run, device=dev, **kw)
+
+
+def _bigwindow(args, dev, warm: bool, **kw):
+    from tpu_qe_torch.ops.bigwindow import window_big
+    n, run, p, b = ((WARM_N, WARM_RUN, None, 2) if warm
+                    else (args.n, args.run_size, args.partitions,
+                          args.buckets))
+    return window_big(n, partitions=p, run_size=run, n_buckets=b,
+                      device=dev, **kw)
+
+
+def _bigorderby(args, dev, warm: bool, **kw):
+    from tpu_qe_torch.ops.bigorderby import order_by_big
+    n, run, a, b = ((WARM_N, WARM_RUN, None, 2) if warm
+                    else (args.n, args.run_size, args.a_card, args.buckets))
+    return order_by_big(n, a_card=a, run_size=run, n_buckets=b, device=dev,
+                        **kw)
+
+
 def _row_bigagg(args, res) -> dict:
     where = (f"1 card, {args.value_cols} value cols" if args.value_cols > 1
              else "1 card")
@@ -185,11 +216,53 @@ def _row_bigsetops(args, res) -> dict:
                    "num": res.num == res.expected_num}}
 
 
+def _row_bigquantile(args, res) -> dict:
+    kind = "PERCENTILE_CONT" if args.cont else "quantiles"
+    row = {
+        "metric": f"out-of-core exact {kind} ({len(args.qs.split(','))} q) "
+                  f"over {res.n} rows, 1 card",
+        "value": res.rows_per_s, "unit": "rows/s", "time_s": res.seconds,
+        "runs": res.n_runs, "cert_ok": res.all_ok, "verified": res.all_ok,
+        "checks": {"cert": res.cert_ok}}
+    if not args.cont:
+        row["phase_runs_s"] = res.runs_s
+        row["phase_select_s"] = res.select_s
+    return row
+
+
+def _row_bigwindow(args, res) -> dict:
+    return {
+        "metric": f"out-of-core window rn+rank+sum+lag, {res.n} rows x "
+                  f"{res.partitions} partitions, 1 card",
+        "value": res.rows_per_s, "unit": "rows/s", "time_s": res.seconds,
+        "phase_runs_s": res.phase_a_s, "phase_buckets_s": res.phase_c_s,
+        "verified": res.all_ok,
+        "checks": {"sorted": res.sorted_ok, "hash": res.hash_ok,
+                   "window": res.window_ok, "count": res.count_ok,
+                   "boundary": res.boundary_ok}}
+
+
+def _row_bigorderby(args, res) -> dict:
+    return {
+        "metric": f"out-of-core ORDER BY a DESC, b ASC, {res.n} rows, "
+                  "1 card",
+        "value": res.rows_per_s, "unit": "rows/s", "time_s": res.seconds,
+        "phase_runs_s": res.phase_a_s, "phase_buckets_s": res.phase_c_s,
+        "verified": res.all_ok,
+        "checks": {"sorted": res.sorted_ok, "hash": res.hash_ok,
+                   "boundary": res.boundary_ok, "count": res.count_ok,
+                   "perm": res.perm_ok}}
+
+
 def _sol(cmd, args, res) -> float | None:
     from tpu_qe_torch.bench import sol
     if cmd == "bigagg":
         return sol.bigagg_sol_seconds(res.n, args.run_size, args.groups,
                                       args.value_cols, args.minmax)
+    if cmd == "bigwindow":
+        return sol.bigwindow_sol_seconds(
+            res.n, args.run_size,
+            args.buckets or max(2, -(-res.n // (1 << 26))))
     if cmd not in ("bigjoin", "bigpipe"):
         return None
     buckets = args.buckets or max(2, -(-(res.n_l + res.n_r) // (1 << 26)))
@@ -208,6 +281,9 @@ COMMANDS = {
     "bigtopk": (_bigtopk, _row_bigtopk),
     "bigdistinct": (_bigdistinct, _row_bigdistinct),
     "bigsetops": (_bigsetops, _row_bigsetops),
+    "bigquantile": (_bigquantile, _row_bigquantile),
+    "bigwindow": (_bigwindow, _row_bigwindow),
+    "bigorderby": (_bigorderby, _row_bigorderby),
 }
 
 
@@ -224,7 +300,7 @@ def run(cmd: str, args) -> dict:
     dev = resolve_device(args.device)
     cuda = dev.type == "cuda"
     kw = {"verbose": args.verbose_big}
-    if cmd in ("bigagg", "bigjoin") and args.checkpoint_dir:
+    if cmd in ("bigagg", "bigjoin", "bigwindow") and args.checkpoint_dir:
         os.makedirs(args.checkpoint_dir, exist_ok=True)
         kw["checkpoint_dir"] = args.checkpoint_dir
     compile_s = _build_seconds(dev)

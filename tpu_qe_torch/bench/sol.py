@@ -191,3 +191,27 @@ def bigpipe_sol_seconds(n_l: int, n_r: int, n_buckets: int, n_groups: int,
                                 device_name)
             + _radix_seconds(passes, device_name)
             + scan_bytes(n_l, 4) / hbm_peak_bytes_per_s(device_name))
+
+
+def bigwindow_sol_seconds(n: int, run_size: int, n_buckets: int,
+                          samples_per_run: int = 4096,
+                          device_name: str | None = None) -> float:
+    """Envelope of the out-of-core window (ops/bigwindow.py) in the port's
+    terms, at ideal bucket balance: per run and per bucket the 12 passes of
+    the stable (key hi, key lo, order) sort (8 of the (lo, order) pair and
+    4 of the lone hi plane), each carrying the row permutation; the plan's
+    16 passes over R * samples_per_run samples; the window sweeps' int64
+    running maxima (partition and order-run starts) and running sum, 6
+    one-plane scans a row; and every row's 20 bytes (key lo and hi, order,
+    index, value) generated once. Gathers are left out."""
+    n_runs = max(n // run_size, 1)
+    b = max(n_buckets, 1)
+    m = max(n // b, 1)
+    passes = Counter()
+    for rows, sorts in ((run_size, n_runs), (m, b)):
+        passes[(rows, 8, 1)] += 8 * sorts
+        passes[(rows, 4, 1)] += 4 * sorts
+    passes[(n_runs * samples_per_run, 8, 1)] += 16
+    return (_radix_seconds(passes, device_name)
+            + scan_bytes(n, 6) / hbm_peak_bytes_per_s(device_name)
+            + _rows_seconds(20 * n, device_name))

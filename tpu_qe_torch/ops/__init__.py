@@ -6,10 +6,10 @@ in-core operators).
 
 The out-of-core family is exported lazily (PEP 562), as in the reference:
 its modules import the sort drivers, which import ops.join, so eager
-imports here would cycle through this package's init. Ported: bigagg,
-bigjoin, bigpipe, bigouter, bigtopk, bigdistinct, bigsetops. Not yet
-ported: bigquantile, bigwindow, bigorderby, and the distributed dbig*
-modules (ROADMAP Queue A items 6 and 10).
+imports here would cycle through this package's init. Every
+single-device one is ported: bigagg, bigjoin, bigpipe, bigouter, bigtopk,
+bigdistinct, bigsetops, bigquantile, bigwindow, bigorderby. Not yet
+ported: the distributed dbig* modules (ROADMAP Queue A item 10).
 """
 
 from tpu_qe_torch.ops.filter import compact, filter_table  # noqa: F401
@@ -33,7 +33,10 @@ _BIG_EXPORTS = {
     "join_big_outer": "bigouter",
     "count_distinct_big": "bigdistinct",
     "set_op_big": "bigsetops",
+    "order_by_big": "bigorderby",
+    "quantile_big": "bigquantile",
     "top_k_big": "bigtopk",
+    "window_big": "bigwindow",
     "join_aggregate_big": "bigpipe",
 }
 
