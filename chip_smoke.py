@@ -102,10 +102,20 @@ Run from the root of the repository on a machine with a CUDA card. Phases:
    order_by_big with a_card 7 (lexsort) and quantile_big with key_bits 64
    and 8 (numpy's sort of the regenerated keys); then a bench-bigwindow
    process stopped after two of four buckets were recorded and resumed
-   through the CLI from --checkpoint-dir.
+   through the CLI from --checkpoint-dir;
+15. the SQL tier (tpu_qe_torch.sql.Database) with torch.sort, argsort and
+   unique made to raise: `python -m tpu_qe_torch.bench.sql`'s run at its
+   defaults (2^27 rows, 4096 groups; the SQL time, the hand-composed
+   operators' time and the peak memory), its group table (count, sum,
+   min, max) against numpy over the generated columns read back; an FK
+   join + GROUP BY through SQL, inner and LEFT, of 2^24 rows against 2^22
+   unique keys with half of the rows matched, against numpy; the family
+   battery of tests/sql_battery.py on the card, integers bit-equal to the same
+   battery on the CPU (floats within rtol 1e-5) and held to sqlite3; B1-B3
+   launched once per recorded pass in each.
 
 Then it prints the kernel summary as one JSON line (per kernel: launches on
-the main path and the paths of phases 10-14, largest difference from its
+the main path and the paths of phases 10-15, largest difference from its
 references, its time, its plain twin's, the least time the card could
 take for the same bytes or operations, and the time of the one PyTorch
 call that computes the same function, where there is one), the
@@ -117,8 +127,10 @@ a result.
 from __future__ import annotations
 
 import contextlib
+import importlib.util
 import io
 import json
+import os
 import subprocess
 import sys
 import time
@@ -178,7 +190,7 @@ def main() -> int:
 
     # -- 1. device
     smi = nvidia_smi_line()
-    log(f"[1/14] device: {smi}; torch {torch.__version__}, "
+    log(f"[1/15] device: {smi}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.device_count()} card(s)")
 
     # -- 2. build
@@ -187,7 +199,7 @@ def main() -> int:
     t1 = time.perf_counter()
     native.pipeline_oracle(10, 10, 7)
     t2 = time.perf_counter()
-    log(f"[2/14] build: CUDA kernels {t1 - t0:.1f} s, C++ core {t2 - t1:.1f} s")
+    log(f"[2/15] build: CUDA kernels {t1 - t0:.1f} s, C++ core {t2 - t1:.1f} s")
 
     # -- 3. kernels against their twins and the C++ oracles
     err = {name: 0 for name in kernels.LAUNCHES}
@@ -486,7 +498,7 @@ def main() -> int:
     log("      exclusive_scan: 1000 scans back to back with fresh scratch "
         "and a scan beside a busy stream bit-exact")
     torch.cuda.synchronize()
-    log("[3/14] radix kernels bit-exact against twins and C++ oracles; "
+    log("[3/15] radix kernels bit-exact against twins and C++ oracles; "
         "max_abs_err " + json.dumps({k: err[k] for k in (
             "block_histogram", "exclusive_scan", "block_rank_and_histogram",
             "rank_and_scatter")}))
@@ -806,7 +818,7 @@ def main() -> int:
                 log(f"      n={n} {label} block={block} shift={shift}: "
                     "B6 bit-exact against twin, B3 and the C++ rank")
     torch.cuda.synchronize()
-    log("[4/14] B4, B5, B6 bit-exact against twins and oracles; max_abs_err "
+    log("[4/15] B4, B5, B6 bit-exact against twins and oracles; max_abs_err "
         + json.dumps({k: err[k] for k in ("encode_quantized_lut",
                                           "sort_chunks",
                                           "block_rank_and_histogram_mxu")}))
@@ -898,7 +910,7 @@ def main() -> int:
                      f"pass ({passes})")
         if launches is None:
             launches = counts
-    log("[5/14] main path: VERIFY PASS at 2^24 triangles for 8x8, 6x11 "
+    log("[5/15] main path: VERIFY PASS at 2^24 triangles for 8x8, 6x11 "
         "and 11x6")
 
     # -- 6. LUT encode path on the verify scene: B4 through morton.encode
@@ -926,7 +938,7 @@ def main() -> int:
     t_direct = cuda_time(lambda: morton.encode(verts_t, tris_t, params),
                          iters=5)
     del verts, tris, verts_t, tris_t, code
-    log(f"[6/14] LUT encode path: B4 bit-exact on the verify scene; encode "
+    log(f"[6/15] LUT encode path: B4 bit-exact on the verify scene; encode "
         f"(quantize + B4) {t_lut * 1e3:.4f} ms, plain direct encode "
         f"{t_direct * 1e3:.4f} ms at 2^24 triangles")
 
@@ -946,7 +958,7 @@ def main() -> int:
                 "block_rank_and_histogram_mxu")
     for name in off_path:
         launches[name] = counts[name]
-    log("[7/14] selfcheck: SELFCHECK PASS")
+    log("[7/15] selfcheck: SELFCHECK PASS")
 
     # -- 8. per-kernel bench
     kernels.reset_launches()
@@ -958,14 +970,14 @@ def main() -> int:
                  "block_rank_and_histogram"):
         if counts[name] < 1:
             fail(f"bench-kernels never launched {name}")
-    log(f"[8/14] bench-kernels at 2^24: launches {counts}")
+    log(f"[8/15] bench-kernels at 2^24: launches {counts}")
 
     # -- 9. headline sort
     res = headline.measure(1 << 26, seed=7, iters=10, device="cuda")
     log(f"      {json.dumps(res)}")
     if not res["verified"]:
         fail("radix sort of 2^26 keys differs from stable torch.sort")
-    log(f"[9/14] headline: radix {res['time_s'] * 1e3:.3f} ms, torch.sort "
+    log(f"[9/15] headline: radix {res['time_s'] * 1e3:.3f} ms, torch.sort "
         f"{res['torch_sort_time_s'] * 1e3:.3f} ms for 2^26 keys + payload; "
         "bit-exact")
 
@@ -1042,7 +1054,7 @@ def main() -> int:
     if not all(checks.values()):
         fail(f"operators differ from the numpy oracle at 2^24 rows: {checks}")
     del data, res, jd, out, matched
-    log(f"[10/14] operators: bench-matrix bit-exact across backends at full "
+    log(f"[10/15] operators: bench-matrix bit-exact across backends at full "
         f"size, launches as planned; numpy oracle at 2^24 rows "
         f"{json.dumps(checks)}; {time.perf_counter() - t0:.1f} s")
 
@@ -1194,7 +1206,7 @@ def main() -> int:
         fail(f"quantile / window differ from numpy at 2^22 rows: {checks}")
     del wd, res
     torch.cuda.empty_cache()
-    log(f"[11/14] quantile and window: bench-matrix bit-exact across "
+    log(f"[11/15] quantile and window: bench-matrix bit-exact across "
         f"backends at 2^27 rows, launches as planned; numpy oracle at 2^22 "
         f"rows {json.dumps({k: bool(x) for k, x in checks.items()})}; "
         f"{time.perf_counter() - t0:.1f} s")
@@ -1273,7 +1285,7 @@ def main() -> int:
         f"{counts} = recorded passes {planned}")
     for name in ("block_histogram", "exclusive_scan", "rank_and_scatter"):
         launches[name] += path_launches[name]
-    log(f"[12/14] out-of-core sort: bench-big certificates at 2^30 "
+    log(f"[12/15] out-of-core sort: bench-big certificates at 2^30 "
         f"(partition, merge, in-core) and 2^28 with 3 payload columns, "
         f"numpy oracle, resume; {time.perf_counter() - t0:.1f} s")
 
@@ -1463,7 +1475,7 @@ def main() -> int:
         f"= recorded passes {planned}")
     for name in ("block_histogram", "exclusive_scan", "rank_and_scatter"):
         launches[name] += path_launches[name]
-    log(f"[13/14] out-of-core operators: 12 CLI runs at the JAX CLI's "
+    log(f"[13/15] out-of-core operators: 12 CLI runs at the JAX CLI's "
         f"sizes, every check true and B1-B3 launched once per recorded "
         f"pass; numpy oracles; two resumes; "
         f"{time.perf_counter() - t0:.1f} s")
@@ -1587,9 +1599,137 @@ def main() -> int:
         f"launches {counts} = recorded passes {planned}")
     for name in ("block_histogram", "exclusive_scan", "rank_and_scatter"):
         launches[name] += path_launches[name]
-    log(f"[14/14] last out-of-core operators: 4 CLI runs at the JAX CLI's "
+    log(f"[14/15] last out-of-core operators: 4 CLI runs at the JAX CLI's "
         f"sizes, every check true and B1-B3 launched once per recorded "
         f"pass; numpy oracles; a resume; {time.perf_counter() - t0:.1f} s")
+
+    # -- 15. the SQL tier: bench.sql at its defaults, an FK join + GROUP BY
+    # through SQL (inner and LEFT) and the family battery, against numpy
+    # and sqlite3, with torch.sort / argsort / unique made to raise on the
+    # card: no n-row sort leaves the radix kernels
+    t0 = time.perf_counter()
+    for name in path_launches:
+        path_launches[name] = 0
+    torch.cuda.empty_cache()
+    from tpu_qe_torch.bench import sql as bsql
+    from tpu_qe_torch.sql import Database
+    from tpu_qe_torch.table import column_to_numpy
+    spec = importlib.util.spec_from_file_location(
+        "sql_battery", os.path.join(os.path.dirname(os.path.abspath(
+            __file__)), "tests", "sql_battery.py"))
+    sb = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sb)
+    cpu_battery = sb.battery(torch.device("cpu"))
+
+    def refuse(*a, **k):
+        raise AssertionError("an n-row sort left the radix kernels")
+    saved = [(mod, name, getattr(mod, name)) for mod in (torch, torch.Tensor)
+             for name in ("sort", "argsort", "unique")]
+    for mod, name, _ in saved:
+        setattr(mod, name, refuse)
+    try:
+        n, groups = 1 << 27, 4096
+        (row, got, (key, v)), counts, planned = counted(
+            "bench.sql at 2^27 rows", passes_recorded,
+            lambda: bsql.run(n, groups, dev))
+        log(f"      {json.dumps(row)}")
+        k_np, v_np = column_to_numpy(key), column_to_numpy(v)
+        keep = v_np % 4 != 0
+        kk, vv = k_np[keep], v_np[keep]
+        cnt = np.bincount(kk, minlength=groups)
+        sums = np.bincount(kk, weights=vv, minlength=groups)
+        mn = np.full(groups, np.iinfo(np.int32).max, np.int32)
+        mx = np.full(groups, np.iinfo(np.int32).min, np.int32)
+        np.minimum.at(mn, kk, vv)
+        np.maximum.at(mx, kk, vv)
+        present = np.flatnonzero(cnt)
+        want = {"k": present.astype(np.uint32), "c": cnt[present],
+                "s": sums[present].astype(np.int64), "mn": mn[present],
+                "mx": mx[present]}
+        bad = [c for c in want if not np.array_equal(got[c], want[c])]
+        if not row["verified"] or bad:
+            fail(f"bench.sql: the group table differs from numpy in {bad}"
+                 f" (verified {row['verified']})")
+        log(f"      bench.sql 2^27 rows -> {len(present)} groups: count, "
+            f"sum, min, max equal numpy's; SQL {row['time_s']:.4f} s, "
+            f"direct {row['direct_ops_time_s']:.4f} s, peak "
+            f"{row['peak_mem_bytes'] / 1e9:.2f} GB; launches {counts} = "
+            f"recorded passes {planned}")
+        del key, v, k_np, v_np, kk, vv
+        torch.cuda.empty_cache()
+
+        # FK join + GROUP BY: t 2^24 rows, r 2^22 unique keys, half of t's
+        # keys matched (r holds the even keys below 2^23)
+        rng = np.random.default_rng(15)
+        n_t, n_r, g_fk = 1 << 24, 1 << 22, 1024
+        rk = rng.permutation(n_r).astype(np.uint32) * np.uint32(2)
+        rw = rng.integers(-1000, 1000, n_r).astype(np.int32)
+        tk = rng.integers(0, 2 * n_r, n_t).astype(np.uint32)
+        tg = rng.integers(0, g_fk, n_t).astype(np.uint32)
+        w_of = np.zeros(n_r, np.int64)
+        w_of[rk // 2] = rw
+        matched = tk % 2 == 0
+        wt = np.where(matched, w_of[tk // 2], 0)
+        db = Database(dev)
+        db.register("t", {"k": tk, "g": tg})
+        db.register("r", {"k": rk, "w": rw})
+        fk = {
+            "inner": ("SELECT g, COUNT(*) AS c, SUM(w) AS s FROM t JOIN r "
+                      "ON t.k = r.k GROUP BY g ORDER BY g",
+                      {"g": np.arange(g_fk, dtype=np.uint32),
+                       "c": np.bincount(tg[matched], minlength=g_fk),
+                       "s": np.bincount(tg, weights=wt, minlength=g_fk)}),
+            "left": ("SELECT g, COUNT(*) AS c, SUM(w) AS s, "
+                     "SUM(r__matched) AS m FROM t LEFT JOIN r "
+                     "ON t.k = r.k GROUP BY g ORDER BY g",
+                     {"g": np.arange(g_fk, dtype=np.uint32),
+                      "c": np.bincount(tg, minlength=g_fk),
+                      "s": np.bincount(tg, weights=wt, minlength=g_fk),
+                      "m": np.bincount(tg, weights=matched,
+                                       minlength=g_fk)})}
+        fk_s = {}
+        for how, (q, want) in fk.items():
+            db.sql(q)       # first launches
+            t1 = time.perf_counter()
+            out, counts, planned = counted(f"SQL FK join ({how})",
+                                           passes_recorded,
+                                           lambda: db.sql(q))
+            fk_s[how] = time.perf_counter() - t1
+            bad = [c for c in want if not np.array_equal(
+                out[c].astype(np.int64), want[c].astype(np.int64))]
+            if list(out) != list(want) or bad:
+                fail(f"SQL FK join ({how}) + GROUP BY differs from numpy "
+                     f"in {bad or list(out)}")
+            log(f"      FK join ({how}) 2^24 x 2^22 + GROUP BY through SQL:"
+                f" equal numpy's; {fk_s[how]:.4f} s; launches {counts} = "
+                f"recorded passes {planned}")
+        del db
+        torch.cuda.empty_cache()
+
+        card_battery, counts, planned = counted(
+            "the SQL family battery", passes_recorded,
+            lambda: sb.battery(dev))
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    con = sb.sqlite_connection(sb.battery_tables())
+    for fam, want in cpu_battery.items():
+        bad = sb.differs(card_battery[fam], want)
+        if bad is None and fam in sb.FAMILIES:
+            q, sq, ordered = sb.FAMILIES[fam]
+            bad = sb.agrees(card_battery[fam],
+                            sb.sqlite_rows(con, sq or q), ordered)
+        if bad is not None:
+            fail(f"SQL family {fam} on the card: {bad}")
+    log(f"      {len(cpu_battery)} SQL families on the card: integers "
+        f"bit-equal to the CPU run's, floats within rtol 1e-5, sqlite3 "
+        f"agrees; launches {counts} = recorded passes {planned}")
+    for name in ("block_histogram", "exclusive_scan", "rank_and_scatter"):
+        launches[name] += path_launches[name]
+    log(f"[15/15] SQL tier: bench.sql at 2^27 rows and FK joins at 2^24 x "
+        f"2^22 equal numpy's, {len(cpu_battery)} families equal the CPU "
+        f"run's and sqlite3's, no torch.sort / argsort / unique, B1-B3 "
+        f"launched once per recorded pass; {time.perf_counter() - t0:.1f} s")
 
     src = "tpu_qe_torch/csrc/"
     summary = [
@@ -1613,7 +1753,8 @@ def main() -> int:
                          "verify 8x8 + encode(use_lut, quirk_lut) + "
                          "bench-matrix + window, quantile at 2^22 + "
                          "bench-big + the out-of-core operators + "
-                         "bigquantile, bigwindow, bigorderby"),
+                         "bigquantile, bigwindow, bigorderby + the SQL "
+                         "tier"),
          "max_abs_err": err[name],
          "ms": ms[name][0], "plain_ms": ms[name][1],
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],

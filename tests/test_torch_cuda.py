@@ -1256,3 +1256,97 @@ def test_last_big_operator_clis_on_the_card(cuda, capsys, tmp_path, argv):
     assert row["value"] > 0 and row["peak_mem_bytes"] > 0
     assert row["sort_passes"] > 0 and "H100" in row["device"]
     assert row["profile"]["by_category_ms"]["B3 rank+scatter"] > 0
+
+
+# -- the empty-input repairs (set_op, the joins) and the SQL executor ---------
+
+def test_empty_sides_on_the_card(cuda):
+    from tpu_qe_torch.ops.setops import set_op
+    e = U64.from_numpy(np.zeros(0, np.uint64), cuda)
+    for op in ("union", "intersect", "except"):
+        keys, ca, cb, num = set_op(e, e, op)
+        assert keys.lo.shape[0] == 0 and ca.numel() == 0 and int(num) == 0
+    left = Table.from_numpy({"key": np.arange(3, dtype=np.uint64),
+                             "a": np.arange(3, dtype=np.uint32)}, cuda)
+    right = Table.from_numpy({"key": np.zeros(0, np.uint64),
+                              "b": np.zeros(0, np.float32)}, cuda)
+    got = tjoin.join_fk(left, right)
+    assert not got.matched.any() and got.table.num_rows == 3
+    assert not got.table["b"].any()
+    t, m = left.join(right)
+    assert t.num_rows == 3 and not m.any() and not t["b"].any()
+    s = tjoin.join_fk_scan(left.drop("key"), right.drop("key"),
+                           left["key"], right["key"], output="stream")
+    assert s.is_left.all() and not s.matched.any()
+    for lt, rt in ((left, right), (right, left)):
+        assert int(tjoin.join_inner(lt, rt).num_out) == 0
+        res = tjoin.join_outer(lt, rt, how="full")
+        assert int(res.num_out) == lt.num_rows
+        assert int(res.num_right_only) == rt.num_rows
+        assert not res.matched[:lt.num_rows].any()
+
+
+def test_native_streams_and_dump_loaders_on_the_card_host(cuda, tmp_path):
+    from tpu_qe_torch.utils import dump
+    out = native.chacha8_raw_block(bytes(32), 0)
+    assert out.tobytes()[:8].hex() == "3e00ef2f895f40d6"
+    assert (native.chacha8_u32(7, 64) == native.chacha8_u32(7, 64)).all()
+    f = native.chacha8_f32(7, 1000)
+    assert (f >= 0).all() and (f < 1).all()
+    assert native.select_digit8(7, 0, 0xFF000000) == 255
+    assert native.select_digit6(10, 0, 0xF0000000) == 15
+    codes = np.array([0, 2**63 + 5, 2**64 - 1], np.uint64)
+    p = dump.dump_morton_codes(codes, str(tmp_path / "c.txt"))
+    np.testing.assert_array_equal(dump.load_morton_codes(p), codes)
+    tris = np.array([[1, 2, 3], [4, 5, 6]], np.uint32)
+    p = dump.dump_indices(tris, str(tmp_path / "i.txt"))
+    np.testing.assert_array_equal(dump.load_indices(p), tris)
+
+
+def test_sql_battery_on_the_card_matches_the_cpu_and_sqlite(cuda,
+                                                             monkeypatch):
+    import sql_battery as bsql
+    cpu = bsql.battery(torch.device("cpu"))
+
+    def refuse(*a, **k):
+        raise AssertionError("an n-row sort left the radix kernels")
+    for name in ("sort", "argsort", "unique"):
+        monkeypatch.setattr(torch, name, refuse)
+        monkeypatch.setattr(torch.Tensor, name, refuse)
+    kernels.reset_launches()
+    card = bsql.battery(cuda)
+    assert kernels.LAUNCHES["rank_and_scatter"] > 0
+    con = bsql.sqlite_connection(bsql.battery_tables())
+    for fam, want in cpu.items():
+        assert bsql.differs(card[fam], want) is None, fam
+        if fam in bsql.FAMILIES:
+            q, sq, ordered = bsql.FAMILIES[fam]
+            assert bsql.agrees(card[fam], bsql.sqlite_rows(con, sq or q),
+                               ordered) is None, fam
+
+
+def test_sql_edges_on_the_card(cuda):
+    from tpu_qe_torch.sql import Database
+    db = Database()
+    assert db.device.type == "cuda"
+    v = np.array([-(1 << 31), -(1 << 31), 7, -1], np.int32)
+    d = np.array([-1, 0, 0, 2], np.int32)
+    u = np.array([0x80000000, 0xFFFFFFFF, 5, 0], np.uint32)
+    db.register("t", {"v": v, "d": d, "u": u,
+                      "k": np.arange(4, dtype=np.uint32)})
+    db.register("e", {"k": np.zeros(0, np.uint32),
+                      "w": np.zeros(0, np.int32)})
+    out = db.sql("SELECT k, v / d AS q, v % d AS r, v / 0 AS q0, "
+                 "u / 3 AS a, u % 7 AS b, u > v AS c FROM t ORDER BY k")
+    np.testing.assert_array_equal(out["q"], [-(1 << 31), -(1 << 31), 7, 0])
+    np.testing.assert_array_equal(out["r"], [0, 0, 0, -1])
+    np.testing.assert_array_equal(out["q0"], v)
+    np.testing.assert_array_equal(out["a"], u // 3)
+    np.testing.assert_array_equal(out["b"], u % 7)
+    np.testing.assert_array_equal(out["c"], [True, True, False, True])
+    assert len(db.sql("SELECT k FROM e UNION SELECT k FROM e")["k"]) == 0
+    assert len(db.sql("SELECT t.k FROM t JOIN e ON t.k = e.k")["k"]) == 0
+    out = db.sql("SELECT t.k, e.w, e__matched FROM t LEFT JOIN e "
+                 "ON t.k = e.k ORDER BY k")
+    np.testing.assert_array_equal(out["k"], np.arange(4))
+    assert not out["w"].any() and not out["e__matched"].any()

@@ -252,3 +252,79 @@ def test_padded_join_keeps_duplicate_right_rows_in_input_order():
     stable = np.flatnonzero(rkey == 1).astype(np.uint32)
     np.testing.assert_array_equal(_np(got.table["r"])[:m], stable)
     assert sorted(_np(want.table["r"])[:m]) == sorted(stable)
+
+
+def _empty_side_tables():
+    lcols = {"key": np.arange(3, dtype=np.uint64),
+             "a": np.arange(3, dtype=np.uint32)}
+    rcols = {"key": np.zeros(0, np.uint64), "b": np.zeros(0, np.float32)}
+    return _both(lcols), _both(rcols)
+
+
+@pytest.mark.parametrize("output", ["left", "stream"])
+def test_fk_scan_against_an_empty_right_table_matches_jax(output):
+    (lt, jlt), (rt, jrt) = _empty_side_tables()
+    got = tjoin.join_fk_scan(lt.drop("key"), rt.drop("key"), lt["key"],
+                             rt["key"], output=output)
+    want = jjoin.join_fk_scan(jlt.drop("key"), jrt.drop("key"), jlt["key"],
+                              jrt["key"], output=output)
+    if output == "left":
+        _same_tables(got[0], want[0])
+        _eq(got[1], want[1])
+        assert not got[1].any() and not _np(got[0]["b"]).any()
+    else:
+        for a, b, nm in zip(got[:2] + got[3:], want[:2] + want[3:],
+                            ("key", "lidx", "matched", "is_left")):
+            _eq(a, b, msg=nm)
+        _same_tables(got.values, want.values)
+        assert got.is_left.all() and got.key.lo.shape[0] == 3
+
+
+def test_join_fk_against_an_empty_right_table():
+    # the port gives join_fk_scan's rows (every left row, right columns 0,
+    # unmatched); the JAX join_fk raises there, its Table.join does not
+    (lt, jlt), (rt, jrt) = _empty_side_tables()
+    got = tjoin.join_fk(lt, rt)
+    assert not got.matched.any() and got.matched.shape[0] == 3
+    _eq(got.table["a"], np.arange(3, dtype=np.uint32))
+    _eq(got.table["key"], np.arange(3, dtype=np.uint64))
+    _eq(got.table["b"], np.zeros(3, np.float32))
+    with pytest.raises(IndexError):
+        jjoin.join_fk(jlt, jrt)
+    t, m = lt.join(rt)
+    jt, jm = jlt.join(jrt)
+    _same_tables(t, jt)
+    _eq(m, jm)
+
+
+@pytest.mark.parametrize("how", ["inner", "left", "full"])
+@pytest.mark.parametrize("empty", ["right", "left", "both"])
+def test_joins_with_an_empty_side_follow_sql(how, empty):
+    # inner: no row; left: each left row once, right columns 0, unmatched;
+    # full: the non-empty side's rows. The JAX joins raise IndexError on
+    # an empty side (its binary search gathers from an empty axis).
+    (lt, jlt), (rt, jrt) = _empty_side_tables()
+    if empty == "left":
+        (lt, jlt), (rt, jrt) = (rt, jrt), (lt, jlt)
+    elif empty == "both":
+        lt, jlt = rt.drop("b").with_column("a", lt["a"][:0]), None
+    n_l, n_r = lt.num_rows, rt.num_rows
+    if how == "inner":
+        res = tjoin.join_inner(lt, rt)
+        assert int(res.num_out) == 0 and int(res.overflow) == 0
+    else:
+        res = tjoin.join_outer(lt, rt, how=how)
+        assert int(res.num_out) == n_l and int(res.overflow) == 0
+        assert not res.matched[:n_l].any()
+        for nm in rt.drop("key"):
+            assert not _np(res.table[nm])[:n_l].any()
+        _eq(res.table["a"] if "a" in lt else res.left_index[:0],
+            np.arange(n_l, dtype=np.uint32), n_l)
+        if how == "full":
+            assert int(res.num_right_only) == n_r
+            _eq(res.right_only["key"], np.arange(n_r, dtype=np.uint64), n_r)
+    if jlt is not None:
+        fn = (jjoin.join_inner if how == "inner" else
+              lambda a, b: jjoin.join_outer(a, b, how=how))
+        with pytest.raises(IndexError):
+            fn(jlt, jrt)

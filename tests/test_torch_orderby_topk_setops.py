@@ -76,7 +76,8 @@ def test_top_k_matches_jax(k, largest):
 
 
 @pytest.mark.parametrize("op", ["union", "intersect", "except"])
-@pytest.mark.parametrize("sizes", [(1000, 500), (1, 1), (300, 0), (0, 40)])
+@pytest.mark.parametrize("sizes", [(1000, 500), (1, 1), (300, 0), (0, 40),
+                                   (0, 0)])
 def test_set_op_matches_jax_with_padding(op, sizes):
     rng = np.random.default_rng(sizes[0] + sizes[1])
     na, nb = sizes

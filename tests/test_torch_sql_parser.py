@@ -102,4 +102,7 @@ def test_parse_raises_the_reference_s_error(query):
 
 def test_package_exports_parse():
     import tpu_qe_torch.sql as sql
-    assert sql.parse is tp.parse and sql.__all__ == ["parse"]
+    from tpu_qe_torch.sql import executor
+    assert sql.parse is tp.parse
+    assert sql.__all__ == ["Database", "SqlError", "parse"]
+    assert sql.Database is executor.Database and sql.SqlError is tp.SqlError

@@ -43,7 +43,18 @@ def _load() -> ctypes.CDLL:
         f32p = ctypes.POINTER(ctypes.c_float)
         u32p = ctypes.POINTER(ctypes.c_uint32)
         u64p = ctypes.POINTER(ctypes.c_uint64)
+        u8p = ctypes.POINTER(ctypes.c_uint8)
         voidp = ctypes.c_void_p
+        lib.tq_chacha8_fill_u32.argtypes = [u64, u64, u32p]
+        lib.tq_chacha8_fill_u32.restype = None
+        lib.tq_chacha8_fill_f32.argtypes = [u64, u64, f32p]
+        lib.tq_chacha8_fill_f32.restype = None
+        lib.tq_chacha8_raw_block.argtypes = [u8p, u64, u32p]
+        lib.tq_chacha8_raw_block.restype = None
+        lib.tq_select_digit8.argtypes = [u32, u32, u32]
+        lib.tq_select_digit8.restype = u32
+        lib.tq_select_digit6.argtypes = [u32, u32, u32]
+        lib.tq_select_digit6.restype = u32
         lib.tq_scene_generate.argtypes = [u32, u32, u64, f32p, u32p, f32p, f32p]
         lib.tq_scene_generate.restype = None
         lib.tq_morton_gen_sizeof.argtypes = []
@@ -76,6 +87,29 @@ def _load() -> ctypes.CDLL:
 
 def _ptr(a: np.ndarray, ctype):
     return a.ctypes.data_as(ctypes.POINTER(ctype))
+
+
+def chacha8_u32(seed: int, n: int) -> np.ndarray:
+    """Raw ChaCha8Rng u32 stream (rand_chacha-compatible, seed_from_u64)."""
+    out = np.empty(n, dtype=np.uint32)
+    _load().tq_chacha8_fill_u32(seed, n, _ptr(out, ctypes.c_uint32))
+    return out
+
+
+def chacha8_f32(seed: int, n: int) -> np.ndarray:
+    """ChaCha8Rng f32 stream in [0, 1) on the 24-bit grid."""
+    out = np.empty(n, dtype=np.float32)
+    _load().tq_chacha8_fill_f32(seed, n, _ptr(out, ctypes.c_float))
+    return out
+
+
+def chacha8_raw_block(key32: bytes, counter: int) -> np.ndarray:
+    """One ChaCha8 block (16 u32 words) for a 32-byte key and a counter."""
+    key = np.frombuffer(key32, dtype=np.uint8).copy()
+    out = np.empty(16, dtype=np.uint32)
+    _load().tq_chacha8_raw_block(_ptr(key, ctypes.c_uint8), counter,
+                                 _ptr(out, ctypes.c_uint32))
+    return out
 
 
 def scene_generate(num_vertices: int, num_triangles: int, seed: int):
@@ -164,6 +198,16 @@ def morton_encode_direct(q: np.ndarray) -> np.ndarray:
     lib.tq_morton_encode_direct(_ptr(q, ctypes.c_uint32), n,
                                 _ptr(codes, ctypes.c_uint64))
     return codes
+
+
+def select_digit8(pass_number: int, lo: int, hi: int) -> int:
+    """The 8-bit digit of LSD pass `pass_number` of the u64 (lo, hi)."""
+    return int(_load().tq_select_digit8(pass_number, lo, hi))
+
+
+def select_digit6(pass_number: int, lo: int, hi: int) -> int:
+    """The 6-bit digit of LSD pass `pass_number` (the 11th holds 4 bits)."""
+    return int(_load().tq_select_digit6(pass_number, lo, hi))
 
 
 def lsd_sort(keys: np.ndarray, payload: np.ndarray | None = None,

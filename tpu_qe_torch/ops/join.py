@@ -37,6 +37,21 @@ def _mask(col: Column, m: torch.Tensor) -> Column:
     return from_plane(torch.where(m, plane(col), 0), col.dtype)
 
 
+def _zero_column(col: Column, n: int, device) -> Column:
+    z = torch.zeros(n, dtype=torch.int32, device=device)
+    return U64(z, z) if isinstance(col, U64) else from_plane(z, col.dtype)
+
+
+def _take(table: Table, idx: torch.Tensor) -> Table:
+    """Row gather that reads zero rows from a table with no rows: every
+    slot that gathers from an empty side is one the caller masks (an
+    unmatched or padding slot), where torch's gather would raise."""
+    if table.num_rows or not idx.numel():
+        return table.take(idx)
+    return Table({nm: _zero_column(table[nm], idx.shape[0], idx.device)
+                  for nm in table})
+
+
 def _merge(left_cols: Table, right_cols: Table, fn=None) -> dict:
     """Left columns, then right columns (renamed right_<name> on a clash)."""
     cols = {nm: left_cols[nm] for nm in left_cols}
@@ -58,17 +73,21 @@ def join_fk(left: Table, right: Table, key: str = "key",
             backend: str = "radix") -> FkJoinResult:
     """Equi-join where right[key] values are unique: sort the right table
     by key, probe with a binary search. Unmatched left rows get the
-    gathered values of a clamped probe and matched=False."""
+    gathered values of a clamped probe and matched=False; against an
+    empty right table every row is unmatched, with right columns 0 (the
+    JAX join_fk raises there, and its join_fk_scan gives these rows)."""
     if not isinstance(right[key], U64):
         raise TypeError("join key must be u64")
     right_sorted = right.sort_by(key, backend=backend)
     rkey, lkey = right_sorted[key], left[key]
     m = rkey.lo.shape[0]
     pos = searchsorted_u64(rkey, lkey)
-    pos_c = torch.clamp(pos, max=m - 1)
-    matched = ((pos < m) & (rkey.lo[pos_c] == lkey.lo)
-               & (rkey.hi[pos_c] == lkey.hi))
-    cols = _merge(left.drop(key), right_sorted.drop(key).take(pos_c))
+    pos_c = torch.clamp(pos, max=max(m - 1, 0))
+    matched = pos < m
+    if m:
+        matched = (matched & (rkey.lo[pos_c] == lkey.lo)
+                   & (rkey.hi[pos_c] == lkey.hi))
+    cols = _merge(left.drop(key), _take(right_sorted.drop(key), pos_c))
     cols[key] = lkey
     return FkJoinResult(Table(cols), matched)
 
@@ -142,7 +161,9 @@ def join_fk_scan(left: Table, right: Table, lkey: U64, rkey: U64,
     src = perm[torch.clamp(last_right, min=0)]     # a right row's index
 
     def filled(c):          # right column values at each stream row
-        return take_column(c, torch.clamp(src, max=max(n_r - 1, 0)))
+        if not n_r:         # no right row: every stream row is unmatched
+            return _zero_column(c, n, dev)
+        return take_column(c, torch.clamp(src, max=n_r - 1))
 
     if output == "stream":
         is_left = ~side_right & valid_s
@@ -159,9 +180,7 @@ def join_fk_scan(left: Table, right: Table, lkey: U64, rkey: U64,
     if l_valid is not None:
         matched = matched & l_valid
     lsrc = torch.clamp(src[lpos], max=max(n_r - 1, 0))
-    cols = _merge(left, Table({nm: take_column(right[nm], lsrc)
-                               for nm in right}),
-                  lambda c: _mask(c, matched))
+    cols = _merge(left, _take(right, lsrc), lambda c: _mask(c, matched))
     return Table(cols), matched
 
 
@@ -228,10 +247,12 @@ def expand_ranges(ranges: SortedJoinIndex, out_budget: int):
 
 
 def _slots(left: Table, right_s: Table, li, ri, num_out):
+    """The output slots; with an empty side num_out is 0 and every slot
+    reads zeros."""
     valid_out = torch.arange(li.shape[0], device=li.device) < num_out
     li = torch.where(valid_out, li, 0)
     ri = torch.where(valid_out, ri, 0)
-    return li, ri, _merge(left.take(li), right_s.take(ri))
+    return li, ri, _merge(_take(left, li), _take(right_s, ri))
 
 
 def join_inner(left: Table, right: Table, key: str = "key",
@@ -310,12 +331,15 @@ def _outer_slots(left: Table, right_s: Table, ranges, c, c_out,
     li, ri, num_out, overflow = expand_ranges(
         SortedJoinIndex(ranges.start, ranges.start + c_out), out_budget)
     valid_out = torch.arange(out_budget, device=li.device) < num_out
-    matched = valid_out & (c[li] > 0)
+    # no left row: no slot is valid, and c has nothing to gather
+    matched = (valid_out & (c[li] > 0) if c.numel()
+               else torch.zeros_like(valid_out))
     li = torch.where(valid_out, li, 0)
     ri = torch.where(matched, ri, 0)
-    lt = left.take(li)
+    # a slot that reads an empty side reads zeros, and is masked here
+    lt = _take(left, li)
     cols = _merge(Table({nm: _mask(lt[nm], valid_out) for nm in lt}),
-                  right_s.take(ri), lambda c: _mask(c, matched))
+                  _take(right_s, ri), lambda c: _mask(c, matched))
     return Table(cols), matched, li, ri, num_out, overflow
 
 

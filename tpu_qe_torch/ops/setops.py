@@ -40,6 +40,13 @@ def set_op(a: U64, b: U64, op: str, backend: str = "radix"):
     n_a, n_b = a.lo.shape[0], b.lo.shape[0]
     n = n_a + n_b
     dev = a.lo.device
+    if n == 0:
+        # the key-end partition below reads one row past an empty stream
+        # (the JAX gathers clamp it away): the empty answer directly
+        z32 = torch.zeros(0, dtype=torch.int32, device=dev)
+        z64 = torch.zeros(0, dtype=torch.int64, device=dev)
+        return (U64(z32, z32), z64, z64,
+                torch.zeros((), dtype=torch.int64, device=dev))
     (shi, slo), perm = argsort_planes([torch.cat([a.hi, b.hi]),
                                        torch.cat([a.lo, b.lo])],
                                       backend=backend)

@@ -1,14 +1,17 @@
 """SQL front end of the port: the parser (parser.py, a byte-identical
-copy of tpu_qe/sql/parser.py, so both packages keep one grammar).
+copy of tpu_qe/sql/parser.py, so both packages keep one grammar) and the
+in-core executor over the device operators (executor.py).
 
-    from tpu_qe_torch.sql import parse
-    q = parse("SELECT k, SUM(v) AS s FROM t GROUP BY k ORDER BY k")
+    from tpu_qe_torch.sql import Database
+    db = Database()                      # the card; Database("cpu") too
+    db.register("t", {"k": k, "v": v})  # numpy columns
+    out = db.sql("SELECT k, SUM(v) AS s FROM t GROUP BY k ORDER BY k")
 
-The executor over the device operators, with `Database` and `SqlError`
-(the parser's error class, re-exported there as in the reference), is
-not ported yet: ROADMAP Queue A item 8.
+Virtual (out-of-core) tables and the distributed `mesh=` path are not
+ported yet (ROADMAP Queue A items 8b and 10): they raise SqlError.
 """
 
+from tpu_qe_torch.sql.executor import Database, SqlError
 from tpu_qe_torch.sql.parser import parse
 
-__all__ = ["parse"]
+__all__ = ["Database", "SqlError", "parse"]

@@ -23,3 +23,21 @@ def dump_indices(tris: np.ndarray, path: str = "indices.txt") -> str:
         for x, y, z in tris:
             f.write(f"({int(x)}, {int(y)}, {int(z)})\n")
     return os.path.abspath(path)
+
+
+def load_morton_codes(path: str) -> np.ndarray:
+    """The u64 codes of a dump_morton_codes file."""
+    with open(path) as f:
+        return np.array([int(line) for line in f if line.strip()],
+                        dtype=np.uint64)
+
+
+def load_indices(path: str) -> np.ndarray:
+    """The (T, 3) u32 triangles of a dump_indices file."""
+    rows = []
+    with open(path) as f:
+        for line in f:
+            line = line.strip().strip("()")
+            if line:
+                rows.append([int(t) for t in line.split(",")])
+    return np.asarray(rows, dtype=np.uint32)
