@@ -112,10 +112,20 @@ Run from the root of the repository on a machine with a CUDA card. Phases:
    unique keys with half of the rows matched, against numpy; the family
    battery of tests/sql_battery.py on the card, integers bit-equal to the same
    battery on the CPU (floats within rtol 1e-5) and held to sqlite3; B1-B3
-   launched once per recorded pass in each.
+   launched once per recorded pass in each;
+16. the out-of-core SQL tier (virtual tables, sql/bigexec.py), again with
+   torch.sort, argsort and unique made to raise: `bench-bigsql` for each
+   of its ten verbs (groupby, orderby, head, distinct, countdistinct,
+   join, window, setops, range, vvjoin) at the JAX CLI's defaults (2^30
+   rows, runs of 2^26, 2^16 groups; vvjoin 2^29 x 2^27) and groupby with
+   --median and with --where, each holding its closed form, with its
+   time, rows/s, peak memory and sort passes; then the virtual-table
+   families of tests/sql_big_battery.py on the card, integers bit-equal
+   to the CPU run's (floats within rtol 1e-5, atol 1e-3); B1-B3 launched
+   once per recorded pass in each (head sorts nothing and launches none).
 
 Then it prints the kernel summary as one JSON line (per kernel: launches on
-the main path and the paths of phases 10-15, largest difference from its
+the main path and the paths of phases 10-16, largest difference from its
 references, its time, its plain twin's, the least time the card could
 take for the same bytes or operations, and the time of the one PyTorch
 call that computes the same function, where there is one), the
@@ -190,7 +200,7 @@ def main() -> int:
 
     # -- 1. device
     smi = nvidia_smi_line()
-    log(f"[1/15] device: {smi}; torch {torch.__version__}, "
+    log(f"[1/16] device: {smi}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.device_count()} card(s)")
 
     # -- 2. build
@@ -199,7 +209,7 @@ def main() -> int:
     t1 = time.perf_counter()
     native.pipeline_oracle(10, 10, 7)
     t2 = time.perf_counter()
-    log(f"[2/15] build: CUDA kernels {t1 - t0:.1f} s, C++ core {t2 - t1:.1f} s")
+    log(f"[2/16] build: CUDA kernels {t1 - t0:.1f} s, C++ core {t2 - t1:.1f} s")
 
     # -- 3. kernels against their twins and the C++ oracles
     err = {name: 0 for name in kernels.LAUNCHES}
@@ -498,7 +508,7 @@ def main() -> int:
     log("      exclusive_scan: 1000 scans back to back with fresh scratch "
         "and a scan beside a busy stream bit-exact")
     torch.cuda.synchronize()
-    log("[3/15] radix kernels bit-exact against twins and C++ oracles; "
+    log("[3/16] radix kernels bit-exact against twins and C++ oracles; "
         "max_abs_err " + json.dumps({k: err[k] for k in (
             "block_histogram", "exclusive_scan", "block_rank_and_histogram",
             "rank_and_scatter")}))
@@ -818,7 +828,7 @@ def main() -> int:
                 log(f"      n={n} {label} block={block} shift={shift}: "
                     "B6 bit-exact against twin, B3 and the C++ rank")
     torch.cuda.synchronize()
-    log("[4/15] B4, B5, B6 bit-exact against twins and oracles; max_abs_err "
+    log("[4/16] B4, B5, B6 bit-exact against twins and oracles; max_abs_err "
         + json.dumps({k: err[k] for k in ("encode_quantized_lut",
                                           "sort_chunks",
                                           "block_rank_and_histogram_mxu")}))
@@ -910,7 +920,7 @@ def main() -> int:
                      f"pass ({passes})")
         if launches is None:
             launches = counts
-    log("[5/15] main path: VERIFY PASS at 2^24 triangles for 8x8, 6x11 "
+    log("[5/16] main path: VERIFY PASS at 2^24 triangles for 8x8, 6x11 "
         "and 11x6")
 
     # -- 6. LUT encode path on the verify scene: B4 through morton.encode
@@ -938,7 +948,7 @@ def main() -> int:
     t_direct = cuda_time(lambda: morton.encode(verts_t, tris_t, params),
                          iters=5)
     del verts, tris, verts_t, tris_t, code
-    log(f"[6/15] LUT encode path: B4 bit-exact on the verify scene; encode "
+    log(f"[6/16] LUT encode path: B4 bit-exact on the verify scene; encode "
         f"(quantize + B4) {t_lut * 1e3:.4f} ms, plain direct encode "
         f"{t_direct * 1e3:.4f} ms at 2^24 triangles")
 
@@ -958,7 +968,7 @@ def main() -> int:
                 "block_rank_and_histogram_mxu")
     for name in off_path:
         launches[name] = counts[name]
-    log("[7/15] selfcheck: SELFCHECK PASS")
+    log("[7/16] selfcheck: SELFCHECK PASS")
 
     # -- 8. per-kernel bench
     kernels.reset_launches()
@@ -970,14 +980,14 @@ def main() -> int:
                  "block_rank_and_histogram"):
         if counts[name] < 1:
             fail(f"bench-kernels never launched {name}")
-    log(f"[8/15] bench-kernels at 2^24: launches {counts}")
+    log(f"[8/16] bench-kernels at 2^24: launches {counts}")
 
     # -- 9. headline sort
     res = headline.measure(1 << 26, seed=7, iters=10, device="cuda")
     log(f"      {json.dumps(res)}")
     if not res["verified"]:
         fail("radix sort of 2^26 keys differs from stable torch.sort")
-    log(f"[9/15] headline: radix {res['time_s'] * 1e3:.3f} ms, torch.sort "
+    log(f"[9/16] headline: radix {res['time_s'] * 1e3:.3f} ms, torch.sort "
         f"{res['torch_sort_time_s'] * 1e3:.3f} ms for 2^26 keys + payload; "
         "bit-exact")
 
@@ -1054,7 +1064,7 @@ def main() -> int:
     if not all(checks.values()):
         fail(f"operators differ from the numpy oracle at 2^24 rows: {checks}")
     del data, res, jd, out, matched
-    log(f"[10/15] operators: bench-matrix bit-exact across backends at full "
+    log(f"[10/16] operators: bench-matrix bit-exact across backends at full "
         f"size, launches as planned; numpy oracle at 2^24 rows "
         f"{json.dumps(checks)}; {time.perf_counter() - t0:.1f} s")
 
@@ -1063,9 +1073,10 @@ def main() -> int:
     from tpu_qe_torch.sort import driver
     path_launches = {name: 0 for name in kernels.LAUNCHES}
 
-    def counted(what: str, planned_from, fn):
+    def counted(what: str, planned_from, fn, sorts: bool = True):
         """Drive one path with every count at 0 before it; B1, B2 and B3
-        must have launched once per LSD pass its sorts planned."""
+        must have launched once per LSD pass its sorts planned (a path
+        with sorts=False sorts nothing, and launches none)."""
         kernels.reset_launches()
         driver.RADIX_PASSES.clear()
         out = fn()
@@ -1074,7 +1085,7 @@ def main() -> int:
         planned = planned_from(out)
         for name in ("block_histogram", "exclusive_scan",
                      "rank_and_scatter"):
-            if planned < 1 or counts[name] != planned:
+            if (planned < 1) == sorts or counts[name] != planned:
                 fail(f"{what}: {name} launched {counts[name]} times, the "
                      f"sorts planned {planned} passes")
         for name in path_launches:
@@ -1206,7 +1217,7 @@ def main() -> int:
         fail(f"quantile / window differ from numpy at 2^22 rows: {checks}")
     del wd, res
     torch.cuda.empty_cache()
-    log(f"[11/15] quantile and window: bench-matrix bit-exact across "
+    log(f"[11/16] quantile and window: bench-matrix bit-exact across "
         f"backends at 2^27 rows, launches as planned; numpy oracle at 2^22 "
         f"rows {json.dumps({k: bool(x) for k, x in checks.items()})}; "
         f"{time.perf_counter() - t0:.1f} s")
@@ -1285,7 +1296,7 @@ def main() -> int:
         f"{counts} = recorded passes {planned}")
     for name in ("block_histogram", "exclusive_scan", "rank_and_scatter"):
         launches[name] += path_launches[name]
-    log(f"[12/15] out-of-core sort: bench-big certificates at 2^30 "
+    log(f"[12/16] out-of-core sort: bench-big certificates at 2^30 "
         f"(partition, merge, in-core) and 2^28 with 3 payload columns, "
         f"numpy oracle, resume; {time.perf_counter() - t0:.1f} s")
 
@@ -1475,7 +1486,7 @@ def main() -> int:
         f"= recorded passes {planned}")
     for name in ("block_histogram", "exclusive_scan", "rank_and_scatter"):
         launches[name] += path_launches[name]
-    log(f"[13/15] out-of-core operators: 12 CLI runs at the JAX CLI's "
+    log(f"[13/16] out-of-core operators: 12 CLI runs at the JAX CLI's "
         f"sizes, every check true and B1-B3 launched once per recorded "
         f"pass; numpy oracles; two resumes; "
         f"{time.perf_counter() - t0:.1f} s")
@@ -1599,7 +1610,7 @@ def main() -> int:
         f"launches {counts} = recorded passes {planned}")
     for name in ("block_histogram", "exclusive_scan", "rank_and_scatter"):
         launches[name] += path_launches[name]
-    log(f"[14/15] last out-of-core operators: 4 CLI runs at the JAX CLI's "
+    log(f"[14/16] last out-of-core operators: 4 CLI runs at the JAX CLI's "
         f"sizes, every check true and B1-B3 launched once per recorded "
         f"pass; numpy oracles; a resume; {time.perf_counter() - t0:.1f} s")
 
@@ -1726,10 +1737,67 @@ def main() -> int:
         f"agrees; launches {counts} = recorded passes {planned}")
     for name in ("block_histogram", "exclusive_scan", "rank_and_scatter"):
         launches[name] += path_launches[name]
-    log(f"[15/15] SQL tier: bench.sql at 2^27 rows and FK joins at 2^24 x "
+    log(f"[15/16] SQL tier: bench.sql at 2^27 rows and FK joins at 2^24 x "
         f"2^22 equal numpy's, {len(cpu_battery)} families equal the CPU "
         f"run's and sqlite3's, no torch.sort / argsort / unique, B1-B3 "
         f"launched once per recorded pass; {time.perf_counter() - t0:.1f} s")
+
+    # -- 16. the out-of-core SQL tier over virtual tables: bench-bigsql's
+    # ten verbs at the JAX CLI's defaults, groupby with --median and
+    # --where, and the virtual-table families on the card against the CPU,
+    # with torch.sort / argsort / unique made to raise on the card
+    t0 = time.perf_counter()
+    for name in path_launches:
+        path_launches[name] = 0
+    torch.cuda.empty_cache()
+    spec = importlib.util.spec_from_file_location(
+        "sql_big_battery", os.path.join(os.path.dirname(os.path.abspath(
+            __file__)), "tests", "sql_big_battery.py"))
+    bb = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bb)
+    cpu_big = bb.run(bb.database(torch.device("cpu")))
+    from tpu_qe_torch.bench.bigsql import VERBS
+    for mod, name, _ in saved:
+        setattr(mod, name, refuse)
+    try:
+        for argv in ([["bench-bigsql", "--verb", v] for v in VERBS]
+                     + [["bench-bigsql", "--median"],
+                        ["bench-bigsql", "--where"]]):
+            what = " ".join(argv[1:])
+            (row,), counts, planned = counted(
+                what, passes_recorded, lambda: cli_rows(argv),
+                sorts=argv[-1] != "head")
+            if not row["verified"]:
+                fail(f"bench-bigsql {what}: the closed form does not hold: "
+                     f"{row}")
+            log(f"      {what}: {row['time_s']:.4f} s, "
+                f"{row['value'] / 1e9:.4f} G rows/s, peak "
+                f"{row['peak_mem_bytes'] / 1e9:.2f} GB, "
+                f"{row['sort_passes']} sort passes"
+                + "".join(f", {k[6:]} {row[k]:.4f} s" for k in row
+                          if k.startswith("phase_"))
+                + f"; launches {counts} = recorded passes {planned}")
+            torch.cuda.empty_cache()
+        card_big, counts, planned = counted(
+            "the virtual-table families", passes_recorded,
+            lambda: bb.run(bb.database(dev)))
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    for fam, want in cpu_big.items():
+        bad = bb.differs(card_big[fam], want, bb.FAMILIES[fam][1])
+        if bad is not None:
+            fail(f"virtual-table family {fam} on the card: {bad}")
+    log(f"      {len(cpu_big)} virtual-table families on the card: "
+        f"integers bit-equal to the CPU run's, floats within rtol 1e-5 "
+        f"(atol 1e-3); launches {counts} = recorded passes {planned}")
+    for name in ("block_histogram", "exclusive_scan", "rank_and_scatter"):
+        launches[name] += path_launches[name]
+    log(f"[16/16] out-of-core SQL: bench-bigsql's ten verbs at 2^30 rows "
+        f"(vvjoin 2^29 x 2^27), --median and --where, every closed form "
+        f"holding; {len(cpu_big)} families equal the CPU run's; no "
+        f"torch.sort / argsort / unique, B1-B3 launched once per recorded "
+        f"pass; phase 16 {time.perf_counter() - t0:.1f} s")
 
     src = "tpu_qe_torch/csrc/"
     summary = [
@@ -1754,7 +1822,7 @@ def main() -> int:
                          "bench-matrix + window, quantile at 2^22 + "
                          "bench-big + the out-of-core operators + "
                          "bigquantile, bigwindow, bigorderby + the SQL "
-                         "tier"),
+                         "tier + the out-of-core SQL tier"),
          "max_abs_err": err[name],
          "ms": ms[name][0], "plain_ms": ms[name][1],
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],

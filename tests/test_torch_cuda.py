@@ -1350,3 +1350,57 @@ def test_sql_edges_on_the_card(cuda):
                  "ON t.k = e.k ORDER BY k")
     np.testing.assert_array_equal(out["k"], np.arange(4))
     assert not out["w"].any() and not out["e__matched"].any()
+
+
+# ------------------------------- the out-of-core SQL tier (virtual tables)
+
+BIG_FAMILIES = sorted(importlib.import_module("sql_big_battery").FAMILIES)
+
+
+@pytest.fixture(scope="module")
+def _big_cpu():
+    import sql_big_battery as bb
+    return bb.database(torch.device("cpu"))
+
+
+@pytest.mark.parametrize("fam", BIG_FAMILIES)
+def test_sql_big_family_on_the_card_matches_the_cpu(cuda, _big_cpu, fam,
+                                                    monkeypatch):
+    # integers bit-equal, floats within rtol 1e-5 (atol 1e-3), as
+    # tests/sql_big_battery.py states; no n-row sort leaves B1-B3
+    import sql_big_battery as bb
+    from tpu_qe_torch.sort import driver
+    q, ordered = bb.FAMILIES[fam]
+    want = _big_cpu.sql(q, run_size=bb.RUN)
+    db = bb.database(cuda)
+
+    def refuse(*a, **k):
+        raise AssertionError("an n-row sort left the radix kernels")
+    for name in ("sort", "argsort", "unique"):
+        monkeypatch.setattr(torch, name, refuse)
+        monkeypatch.setattr(torch.Tensor, name, refuse)
+    kernels.reset_launches()
+    driver.RADIX_PASSES.clear()
+    got = db.sql(q, run_size=bb.RUN)
+    torch.cuda.synchronize()
+    passes = sum(driver.RADIX_PASSES.values())
+    assert (passes > 0) == (fam != "head_where")   # a head sorts nothing
+    assert kernels.LAUNCHES["rank_and_scatter"] == passes
+    assert kernels.LAUNCHES["block_histogram"] == passes
+    assert bb.differs(got, want, ordered) is None, fam
+
+
+@pytest.mark.parametrize("argv", [
+    ["--verb", v] for v in ("groupby", "orderby", "head", "distinct",
+                            "countdistinct", "join", "window", "setops",
+                            "range", "vvjoin")] + [["--median"], ["--where"]])
+def test_bench_bigsql_cli_on_the_card(cuda, capsys, tmp_path, argv):
+    rc = main(["bench-bigsql", "--n", str(1 << 20), "--run-size",
+               str(1 << 16), "--groups", "64", "--trace-dir",
+               str(tmp_path)] + argv)
+    row = json.loads([ln for ln in capsys.readouterr().out.splitlines()
+                      if ln.startswith("{")][-1])
+    assert rc == 0 and row["verified"] is True
+    assert row["value"] > 0 and row["peak_mem_bytes"] > 0
+    assert "H100" in row["device"] and row["power_limit"]
+    assert (row["sort_passes"] > 0) == (argv[-1] != "head")

@@ -17,8 +17,9 @@ Database.sql on the same tables (device="cpu" for the port):
   operations and the families sqlite lacks (percentiles, float sums, u64
   DISTINCT), and tests/test_query_integration.py's join + GROUP BY as SQL
   (also against numpy);
-- what is not ported (virtual tables, mesh=) raising SqlError with its
-  ROADMAP item, and the Database's device.
+- what is not ported (mesh=) raising SqlError with its ROADMAP item,
+  virtual tables registering and colliding with in-core names as in the
+  reference, and the Database's device.
 
 Tolerance: exact (integers bit for bit; floats by value, NaNs in the same
 places; the battery families bit for bit), but GROUP BY SUM and AVG of a
@@ -378,11 +379,33 @@ def test_explain_in_core_matches_jax():
 def test_what_is_not_ported_raises_with_its_item():
     db = Database("cpu")
     db.register("t", {"k": np.arange(8, dtype=np.uint32)})
-    with pytest.raises(SqlError, match="Queue A item 8b"):
-        db.register_virtual("big", 1 << 16, {"k": lambda i: i})
     for call in (db.sql, db.explain):
         with pytest.raises(SqlError, match="Queue A item 10"):
             call("SELECT k FROM t", mesh=object())
+
+
+def test_register_virtual_runs_and_names_collide():
+    # virtual tables are ported (sql/bigexec.py): registration succeeds,
+    # a query runs, and names collide with the reference's messages
+    # either way; mesh= over a virtual table raises the reference's own
+    db = Database("cpu")
+    db.register("t", {"k": np.arange(8, dtype=np.uint32)})
+    db.register_virtual("big", 1 << 12, {
+        "k": lambda i: (i & 3).view(torch.uint32)})
+    out = db.sql("SELECT k, COUNT(*) AS c FROM big GROUP BY k ORDER BY k",
+                 run_size=1 << 10)
+    np.testing.assert_array_equal(out["k"], np.arange(4, dtype=np.uint32))
+    np.testing.assert_array_equal(out["c"], [1 << 10] * 4)
+    with pytest.raises(SqlError, match="'T' is already a registered table"):
+        db.register_virtual("T", 16, {"k": lambda i: i})
+    with pytest.raises(SqlError, match="'big' is already a virtual table"):
+        db.register("big", {"k": np.arange(8, dtype=np.uint32)})
+    jdb = JDatabase()
+    jdb.register("t", {"k": np.arange(8, dtype=np.uint32)})
+    with pytest.raises(JSqlError, match="'T' is already a registered table"):
+        jdb.register_virtual("T", 16, {"k": lambda i: i})
+    with pytest.raises(SqlError, match="mesh= with a virtual table"):
+        db.sql("SELECT k, COUNT(*) AS c FROM big GROUP BY k", mesh=object())
 
 
 def test_database_device():

@@ -18,6 +18,9 @@
   bench-bigwindow, bench-bigorderby
            the out-of-core operators at the JAX CLI's sizes, verified on
            the device, one JSON line each (tpu_qe_torch/bench/bigops.py)
+  bench-bigsql   the out-of-core SQL tier over virtual tables: one of ten
+           verbs (--verb) at the JAX CLI's sizes, checked against its closed
+           form, one JSON line (tpu_qe_torch/bench/bigsql.py)
   info     device + configuration report
 
 The on-card self-check of every kernel and sort backend against its
@@ -139,6 +142,11 @@ def _cmd_bench_big(args) -> int:
 def _cmd_bench_bigops(args) -> int:
     from tpu_qe_torch.bench import bigops
     return bigops.main(args.cmd[len("bench-"):], args)
+
+
+def _cmd_bench_bigsql(args) -> int:
+    from tpu_qe_torch.bench import bigsql
+    return bigsql.main(args)
 
 
 def _add_bigops(sub) -> None:
@@ -355,6 +363,28 @@ def main(argv=None) -> int:
     pg.set_defaults(fn=_cmd_bench_big)
 
     _add_bigops(sub)
+
+    pz = sub.add_parser("bench-bigsql",
+                        help="out-of-core SQL over device-generated virtual "
+                             "tables (sql/bigexec.py), one verb per run")
+    pz.add_argument("--n", type=int, default=1 << 30)
+    pz.add_argument("--run-size", type=int, default=1 << 26)
+    pz.add_argument("--groups", type=int, default=1 << 16)
+    pz.add_argument("--median", action="store_true",
+                    help="add MEDIAN(v) (the per-group bisection phase)")
+    pz.add_argument("--where", action="store_true",
+                    help="add a WHERE filter (fused validity mask)")
+    pz.add_argument("--verb", default="groupby",
+                    choices=["groupby", "orderby", "head", "distinct",
+                             "countdistinct", "join", "window", "setops",
+                             "range", "vvjoin"],
+                    help="which big-SQL verb to measure (each checked "
+                         "against a closed form at full size)")
+    pz.add_argument("--trace-dir", type=str, default=None,
+                    help="profile one more run: a Chrome trace here, "
+                         "kernel time by category in the line")
+    pz.add_argument("--device", type=str, default="cuda")
+    pz.set_defaults(fn=_cmd_bench_bigsql)
 
     pi = sub.add_parser("info", help="device + config report")
     pi.add_argument("--device", type=str, default="cuda")

@@ -1,7 +1,8 @@
 """Engine constants.
 
-The reference's compile-time configuration (mirrored from tpu_qe.constants,
-which this package does not import) plus the port's own sort block size.
+The reference's compile-time configuration (a copy of the values in
+tpu_qe/constants.py, which this package does not import) plus the port's
+own sort block size.
 Runtime problem sizes are configurable (tpu_qe_torch.config.SortConfig).
 """
 

@@ -29,7 +29,8 @@ from collections import Counter
 import numpy as np
 import torch
 
-from tpu_qe_torch.bits import U64, digit_schedule, pack_columns, widen
+from tpu_qe_torch.bits import (SIGN_BIT, U64, digit_schedule, pack_columns,
+                               widen)
 from tpu_qe_torch.config import resolve_device
 from tpu_qe_torch.constants import BLOCK
 from tpu_qe_torch.kernels.histogram import block_histogram, rank_and_scatter
@@ -40,7 +41,7 @@ from tpu_qe_torch.utils.profiling import marker
 def signed_key(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
     """int64 key whose signed order is the unsigned order of (hi, lo):
     ((hi ^ 0x80000000) << 32) | lo."""
-    top = hi ^ torch.tensor(-(1 << 31), dtype=torch.int32, device=hi.device)
+    top = hi ^ SIGN_BIT     # a Python scalar: no host-to-device copy
     # top * 2^32 lies in [-2^63, 2^63): no overflow, unlike a signed shift
     return top.to(torch.int64) * (1 << 32) | (lo.to(torch.int64) & 0xFFFFFFFF)
 

@@ -44,9 +44,10 @@ truncating / and % (sqlite's semantics at 32-bit width; a zero divisor
 reads as 1, so v / 0 = v and v % 0 = 0); aggregate SUM of integer columns
 is exact 64-bit.
 
-Not ported yet: queries over virtual (out-of-core) tables, which need
-sql/bigexec.py (ROADMAP Queue A item 8b), and the distributed `mesh=` path
-(item 10); both raise SqlError naming their item.
+Queries over virtual (out-of-core) tables, registered with
+`register_virtual`, run through sql/bigexec.py. Not ported yet: the
+distributed `mesh=` path (ROADMAP Queue A item 10), which raises SqlError
+naming its item.
 """
 
 from __future__ import annotations
@@ -64,8 +65,6 @@ from tpu_qe_torch.table import Table, column_to_numpy, from_plane
 
 SqlError = P.SqlError
 
-NOT_PORTED_VIRTUAL = ("virtual (out-of-core) tables are not ported yet: "
-                      "ROADMAP Queue A item 8b (sql/bigexec.py)")
 NOT_PORTED_MESH = ("the distributed mesh= path is not ported yet: ROADMAP "
                    "Queue A item 10")
 
@@ -317,10 +316,11 @@ class _RowEnv:
     def lit(self, value, tag: str) -> torch.Tensor:
         """A 0-d literal of `tag`'s dtype on the env's device (u32 as its
         int32 bit pattern), so torch's type promotion never widens a
-        column."""
+        column. Filled on the device: a host-to-device copy would wait for
+        the work queued before it (the out-of-core runs queue theirs)."""
         if tag == "u32":
             value = value - (1 << 32) if value >= 1 << 31 else value
-        return torch.tensor(value, dtype=_DTYPE[tag], device=self.device)
+        return torch.full((), value, dtype=_DTYPE[tag], device=self.device)
 
 
 def _eval(e, env: _RowEnv, n: int) -> TV:
@@ -715,11 +715,14 @@ class Database:
     def __init__(self, device: str | torch.device = "cuda"):
         self.device = resolve_device(device)
         self._tables: dict[str, Table] = {}
+        self._virtual: dict = {}       # name -> bigexec.VirtualTable
 
     def register(self, name: str, table) -> None:
         """Register a table: the JAX package's numpy dict (uint64, uint32,
         int32, float32 arrays), or a Table of this package on the
         Database's device."""
+        if name.lower() in self._virtual:
+            raise SqlError(f"{name!r} is already a virtual table")
         if not isinstance(table, Table):
             table = Table.from_numpy(table, device=self.device)
         for nm in table:
@@ -732,15 +735,63 @@ class Database:
         self._tables[name.lower()] = table
 
     def register_virtual(self, name: str, n: int, columns: dict) -> None:
-        """Out-of-core virtual tables (the JAX package's sql/bigexec.py)."""
-        raise SqlError(NOT_PORTED_VIRTUAL)
+        """Register an out-of-core VIRTUAL table of n rows generated on the
+        Database's device. Queries against it run through the out-of-core
+        executor (sql/bigexec.py): one run of rows at a time, partial
+        results only, the data never whole.
 
-    def sql(self, query: str, mesh=None) -> dict:
-        """Run one SQL query; returns {column_name: numpy array}. `mesh`
-        (the distributed path) is not ported yet and raises."""
+        Each column is a callable fn(idx) -> column. idx is the int32 bit
+        plane of the u32 row indices (the house convention of
+        hashing.murmur_fmix32 and keygen_hash: the index i >= 2^31 reads
+        as i - 2^32). The callable returns a column the way a Table holds
+        one, of idx's shape: torch.uint32 for u32 (table.from_plane of an
+        int32 plane), torch.int32 for i32, torch.float32 for f32; the
+        column's SQL type comes from that dtype. Anything else (U64,
+        int64, bool, another shape) raises SqlError. A bare `lambda i: i`
+        is therefore an i32 column that goes negative at 2^31: the u32 row
+        index is `lambda i: table.from_plane(i, torch.uint32)`. torch's
+        uint32 tensors reject +, %, >> and <, so a callable computes on
+        the int32 plane (or on int64 values, bits.widen / bits.narrow) and
+        views the result as uint32 at the end."""
+        if name.lower() in self._tables:
+            raise SqlError(f"{name!r} is already a registered table")
+        from tpu_qe_torch.sql.bigexec import probe_virtual
+        self._virtual[name.lower()] = probe_virtual(n, columns, self.device)
+
+    def _virtual_of(self, q: P.Query):
+        """The virtual table a query runs over: its first select's, or any
+        side's of a set-op chain (bigexec._setop_big resolves every side
+        itself); None for an in-core query."""
+        vt = self._virtual.get(q.selects[0].table.name.lower())
+        if vt is None and q.set_ops:
+            for s in q.selects:
+                vt = self._virtual.get(s.table.name.lower())
+                if vt is not None:
+                    break
+        return vt
+
+    def sql(self, query: str, mesh=None, run_size: int = 1 << 26,
+            max_groups: int = 1 << 16, stats: dict | None = None) -> dict:
+        """Run one SQL query; returns {column_name: numpy array}.
+
+        run_size / max_groups apply to VIRTUAL (out-of-core) tables: rows
+        per run and the per-run group-table bound (exact overflow
+        detection: raise it if a query reports overflow); stats, if given,
+        receives the out-of-core phase times. `mesh` (the distributed path)
+        is not ported yet and raises."""
+        q = P.parse(query)
+        vt = self._virtual_of(q)
+        if vt is not None:
+            if mesh is not None:
+                raise SqlError("mesh= with a virtual table is not "
+                               "supported (the out-of-core executor "
+                               "is single-chip; see ops/dbigagg for "
+                               "the distributed composition)")
+            from tpu_qe_torch.sql.bigexec import select_big
+            return select_big(vt, q, run_size=run_size,
+                              max_groups=max_groups, stats=stats, db=self)
         if mesh is not None:
             raise SqlError(NOT_PORTED_MESH)
-        q = P.parse(query)
         frames = [self._select(s) for s in q.selects]
         if len(frames) > 1:
             frames = [_materialize(f) for f in frames]
@@ -751,17 +802,84 @@ class Database:
         return dict(_materialize(fr).cols)
 
     def explain(self, query: str, mesh=None) -> str:
-        """Plan audit: which operator family each step of one query maps
-        to, WITHOUT executing anything. One line per plan step; the JAX
-        package's text for its in-core tier."""
-        if mesh is not None:
-            raise SqlError(NOT_PORTED_MESH)
+        """Plan audit: which tier and operator family one query maps to,
+        WITHOUT executing anything. One line per plan step; the JAX
+        package's text for its in-core and out-of-core tiers."""
         q = P.parse(query)
         sel = q.selects[0]
+        vt = None
+        for s in q.selects:
+            vt = self._virtual.get(s.table.name.lower())
+            if vt is not None:
+                break
+        if vt is None and mesh is not None:
+            raise SqlError(NOT_PORTED_MESH)
         has_aggs = self._has_aggs(sel) or sel.having is not None
         has_win = any(it.expr != "*" and _calls(it.expr, window=True)
                       for it in sel.items)
         lines = []
+
+        def fin(tier, *steps):
+            out = [f"tier: {tier}"]
+            if sel.where is not None:
+                out.append("where: device expression mask"
+                           + (" (fused into each run program)"
+                              if tier.startswith("out-of-core") else ""))
+            out += list(steps) + lines
+            if q.order_by and "order" not in " ".join(steps):
+                where = "host G-bounded frame" if has_aggs else "device"
+                out.append(f"order/limit: {where} lexsort"
+                           + (f", limit {q.limit}" if q.limit
+                              is not None else "")
+                           + (f" offset {q.offset}" if q.offset else ""))
+            return "\n".join(out)
+
+        if vt is not None:
+            tier, n_runs = "out-of-core (virtual table)", "ceil(n / run_size)"
+            if q.set_ops:
+                return fin(tier, "set-op chain: per-side per-run (key, "
+                                 "count) compaction (bigexec._setop_big / "
+                                 "ops/bigsetops shape) + host multiset "
+                                 "algebra")
+            if has_win:
+                return fin(tier, "window: LIMIT-bounded prefix selection "
+                                 f"(bigexec._topk_idx over {n_runs} runs) "
+                                 "+ in-core window machinery over the "
+                                 "candidates; whole-partition side channel "
+                                 "via per-run partial aggregates")
+            if sel.joins:
+                if (len(sel.joins) == 1 and sel.joins[0].table.name
+                        .lower() in self._virtual):
+                    lines.append(
+                        "join: virtual x virtual — both sides' (key, "
+                        "index) planes sorted resident, key-space "
+                        "bucket plan, per-bucket FK join carrying the "
+                        "right row index, columns regenerated from "
+                        "joined indices (bigexec._vv_agg_partials)")
+                else:
+                    lines.append("join: resident dimension threaded "
+                                 "through every run program "
+                                 "(bigexec._prep_join)")
+            if sel.distinct:
+                return fin(tier, "distinct: per-run dedup compaction "
+                                 "(bigexec._distinct_big) + host unique")
+            if sel.group_by or has_aggs:
+                pct = any(c.func in _PCT_FUNCS for it in sel.items
+                          if it.expr != "*"
+                          for c in _calls(it.expr, window=False))
+                return fin(tier,
+                           f"aggregate: per-run partials over {n_runs}"
+                           " runs (bigexec._agg_partials, G-bounded "
+                           "readbacks) + exact host combine"
+                           + ("; percentiles: segment-bounded device "
+                              "bisection (_big_group_quantiles)"
+                              if pct else ""))
+            if q.order_by:
+                return fin(tier, "order by: per-run top-(limit+offset) "
+                                 "selection (bigexec._topk_idx) + host "
+                                 "candidate combine")
+            return fin(tier, "head: sequential run scans, early exit at "
+                             "limit+offset rows (bigexec._head_big)")
         if q.set_ops:
             lines.append("set-op chain: host multiset algebra over "
                          "materialized sides")
@@ -783,18 +901,7 @@ class Database:
                          "BY) spec)")
         if not lines:
             lines.append("scan: device expression projection")
-        head = ["tier: in-core (device-resident)"]
-        if sel.where is not None:
-            head.append("where: device expression mask")
-        lines = head + lines
-        if q.order_by:
-            lines.append("order/limit: "
-                         f"{'host G-bounded frame' if has_aggs else 'device'}"
-                         " lexsort"
-                         + (f", limit {q.limit}" if q.limit
-                            is not None else "")
-                         + (f" offset {q.offset}" if q.offset else ""))
-        return "\n".join(lines)
+        return fin("in-core (device-resident)")
 
     # -- FROM/JOIN ----------------------------------------------------------
     def _bind_table(self, ref: P.TableRef):
