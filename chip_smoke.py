@@ -122,10 +122,30 @@ Run from the root of the repository on a machine with a CUDA card. Phases:
    time, rows/s, peak memory and sort passes; then the virtual-table
    families of tests/sql_big_battery.py on the card, integers bit-equal
    to the CPU run's (floats within rtol 1e-5, atol 1e-3); B1-B3 launched
-   once per recorded pass in each (head sorts nothing and launches none).
+   once per recorded pass in each (head sorts nothing and launches none);
+17. the exchange layer on a mesh of shards (exchange/mesh.py): `bench-matrix
+   --configs dsort` through the CLI at 2^26 Zipf-ish keys on the default
+   mesh (one shard per card) and with --devices 8 (a LocalMesh of 8 shards
+   on the card), bit-exact across the radix and torch backends with every
+   invariant true, with its time, rows/s, peak memory, passes, devices and
+   balance; then with torch.sort, argsort and unique made to raise, on a
+   LocalMesh of 8: distributed_sort_numpy at 2^24 keys with every 7th key a
+   duplicate, at capacity_factor "auto" and at 3.0 with overlap=2 (both
+   equal to numpy's stable argsort and to each other), and the reversal
+   route at capacity_factor 1.0, which must raise the capacity error;
+   sorted_morton_index_distributed over 2^24 points at overlap 1 and 2,
+   bit-equal to encode_points + sort_u64 on the card; the dops family at
+   2^22 rows against numpy (join_fk with a hot key, join_inner, join_outer
+   full, top_k and largest, aggregate count / sum / min / max over u32 and
+   f32 values (f32 sums within rtol 1e-5, atol 1e-3), count_distinct,
+   join_aggregate with a hot key, set_op union / intersect / except); a
+   GroupMesh over NCCL at world size 1 (its all_gather, all_to_all and pmax
+   equal a LocalMesh of 1's; distributed_sort_numpy at 2^22 keys); B1-B3
+   launched once per recorded pass in each. A LocalMesh time is one card
+   doing every shard's work, its all_to_all a copy in the card's memory.
 
 Then it prints the kernel summary as one JSON line (per kernel: launches on
-the main path and the paths of phases 10-16, largest difference from its
+the main path and the paths of phases 10-17, largest difference from its
 references, its time, its plain twin's, the least time the card could
 take for the same bytes or operations, and the time of the one PyTorch
 call that computes the same function, where there is one), the
@@ -200,7 +220,7 @@ def main() -> int:
 
     # -- 1. device
     smi = nvidia_smi_line()
-    log(f"[1/16] device: {smi}; torch {torch.__version__}, "
+    log(f"[1/17] device: {smi}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.device_count()} card(s)")
 
     # -- 2. build
@@ -209,7 +229,7 @@ def main() -> int:
     t1 = time.perf_counter()
     native.pipeline_oracle(10, 10, 7)
     t2 = time.perf_counter()
-    log(f"[2/16] build: CUDA kernels {t1 - t0:.1f} s, C++ core {t2 - t1:.1f} s")
+    log(f"[2/17] build: CUDA kernels {t1 - t0:.1f} s, C++ core {t2 - t1:.1f} s")
 
     # -- 3. kernels against their twins and the C++ oracles
     err = {name: 0 for name in kernels.LAUNCHES}
@@ -508,7 +528,7 @@ def main() -> int:
     log("      exclusive_scan: 1000 scans back to back with fresh scratch "
         "and a scan beside a busy stream bit-exact")
     torch.cuda.synchronize()
-    log("[3/16] radix kernels bit-exact against twins and C++ oracles; "
+    log("[3/17] radix kernels bit-exact against twins and C++ oracles; "
         "max_abs_err " + json.dumps({k: err[k] for k in (
             "block_histogram", "exclusive_scan", "block_rank_and_histogram",
             "rank_and_scatter")}))
@@ -828,7 +848,7 @@ def main() -> int:
                 log(f"      n={n} {label} block={block} shift={shift}: "
                     "B6 bit-exact against twin, B3 and the C++ rank")
     torch.cuda.synchronize()
-    log("[4/16] B4, B5, B6 bit-exact against twins and oracles; max_abs_err "
+    log("[4/17] B4, B5, B6 bit-exact against twins and oracles; max_abs_err "
         + json.dumps({k: err[k] for k in ("encode_quantized_lut",
                                           "sort_chunks",
                                           "block_rank_and_histogram_mxu")}))
@@ -920,7 +940,7 @@ def main() -> int:
                      f"pass ({passes})")
         if launches is None:
             launches = counts
-    log("[5/16] main path: VERIFY PASS at 2^24 triangles for 8x8, 6x11 "
+    log("[5/17] main path: VERIFY PASS at 2^24 triangles for 8x8, 6x11 "
         "and 11x6")
 
     # -- 6. LUT encode path on the verify scene: B4 through morton.encode
@@ -948,7 +968,7 @@ def main() -> int:
     t_direct = cuda_time(lambda: morton.encode(verts_t, tris_t, params),
                          iters=5)
     del verts, tris, verts_t, tris_t, code
-    log(f"[6/16] LUT encode path: B4 bit-exact on the verify scene; encode "
+    log(f"[6/17] LUT encode path: B4 bit-exact on the verify scene; encode "
         f"(quantize + B4) {t_lut * 1e3:.4f} ms, plain direct encode "
         f"{t_direct * 1e3:.4f} ms at 2^24 triangles")
 
@@ -968,7 +988,7 @@ def main() -> int:
                 "block_rank_and_histogram_mxu")
     for name in off_path:
         launches[name] = counts[name]
-    log("[7/16] selfcheck: SELFCHECK PASS")
+    log("[7/17] selfcheck: SELFCHECK PASS")
 
     # -- 8. per-kernel bench
     kernels.reset_launches()
@@ -980,14 +1000,14 @@ def main() -> int:
                  "block_rank_and_histogram"):
         if counts[name] < 1:
             fail(f"bench-kernels never launched {name}")
-    log(f"[8/16] bench-kernels at 2^24: launches {counts}")
+    log(f"[8/17] bench-kernels at 2^24: launches {counts}")
 
     # -- 9. headline sort
     res = headline.measure(1 << 26, seed=7, iters=10, device="cuda")
     log(f"      {json.dumps(res)}")
     if not res["verified"]:
         fail("radix sort of 2^26 keys differs from stable torch.sort")
-    log(f"[9/16] headline: radix {res['time_s'] * 1e3:.3f} ms, torch.sort "
+    log(f"[9/17] headline: radix {res['time_s'] * 1e3:.3f} ms, torch.sort "
         f"{res['torch_sort_time_s'] * 1e3:.3f} ms for 2^26 keys + payload; "
         "bit-exact")
 
@@ -1064,7 +1084,7 @@ def main() -> int:
     if not all(checks.values()):
         fail(f"operators differ from the numpy oracle at 2^24 rows: {checks}")
     del data, res, jd, out, matched
-    log(f"[10/16] operators: bench-matrix bit-exact across backends at full "
+    log(f"[10/17] operators: bench-matrix bit-exact across backends at full "
         f"size, launches as planned; numpy oracle at 2^24 rows "
         f"{json.dumps(checks)}; {time.perf_counter() - t0:.1f} s")
 
@@ -1217,7 +1237,7 @@ def main() -> int:
         fail(f"quantile / window differ from numpy at 2^22 rows: {checks}")
     del wd, res
     torch.cuda.empty_cache()
-    log(f"[11/16] quantile and window: bench-matrix bit-exact across "
+    log(f"[11/17] quantile and window: bench-matrix bit-exact across "
         f"backends at 2^27 rows, launches as planned; numpy oracle at 2^22 "
         f"rows {json.dumps({k: bool(x) for k, x in checks.items()})}; "
         f"{time.perf_counter() - t0:.1f} s")
@@ -1296,7 +1316,7 @@ def main() -> int:
         f"{counts} = recorded passes {planned}")
     for name in ("block_histogram", "exclusive_scan", "rank_and_scatter"):
         launches[name] += path_launches[name]
-    log(f"[12/16] out-of-core sort: bench-big certificates at 2^30 "
+    log(f"[12/17] out-of-core sort: bench-big certificates at 2^30 "
         f"(partition, merge, in-core) and 2^28 with 3 payload columns, "
         f"numpy oracle, resume; {time.perf_counter() - t0:.1f} s")
 
@@ -1486,7 +1506,7 @@ def main() -> int:
         f"= recorded passes {planned}")
     for name in ("block_histogram", "exclusive_scan", "rank_and_scatter"):
         launches[name] += path_launches[name]
-    log(f"[13/16] out-of-core operators: 12 CLI runs at the JAX CLI's "
+    log(f"[13/17] out-of-core operators: 12 CLI runs at the JAX CLI's "
         f"sizes, every check true and B1-B3 launched once per recorded "
         f"pass; numpy oracles; two resumes; "
         f"{time.perf_counter() - t0:.1f} s")
@@ -1610,7 +1630,7 @@ def main() -> int:
         f"launches {counts} = recorded passes {planned}")
     for name in ("block_histogram", "exclusive_scan", "rank_and_scatter"):
         launches[name] += path_launches[name]
-    log(f"[14/16] last out-of-core operators: 4 CLI runs at the JAX CLI's "
+    log(f"[14/17] last out-of-core operators: 4 CLI runs at the JAX CLI's "
         f"sizes, every check true and B1-B3 launched once per recorded "
         f"pass; numpy oracles; a resume; {time.perf_counter() - t0:.1f} s")
 
@@ -1737,7 +1757,7 @@ def main() -> int:
         f"agrees; launches {counts} = recorded passes {planned}")
     for name in ("block_histogram", "exclusive_scan", "rank_and_scatter"):
         launches[name] += path_launches[name]
-    log(f"[15/16] SQL tier: bench.sql at 2^27 rows and FK joins at 2^24 x "
+    log(f"[15/17] SQL tier: bench.sql at 2^27 rows and FK joins at 2^24 x "
         f"2^22 equal numpy's, {len(cpu_battery)} families equal the CPU "
         f"run's and sqlite3's, no torch.sort / argsort / unique, B1-B3 "
         f"launched once per recorded pass; {time.perf_counter() - t0:.1f} s")
@@ -1793,11 +1813,316 @@ def main() -> int:
         f"(atol 1e-3); launches {counts} = recorded passes {planned}")
     for name in ("block_histogram", "exclusive_scan", "rank_and_scatter"):
         launches[name] += path_launches[name]
-    log(f"[16/16] out-of-core SQL: bench-bigsql's ten verbs at 2^30 rows "
+    log(f"[16/17] out-of-core SQL: bench-bigsql's ten verbs at 2^30 rows "
         f"(vvjoin 2^29 x 2^27), --median and --where, every closed form "
         f"holding; {len(cpu_big)} families equal the CPU run's; no "
         f"torch.sort / argsort / unique, B1-B3 launched once per recorded "
         f"pass; phase 16 {time.perf_counter() - t0:.1f} s")
+
+    # -- 17. the exchange layer on a mesh of shards: bench-matrix dsort
+    # (the default mesh and a LocalMesh of 8), then with torch.sort /
+    # argsort / unique made to raise: the distributed sort, the
+    # distributed pipeline and the dops family on a LocalMesh of 8
+    # against numpy, and a GroupMesh over NCCL at world size 1
+    t0 = time.perf_counter()
+    for name in path_launches:
+        path_launches[name] = 0
+    torch.cuda.empty_cache()
+    from tpu_qe_torch import morton as tmorton
+    from tpu_qe_torch.exchange import (GroupMesh, LocalMesh, dops,
+                                       distributed_sort_numpy, make_mesh)
+    from tpu_qe_torch.pipeline import sorted_morton_index_distributed
+    from tpu_qe_torch.sort import sort_u64
+    # bench-matrix runs its torch backend (the torch.sort baseline) beside
+    # the radix one, so its two runs come before the refusal
+    for extra in ([], ["--devices", "8"]):
+        argv = ["bench-matrix", "--configs", "dsort"] + extra
+        (row,), counts, planned = counted(
+            " ".join(argv), lambda rows: sum(r["sort_passes"] * r["radix_runs"]
+                                             for r in rows),
+            lambda: cli_rows(argv))
+        if row["devices"] != (8 if extra else torch.cuda.device_count()):
+            fail(f"{' '.join(argv)}: a mesh of {row['devices']}")
+        log(f"      {' '.join(argv[1:])} (2^26 keys): radix "
+            f"{row['time_s']:.4f} s, {row['value'] / 1e9:.4f} G rows/s (torch backend "
+            f"{row['torch_time_s']:.4f} s), peak "
+            f"{row['peak_mem_bytes'] / 1e9:.2f} GB, {row['sort_passes']} sort "
+            f"passes, devices {row['devices']}, balance {row['balance']:.4f}, "
+            f"backends bit-exact, checks {row['checks']}; launches {counts} "
+            f"= recorded passes {planned}")
+        torch.cuda.empty_cache()
+
+    def same_rows(a, b, bits):
+        """Equal multisets of rows given as column lists, each column's
+        values below 2^bits (at most 64 bits in all): one packed sort."""
+        def packed(cols):
+            key = np.zeros(len(cols[0]), np.uint64)
+            for c, w in zip(cols, bits):
+                key = (key << np.uint64(w)) | c.astype(np.uint64)
+            return np.sort(key)
+        return np.array_equal(packed(a), packed(b))
+
+    mesh = LocalMesh(8, dev)
+    for mod, name, _ in saved:
+        setattr(mod, name, refuse)
+    try:
+        n = 1 << 24
+        rng = np.random.default_rng(7)
+        keys = rng.integers(0, 1 << 64, size=n, dtype=np.uint64)
+        keys[::7] = keys[0]                    # the dry run's duplicates
+        pay = np.arange(n, dtype=np.uint32)
+        order = np.argsort(keys, kind="stable")
+        sorted_runs = []
+        for label, kw in (("capacity_factor=auto",
+                           {"capacity_factor": "auto"}),
+                          ("capacity_factor=3, overlap=2",
+                           {"capacity_factor": 3.0, "overlap": 2})):
+            t1 = time.perf_counter()
+            (k, p), counts, planned = counted(
+                f"distributed_sort_numpy {label}", passes_recorded,
+                lambda: distributed_sort_numpy(keys, pay, mesh, **kw))
+            secs = time.perf_counter() - t1
+            if not (np.array_equal(k, keys[order])
+                    and np.array_equal(p, order.astype(np.uint32))):
+                fail(f"distributed sort ({label}) differs from numpy's stable "
+                     "argsort")
+            sorted_runs.append((k, p))
+            log(f"      distributed_sort_numpy 2^24 keys, LocalMesh(8), "
+                f"{label}: equals numpy's stable argsort; {secs:.3f} s with "
+                f"the host copies; launches {counts} = recorded passes "
+                f"{planned}")
+        if not all(np.array_equal(a, b) for a, b in zip(*sorted_runs)):
+            fail("overlap=2 is not bit-identical to the monolithic exchange")
+        try:
+            distributed_sort_numpy(np.arange(n, 0, -1).astype(np.uint64), None,
+                                   mesh, capacity_factor=1.0)
+            fail("the reversal route at capacity_factor=1 did not overflow")
+        except RuntimeError as e:
+            if "capacity" not in str(e):
+                fail(f"the reversal route raised {e!r}")
+        del keys, pay, order, sorted_runs, k, p
+
+        g = torch.Generator(device=dev).manual_seed(11)
+        xyz = [torch.rand(n, generator=g, device=dev) * 100 - 50
+               for _ in range(3)]
+        params = tmorton.MortonParams.for_scene([-50.0] * 3, [50.0] * 3, dev)
+        skey, (sidx,) = sort_u64(tmorton.encode_points(*xyz, params),
+                                 torch.arange(n, dtype=torch.int32,
+                                              device=dev))
+        for ov in (1, 2):
+            (res, ovf), counts, planned = counted(
+                f"sorted_morton_index_distributed overlap={ov}",
+                passes_recorded,
+                lambda: sorted_morton_index_distributed(*xyz, params, mesh,
+                                                        overlap=ov))
+            valid = res.valid.tolist()
+            got = [torch.cat([c[s, :v] for s, v in enumerate(valid)])
+                   for c in (res.key.lo, res.key.hi, res.payloads[0])]
+            if int(ovf.max()) or not all(torch.equal(a, b) for a, b in zip(
+                    got, (skey.lo, skey.hi, sidx))):
+                fail(f"the distributed pipeline (overlap={ov}) differs from "
+                     "encode_points + sort_u64 on the card")
+            log(f"      sorted_morton_index_distributed 2^24 points, "
+                f"LocalMesh(8), overlap={ov}: bit-equal to encode_points + "
+                f"sort_u64, valid {valid}; launches {counts} = recorded "
+                f"passes {planned}")
+        del xyz, skey, sidx, res, got
+        torch.cuda.empty_cache()
+
+        # the dops family at 2^22 rows against numpy
+        n = 1 << 22
+        rng = np.random.default_rng(23)
+        n_r = 1 << 20
+        rkeys = rng.permutation(np.unique(rng.integers(
+            0, 1 << 40, 2 * n_r, dtype=np.uint64))[:n_r])
+        rvals = rng.integers(0, 1 << 32, n_r, dtype=np.uint64).astype(
+            np.uint32)
+        pick = rng.integers(0, n_r, n)
+        pick[: n // 3] = 0                     # the dry run's hot key
+        miss = rng.random(n) < 0.5
+        lkeys = rkeys[pick] | (miss.astype(np.uint64) << np.uint64(45))
+        dkeys = rng.integers(0, 1 << 16, n).astype(np.uint64) << np.uint64(
+            20)
+        dvals = rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(
+            np.uint32)
+        fvals = rng.standard_normal(n).astype(np.float32)
+        ikeys = rng.integers(0, n_r, n).astype(np.uint64)
+        irkeys = rng.integers(0, n_r, n_r).astype(np.uint64)
+        ivals = np.arange(n, dtype=np.uint32)
+        irvals = np.arange(n_r, dtype=np.uint32) * 3
+        ops_ok = {}
+
+        def op(name, fn):
+            return counted(name, passes_recorded, fn)[:2]
+
+        t1 = time.perf_counter()
+        (matched, (rv,)), _ = op("join_fk", lambda: (
+            dops.distributed_join_fk_numpy(lkeys, [], rkeys, [rvals], mesh,
+                                           capacity_factor="auto")))
+        ops_ok["join_fk"] = (np.array_equal(matched, ~miss) and np.array_equal(
+            rv[~miss], rvals[pick[~miss]]))
+
+        # one-to-many joins: the oracle's (left row, right row) pairs from
+        # the right side sorted by key
+        rorder = np.argsort(irkeys, kind="stable")
+        starts = np.searchsorted(irkeys[rorder], ikeys)
+        cnt = np.searchsorted(irkeys[rorder], ikeys, side="right") - starts
+
+        def pairs(c_out):
+            offs = np.cumsum(c_out) - c_out
+            li = np.repeat(np.arange(n), c_out)
+            j = np.arange(int(c_out.sum())) - offs[li]
+            ok = j < cnt[li]
+            ri = rorder[np.minimum(starts[li] + j, n_r - 1)]
+            return li, ok, np.where(ok, irvals[ri], 0)
+
+        (g_i, (lv_i,), (rv_i,)), _ = op("join_inner", lambda: (
+            dops.distributed_join_inner_numpy(ikeys, [ivals], irkeys,
+                                              [irvals], mesh,
+                                              capacity_factor="auto")))
+        li, _, rvw = pairs(cnt)
+        ops_ok["join_inner"] = (np.array_equal(lv_i, ivals[g_i])
+                                and same_rows([g_i, rv_i], [li, rvw],
+                                              (22, 22)))
+        out_o, _ = op("join_outer (full)", lambda: (
+            dops.distributed_join_outer_numpy(ikeys, [ivals], irkeys,
+                                              [irvals], mesh, full=True,
+                                              capacity_factor="auto")))
+        li, ok, rvw = pairs(np.maximum(cnt, 1))
+        ro = ~np.isin(irkeys, ikeys)
+        ops_ok["join_outer"] = (
+            np.array_equal(out_o[1][0], ivals[out_o[0]])
+            and same_rows([out_o[0], out_o[2][0], out_o[3]], [li, rvw, ok],
+                          (22, 22, 1))
+            and same_rows([out_o[4], out_o[5][0]], [irkeys[ro], irvals[ro]],
+                          (20, 22)))
+
+        for largest in (False, True):
+            (ks, gi, (vk,)), _ = op(f"top_k largest={largest}", lambda: (
+                dops.distributed_top_k_numpy(dkeys, [dvals], mesh, 1000,
+                                             largest=largest)))
+            o = np.argsort(~dkeys if largest else dkeys,
+                           kind="stable")[:1000]
+            ops_ok[f"top_k largest={largest}"] = (
+                np.array_equal(gi, o) and np.array_equal(ks, dkeys[o])
+                and np.array_equal(vk, dvals[o]))
+
+        # GROUP BY: rows in group order, each aggregate a reduceat
+        ukeys, inv = np.unique(dkeys, return_inverse=True)
+        o = np.argsort(inv, kind="stable")
+        st = np.flatnonzero(np.r_[True, np.diff(inv[o]) != 0])
+        for vals, is_f in ((dvals, False), (fvals, True)):
+            got, _ = op(f"aggregate {'f32' if is_f else 'u32'}", lambda: (
+                dops.distributed_aggregate_numpy(
+                    dkeys, vals, mesh, aggs=("count", "sum", "min", "max"),
+                    capacity_factor="auto")))
+            sv = vals[o]
+            want = {"count": np.diff(np.r_[st, n]),
+                    "sum": np.add.reduceat(sv.astype(np.float64), st),
+                    "min": np.minimum.reduceat(sv, st),
+                    "max": np.maximum.reduceat(sv, st)}
+            gk = np.array(sorted(got), dtype=np.uint64)
+            ok = np.array_equal(gk, ukeys)
+            for a, w in want.items():
+                col = np.array([got[int(k)][a] for k in gk])
+                ok = ok and (np.allclose(col, w, rtol=1e-5, atol=1e-3)
+                             if is_f and a == "sum" else
+                             np.array_equal(col, w.astype(col.dtype)))
+            ops_ok[f"aggregate {'f32' if is_f else 'u32'}"] = ok
+
+        cvals = dvals % np.uint32(97)
+        got, _ = op("count_distinct", lambda: (
+            dops.distributed_count_distinct_numpy(dkeys, cvals, mesh,
+                                                  capacity_factor="auto")))
+        pairs_u = np.unique(inv.astype(np.int64) * 97 + cvals)
+        ops_ok["count_distinct"] = got == dict(zip(
+            ukeys.tolist(), np.bincount(pairs_u // 97).tolist()))
+
+        ja_rk = rkeys[: 1 << 16]
+        ja_rv = rvals[: 1 << 16] >> np.uint32(16)
+        ja_pick = rng.integers(0, 1 << 16, n)
+        ja_pick[: n // 3] = 0                  # the dry run's hot key
+        got, _ = op("join_aggregate", lambda: (
+            dops.distributed_join_aggregate_numpy(rkeys[ja_pick], ja_rk,
+                                                  ja_rv, mesh,
+                                                  capacity_factor="auto")))
+        cnt_ja = np.bincount(ja_pick, minlength=1 << 16)
+        sum_ja = np.bincount(ja_pick, weights=ja_rv[ja_pick].astype(
+            np.float64), minlength=1 << 16)
+        ops_ok["join_aggregate"] = got == {
+            int(ja_rk[i]): {"count": int(cnt_ja[i]), "sum": int(sum_ja[i])}
+            for i in np.flatnonzero(cnt_ja)}
+
+        sa = rng.integers(0, 1 << 22, n).astype(np.uint64) << np.uint64(9)
+        sb = (rng.integers(0, 1 << 22, n // 2).astype(np.uint64)
+              + np.uint64(1 << 21)) << np.uint64(9)
+        for name, fn in (("union", np.union1d), ("intersect", np.intersect1d),
+                         ("except", np.setdiff1d)):
+            (k, ca, cb), _ = op(f"set_op {name}", lambda: (
+                dops.distributed_set_op_numpy(sa, sb, mesh, op=name,
+                                              capacity_factor="auto")))
+            ua, na = np.unique(sa, return_counts=True)
+            ub, nb = np.unique(sb, return_counts=True)
+            want = fn(ua, ub)
+            ia = np.minimum(np.searchsorted(ua, want), len(ua) - 1)
+            ib = np.minimum(np.searchsorted(ub, want), len(ub) - 1)
+            ops_ok[f"set_op {name}"] = (
+                np.array_equal(k, want)
+                and np.array_equal(ca, np.where(ua[ia] == want, na[ia], 0))
+                and np.array_equal(cb, np.where(ub[ib] == want, nb[ib], 0)))
+        dops_s = time.perf_counter() - t1
+        bad = [k for k, ok in ops_ok.items() if not ok]
+        if bad:
+            fail(f"dops at 2^22 rows on LocalMesh(8) differ from numpy: {bad}")
+        log(f"      dops family at 2^22 rows, LocalMesh(8): {len(ops_ok)} "
+            f"operator runs equal numpy ({', '.join(ops_ok)}); {dops_s:.1f} s "
+            f"with the oracles; B1-B3 launched once per recorded pass in "
+            f"each")
+
+        # a GroupMesh over NCCL at world size 1: its collectives on CUDA
+        # tensors return what a LocalMesh of 1 returns
+        import torch.distributed as tdist
+        tdist.init_process_group("nccl", store=tdist.HashStore(), rank=0,
+                                 world_size=1)
+        try:
+            gm, lm = make_mesh(), LocalMesh(1, dev)
+            if not isinstance(gm, GroupMesh) or gm.n_dev != 1:
+                fail(f"make_mesh() under a process group gave {gm}")
+            x = torch.arange(1 << 20, dtype=torch.int32, device=dev)[None]
+            v = torch.tensor([5], device=dev)
+            if not (torch.equal(gm.all_gather(x), lm.all_gather(x))
+                    and torch.equal(gm.all_to_all(x[:, None]),
+                                    lm.all_to_all(x[:, None]))
+                    and torch.equal(gm.pmax(v), lm.pmax(v))):
+                fail("GroupMesh over NCCL differs from LocalMesh(1)")
+            keys = rng.integers(0, 1 << 64, 1 << 22, dtype=np.uint64)
+            pay = np.arange(1 << 22, dtype=np.uint32)
+            (k, p), counts, planned = counted(
+                "distributed_sort_numpy on a GroupMesh (NCCL)",
+                passes_recorded,
+                lambda: distributed_sort_numpy(keys, pay, gm))
+            o = np.argsort(keys, kind="stable")
+            if not (np.array_equal(k, keys[o]) and np.array_equal(p, o)):
+                fail("distributed_sort_numpy on the NCCL GroupMesh differs "
+                     "from numpy")
+        finally:
+            tdist.destroy_process_group()
+        log(f"      GroupMesh over NCCL, world size 1: all_gather, "
+            f"all_to_all and pmax equal LocalMesh(1)'s; distributed_sort_numpy"
+            f" at 2^22 equals numpy; launches {counts} = recorded passes "
+            f"{planned}")
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    for name in ("block_histogram", "exclusive_scan", "rank_and_scatter"):
+        launches[name] += path_launches[name]
+    log(f"[17/17] exchange layer: bench-matrix dsort at 2^26 on the default "
+        f"mesh and a LocalMesh of 8, bit-exact across backends; the "
+        f"distributed sort, pipeline and dops family on a LocalMesh of 8 "
+        f"equal numpy; NCCL at world size 1; no torch.sort / argsort / "
+        f"unique, B1-B3 launched once per recorded pass "
+        f"({path_launches['block_histogram']} times each); phase 17 "
+        f"{time.perf_counter() - t0:.1f} s")
 
     src = "tpu_qe_torch/csrc/"
     summary = [
@@ -1822,7 +2147,8 @@ def main() -> int:
                          "bench-matrix + window, quantile at 2^22 + "
                          "bench-big + the out-of-core operators + "
                          "bigquantile, bigwindow, bigorderby + the SQL "
-                         "tier + the out-of-core SQL tier"),
+                         "tier + the out-of-core SQL tier + the exchange "
+                         "layer (dsort, dops)"),
          "max_abs_err": err[name],
          "ms": ms[name][0], "plain_ms": ms[name][1],
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],

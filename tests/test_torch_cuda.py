@@ -1404,3 +1404,164 @@ def test_bench_bigsql_cli_on_the_card(cuda, capsys, tmp_path, argv):
     assert row["value"] > 0 and row["peak_mem_bytes"] > 0
     assert "H100" in row["device"] and row["power_limit"]
     assert (row["sort_passes"] > 0) == (argv[-1] != "head")
+
+
+# ------------------------------- the exchange layer on a mesh of shards
+
+def _refuse_torch_sorts(monkeypatch):
+    def refuse(*a, **k):
+        raise AssertionError("an n-row sort left the radix kernels")
+    for name in ("sort", "argsort", "unique"):
+        monkeypatch.setattr(torch, name, refuse)
+        monkeypatch.setattr(torch.Tensor, name, refuse)
+
+
+def _launches_match_passes():
+    from tpu_qe_torch.sort import driver
+    torch.cuda.synchronize()
+    passes = sum(driver.RADIX_PASSES.values())
+    return passes > 0 and all(kernels.LAUNCHES[k] == passes for k in (
+        "block_histogram", "exclusive_scan", "rank_and_scatter"))
+
+
+@pytest.mark.parametrize("cf,overlap", [("auto", 1), (3.0, 2), (4.0, 4)])
+def test_distributed_sort_on_a_local_mesh_of_8(cuda, monkeypatch, cf,
+                                               overlap):
+    from tpu_qe_torch.exchange import LocalMesh, distributed_sort_numpy
+    from tpu_qe_torch.sort import driver
+    keys = _keys(1 << 21, 17)
+    keys[::7] = keys[0]
+    pay = np.arange(len(keys), dtype=np.uint32)
+    _refuse_torch_sorts(monkeypatch)
+    kernels.reset_launches()
+    driver.RADIX_PASSES.clear()
+    k, p = distributed_sort_numpy(keys, pay, LocalMesh(8, cuda),
+                                  capacity_factor=cf, overlap=overlap)
+    assert _launches_match_passes()
+    order = np.argsort(keys, kind="stable")
+    np.testing.assert_array_equal(k, keys[order])
+    np.testing.assert_array_equal(p, order.astype(np.uint32))
+
+
+def test_distributed_sort_overflow_raises_on_the_card(cuda):
+    from tpu_qe_torch.exchange import LocalMesh, distributed_sort_numpy
+    keys = np.arange(1 << 20, 0, -1).astype(np.uint64)
+    with pytest.raises(RuntimeError, match="capacity"):
+        distributed_sort_numpy(keys, None, LocalMesh(8, cuda),
+                               capacity_factor=1.0)
+
+
+def _dops_family(mesh):
+    from tpu_qe_torch.exchange import dops
+    rng = np.random.default_rng(23)
+    n = 1 << 16
+    keys = rng.integers(0, 1 << 12, n).astype(np.uint64) << np.uint64(20)
+    vals = rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
+    fvals = rng.standard_normal(n).astype(np.float32)
+    rkeys = np.unique(rng.integers(0, 1 << 40, 2 * n, dtype=np.uint64))[
+        :n // 4]
+    rvals = rng.integers(0, 1 << 30, len(rkeys), dtype=np.uint32)
+    lkeys = rkeys[rng.integers(0, len(rkeys), n)]
+    lkeys[:n // 3] = rkeys[0]
+    lkeys[1::5] |= np.uint64(1) << np.uint64(45)        # misses
+    aggs = ("count", "sum", "min", "max")
+    return {
+        "join_fk": dops.distributed_join_fk_numpy(
+            lkeys, [vals], rkeys, [rvals], mesh, capacity_factor="auto"),
+        "join_inner": dops.distributed_join_inner_numpy(
+            keys, [vals], keys[:n // 2], [vals[:n // 2]], mesh,
+            capacity_factor="auto", out_budget_factor=64.0),
+        "join_outer": dops.distributed_join_outer_numpy(
+            lkeys, [vals], rkeys[::2], [rvals[::2]], mesh, full=True,
+            capacity_factor="auto"),
+        "top_k": dops.distributed_top_k_numpy(keys, [vals], mesh, 1000),
+        "top_k_largest": dops.distributed_top_k_numpy(keys, [vals], mesh,
+                                                      1000, largest=True),
+        "aggregate": dops.distributed_aggregate_numpy(
+            keys, vals, mesh, aggs=aggs, capacity_factor="auto"),
+        "aggregate_f32": dops.distributed_aggregate_numpy(
+            keys, fvals, mesh, aggs=aggs, capacity_factor="auto"),
+        "count_distinct": dops.distributed_count_distinct_numpy(
+            keys, vals % np.uint32(97), mesh, capacity_factor="auto"),
+        "join_aggregate": dops.distributed_join_aggregate_numpy(
+            lkeys, rkeys, rvals, mesh, capacity_factor="auto"),
+        **{f"set_{op}": dops.distributed_set_op_numpy(
+            keys, keys[:n // 4] + np.uint64(1 << 20), mesh, op=op,
+            capacity_factor="auto")
+           for op in ("union", "intersect", "except")},
+    }
+
+
+def _rows(out):
+    """Sorted rows of an output in no particular order (inner / outer)."""
+    g, lcols, rcols = out[:3]
+    cols = [g] + list(lcols) + list(rcols) + list(out[3:4])
+    order = np.lexsort(cols[::-1])
+    return [c[order] for c in cols]
+
+
+def test_dops_family_on_the_card_matches_the_cpu(cuda, monkeypatch):
+    # integers bit for bit, float sums within rtol 1e-5; no n-row sort
+    # leaves the radix kernels
+    from tpu_qe_torch.exchange import LocalMesh
+    from tpu_qe_torch.sort import driver
+    want = _dops_family(LocalMesh(8, "cpu"))
+    _refuse_torch_sorts(monkeypatch)
+    kernels.reset_launches()
+    driver.RADIX_PASSES.clear()
+    got = _dops_family(LocalMesh(8, cuda))
+    assert _launches_match_passes()
+    for name in ("join_inner", "join_outer"):
+        for g, w in zip(_rows(got[name]), _rows(want[name])):
+            np.testing.assert_array_equal(g, w, err_msg=name)
+    got["join_outer"] = got["join_outer"][4:]
+    want["join_outer"] = want["join_outer"][4:]
+    for name in ("join_fk", "top_k", "top_k_largest", "set_union",
+                 "set_intersect", "set_except"):
+        for g, w in zip(got[name], want[name]):
+            np.testing.assert_array_equal(np.asarray(g), np.asarray(w),
+                                          err_msg=name)
+    for name in ("aggregate", "count_distinct", "join_aggregate"):
+        assert got[name] == want[name], name
+    g, w = got["aggregate_f32"], want["aggregate_f32"]
+    assert g.keys() == w.keys()
+    for k in w:
+        assert {a: g[k][a] for a in ("count", "min", "max")} == {
+            a: w[k][a] for a in ("count", "min", "max")}
+        np.testing.assert_allclose(g[k]["sum"], w[k]["sum"], rtol=1e-5,
+                                   atol=1e-3)
+
+
+def test_group_mesh_over_nccl_at_world_size_1(cuda):
+    import torch.distributed as dist
+    from tpu_qe_torch.exchange import (GroupMesh, LocalMesh,
+                                       distributed_sort_numpy, make_mesh)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        gm, lm = make_mesh(), LocalMesh(1, cuda)
+        assert isinstance(gm, GroupMesh) and gm.n_dev == 1
+        x = torch.arange(12, dtype=torch.int32, device=cuda).reshape(1, 12)
+        blocks = x.reshape(1, 1, 12)
+        assert torch.equal(gm.all_gather(x), lm.all_gather(x))
+        assert torch.equal(gm.all_to_all(blocks), lm.all_to_all(blocks))
+        w = torch.tensor([7], device=cuda)
+        assert torch.equal(gm.pmax(w), lm.pmax(w))
+        keys = _keys(1 << 20, 5)
+        k, p = distributed_sort_numpy(keys, np.arange(1 << 20,
+                                                      dtype=np.uint32), gm)
+        order = np.argsort(keys, kind="stable")
+        np.testing.assert_array_equal(k, keys[order])
+        np.testing.assert_array_equal(p, order.astype(np.uint32))
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("devices", [[], ["--devices", "8"]])
+def test_bench_matrix_dsort_on_the_card(cuda, capsys, devices):
+    assert main(["bench-matrix", "--configs", "dsort", "--scale", "0.0625"]
+                + devices) == 0
+    row = json.loads([ln for ln in capsys.readouterr().out.splitlines()
+                      if ln.startswith("{")][-1])
+    assert all(row["checks"].values()) and row["value"] > 0
+    assert row["devices"] == (8 if devices else torch.cuda.device_count())

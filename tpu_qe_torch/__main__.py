@@ -131,7 +131,7 @@ def _cmd_bench_kernels(args) -> int:
 def _cmd_bench_matrix(args) -> int:
     from tpu_qe_torch.bench import matrix
     return matrix.main(args.configs.split(","), args.scale, args.device,
-                       args.trace_dir)
+                       args.trace_dir, args.devices)
 
 
 def _cmd_bench_big(args) -> int:
@@ -328,10 +328,13 @@ def main(argv=None) -> int:
                     default="pipeline,filter_agg,join,join_agg",
                     help="comma-separated: pipeline, filter_agg, join, "
                          "join_agg, orderby, count_distinct, setop, window, "
-                         "quantile (dsort: not ported yet)")
+                         "quantile, dsort")
     pm.add_argument("--scale", type=float, default=1.0,
                     help="row-count multiplier (e.g. 0.1 for smoke runs)")
     pm.add_argument("--device", type=str, default="cuda")
+    pm.add_argument("--devices", type=int, default=None,
+                    help="dsort's mesh: a LocalMesh of N shards on the "
+                         "device (default: one shard per card)")
     pm.add_argument("--trace-dir", type=str, default=None,
                     help="profile one more radix run per config: Chrome "
                          "traces here, device time by kernel category in "

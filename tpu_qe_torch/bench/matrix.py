@@ -23,7 +23,13 @@ Configs, at the JAX package's default sizes (scaled by --scale):
                   (two rows)
   quantile        per-group exact PERCENTILE_DISC p50 + p99 over 2^27 rows
                   and 2^14 groups, max_groups = 2^14
-Not ported yet (ROADMAP Queue A): dsort.
+  dsort           distributed sample sort of 2^26 Zipf-ish u64 keys + an
+                  arange payload at capacity_factor 4 over the mesh of
+                  exchange.make_mesh() (one shard per card), or with
+                  --devices N a LocalMesh of N shards on the one device:
+                  then one device does every shard's work and its
+                  all_to_all is a copy in device memory, so the time is no
+                  multi-card figure
 
 Data is made on the device from seeded torch.Generators in the JAX
 package's shapes (the numbers differ from jax.random's). Each config runs
@@ -61,11 +67,12 @@ from tpu_qe_torch.config import resolve_device
 from tpu_qe_torch.sort import driver
 from tpu_qe_torch.table import Table, from_plane, plane
 
-NOT_PORTED = ("dsort",)
+NOT_PORTED = ()
 DEFAULT_ROWS = {"pipeline": 1 << 26, "filter_agg": 1 << 28,
                 "join": 100_000_000, "join_agg": 100_000_000,
                 "orderby": 1 << 27, "count_distinct": 1 << 27,
-                "setop": 1 << 27, "window": 1 << 27, "quantile": 1 << 27}
+                "setop": 1 << 27, "window": 1 << 27, "quantile": 1 << 27,
+                "dsort": 1 << 26}
 GOLDEN = 2654435761          # the JAX matrix's multiplicative key mix
 REPS = 2                     # timed calls per backend
 
@@ -99,6 +106,7 @@ class Config:
     checks: Callable[[dict], dict]
     scans: int
     extra: dict = dataclasses.field(default_factory=dict)
+    report: Callable[[dict], dict] | None = None   # more of the row
 
 
 def _gen(device, seed: int) -> torch.Generator:
@@ -484,10 +492,60 @@ def _quantile(n: int, device) -> list[Config]:
                    checks, 2, {"groups": data["groups"]})]
 
 
+def dsort_data(n: int, device) -> dict:
+    """The JAX dsort config's keys: u uniform in [0, 1), skew = u^4 * 2^30
+    (mass near zero), lo = skew * 2654435761 mod 2^32, hi = skew >> 8;
+    payload arange(n)."""
+    u = torch.rand(n, generator=_gen(device, 5), device=device)
+    skew = (u ** 4 * float(1 << 30)).to(torch.int64)
+    return {"key": U64(narrow(mul_lo32(skew, GOLDEN)), narrow(skew >> 8)),
+            "pay": torch.arange(n, dtype=torch.int32, device=device)}
+
+
+def _dsort(n: int, device, devices: int | None = None) -> list[Config]:
+    from tpu_qe_torch.exchange.dsort import distributed_sort
+    from tpu_qe_torch.exchange.mesh import LocalMesh, make_mesh
+    mesh = (make_mesh(device=device) if devices is None
+            else LocalMesh(devices, device))
+    d = mesh.n_dev
+    n -= n % d
+    data = dsort_data(n, device)
+    key = U64(mesh.shard(data["key"].lo), mesh.shard(data["key"].hi))
+    pay = mesh.shard(data["pay"])
+
+    def run(backend):
+        res, overflow = distributed_sort(key, pay, mesh=mesh,
+                                         capacity_factor=4.0,
+                                         backend=backend)
+        return {"lo": res.key.lo, "hi": res.key.hi,
+                "pay": res.payloads[0], "valid": res.valid,
+                "overflow": overflow}
+
+    def checks(out):
+        valid = out["valid"].tolist()
+        lo, hi, p = (torch.cat([out[c][s, :v] for s, v in enumerate(valid)])
+                     for c in ("lo", "hi", "pay"))
+        same = (lo[1:] == lo[:-1]) & (hi[1:] == hi[:-1])
+        perm = (sum(valid) == n
+                and bool((torch.bincount(p, minlength=n) == 1).all()))
+        return {"keys_sorted_across_shards": bool(is_sorted_u64(lo, hi)),
+                "payload_is_a_stable_permutation":
+                    perm and bool((p[1:][same] > p[:-1][same]).all()),
+                "valid_sums_to_rows": sum(valid) == n,
+                "no_overflow": int(out["overflow"].max()) == 0}
+
+    def report(out):      # the balance the splitters reached
+        return {"balance": int(out["valid"].max()) / (n // d)}
+
+    return [Config(f"distributed sample-sort, {n} u64 keys (zipf), {d} "
+                   f"shard(s) on one device",
+                   n, run, checks, 3, {"devices": d}, report)]
+
+
 BUILDERS = {"pipeline": _pipeline, "filter_agg": _filter_agg, "join": _join,
             "join_agg": _join_agg, "orderby": _orderby,
             "count_distinct": _count_distinct, "setop": _setop,
-            "window": _window, "quantile": _quantile}
+            "window": _window, "quantile": _quantile, "dsort": _dsort}
 
 
 # ------------------------------------------------------------------- runner
@@ -563,10 +621,11 @@ def measure(cfg: Config, device: torch.device, card: dict | None,
             peak[backend] = torch.cuda.max_memory_allocated(device)
     checks = {"backend_parity": _same(outs["radix"], outs["torch"])}
     checks.update(cfg.checks(outs["radix"]))
-    del outs
     row = {"metric": cfg.metric, "rows": cfg.rows,
            "sort_passes": sum(plan.values()), "radix_runs": 1,
-           "checks": checks, **cfg.extra}
+           "checks": checks, **cfg.extra,
+           **(cfg.report(outs["radix"]) if cfg.report else {})}
+    del outs
     if cuda:
         from tpu_qe_torch.utils.timing import cuda_time
         t_radix = cuda_time(lambda: cfg.run("radix"), iters=REPS, warmup=0)
@@ -593,8 +652,11 @@ def rows_for(name: str, scale: float) -> int:
 
 
 def run(configs, scale: float = 1.0, device: str = "cuda",
-        trace_dir: str | None = None) -> list[dict]:
-    """Measure each named config; prints and returns the JSON rows."""
+        trace_dir: str | None = None,
+        devices: int | None = None) -> list[dict]:
+    """Measure each named config; prints and returns the JSON rows.
+    `devices` sizes the dsort config's mesh: a LocalMesh of that many
+    shards on the device (default: exchange.make_mesh())."""
     dev = resolve_device(device)
     for c in configs:
         if c in NOT_PORTED:
@@ -608,7 +670,8 @@ def run(configs, scale: float = 1.0, device: str = "cuda",
         card = card_info()
     out = []
     for c in configs:
-        for i, cfg in enumerate(BUILDERS[c](rows_for(c, scale), dev)):
+        kw = {"devices": devices} if c == "dsort" else {}
+        for i, cfg in enumerate(BUILDERS[c](rows_for(c, scale), dev, **kw)):
             trace = (os.path.join(trace_dir, f"{c}-{i}.json") if trace_dir
                      else None)
             row = {"config": c, **measure(cfg, dev, card, trace)}
@@ -620,10 +683,10 @@ def run(configs, scale: float = 1.0, device: str = "cuda",
 
 
 def main(configs, scale: float = 1.0, device: str = "cuda",
-         trace_dir: str | None = None) -> int:
+         trace_dir: str | None = None, devices: int | None = None) -> int:
     """The bench-matrix subcommand: 0 when every check of every row
     holds, else 1."""
-    rows = run(configs, scale, device, trace_dir)
+    rows = run(configs, scale, device, trace_dir, devices)
     failed = [(r["config"], k) for r in rows for k, ok in r["checks"].items()
               if not ok]
     if failed:
