@@ -142,10 +142,32 @@ Run from the root of the repository on a machine with a CUDA card. Phases:
    GroupMesh over NCCL at world size 1 (its all_gather, all_to_all and pmax
    equal a LocalMesh of 1's; distributed_sort_numpy at 2^22 keys); B1-B3
    launched once per recorded pass in each. A LocalMesh time is one card
-   doing every shard's work, its all_to_all a copy in the card's memory.
+   doing every shard's work, its all_to_all a copy in the card's memory;
+18. the rest of the exchange layer and the distributed out-of-core sort,
+   torch.sort / argsort / unique made to raise, on a LocalMesh of 8: the
+   reference dry run's window (rn, rank, running_sum, lag), ORDER BY (k
+   desc, b) and quantile steps (five global quantiles, the group median
+   over 37 partitions with max_groups 64, CONT (3, 2)) at its own size
+   (8 x 8192 rows, its generators, seed 7), bit-equal to numpy and to the
+   local operators on the card; then at 2^27 rows (the dry run's
+   generators scaled) distributed_window (rn, rank, running_sum, lag, lag
+   at offset 3, moving_sum(4), range_sum), distributed_order_by of three
+   columns, distributed_quantile of 2^27 u64 values and
+   distributed_group_quantile over the 37 groups, each bit-equal to the
+   local operator on the card, with its time (CUDA events after an
+   untimed warm-up), rows/s, peak memory, sort passes and balance; then
+   `bench-big --distributed --devices 8` at 2^30 keys (runs of 2^26) and
+   `--devices 1 --force-composed` at 2^28 through the CLI, every
+   certificate true; sort_big_distributed(2^22, run_size=2^18,
+   collect=True) against numpy's stable sort; a process stopped once its
+   first bucket round was recorded, resumed through the CLI from
+   --checkpoint-dir with every shard's per-bucket scalars identical to a
+   whole run's; and a GroupMesh over NCCL at world size 1 whose psum (and
+   distributed quantile) equal a LocalMesh of 1's; B1-B3 launched once
+   per recorded pass in each.
 
 Then it prints the kernel summary as one JSON line (per kernel: launches on
-the main path and the paths of phases 10-17, largest difference from its
+the main path and the paths of phases 10-18, largest difference from its
 references, its time, its plain twin's, the least time the card could
 take for the same bytes or operations, and the time of the one PyTorch
 call that computes the same function, where there is one), the
@@ -220,7 +242,7 @@ def main() -> int:
 
     # -- 1. device
     smi = nvidia_smi_line()
-    log(f"[1/17] device: {smi}; torch {torch.__version__}, "
+    log(f"[1/18] device: {smi}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.device_count()} card(s)")
 
     # -- 2. build
@@ -229,7 +251,7 @@ def main() -> int:
     t1 = time.perf_counter()
     native.pipeline_oracle(10, 10, 7)
     t2 = time.perf_counter()
-    log(f"[2/17] build: CUDA kernels {t1 - t0:.1f} s, C++ core {t2 - t1:.1f} s")
+    log(f"[2/18] build: CUDA kernels {t1 - t0:.1f} s, C++ core {t2 - t1:.1f} s")
 
     # -- 3. kernels against their twins and the C++ oracles
     err = {name: 0 for name in kernels.LAUNCHES}
@@ -528,7 +550,7 @@ def main() -> int:
     log("      exclusive_scan: 1000 scans back to back with fresh scratch "
         "and a scan beside a busy stream bit-exact")
     torch.cuda.synchronize()
-    log("[3/17] radix kernels bit-exact against twins and C++ oracles; "
+    log("[3/18] radix kernels bit-exact against twins and C++ oracles; "
         "max_abs_err " + json.dumps({k: err[k] for k in (
             "block_histogram", "exclusive_scan", "block_rank_and_histogram",
             "rank_and_scatter")}))
@@ -848,7 +870,7 @@ def main() -> int:
                 log(f"      n={n} {label} block={block} shift={shift}: "
                     "B6 bit-exact against twin, B3 and the C++ rank")
     torch.cuda.synchronize()
-    log("[4/17] B4, B5, B6 bit-exact against twins and oracles; max_abs_err "
+    log("[4/18] B4, B5, B6 bit-exact against twins and oracles; max_abs_err "
         + json.dumps({k: err[k] for k in ("encode_quantized_lut",
                                           "sort_chunks",
                                           "block_rank_and_histogram_mxu")}))
@@ -940,7 +962,7 @@ def main() -> int:
                      f"pass ({passes})")
         if launches is None:
             launches = counts
-    log("[5/17] main path: VERIFY PASS at 2^24 triangles for 8x8, 6x11 "
+    log("[5/18] main path: VERIFY PASS at 2^24 triangles for 8x8, 6x11 "
         "and 11x6")
 
     # -- 6. LUT encode path on the verify scene: B4 through morton.encode
@@ -968,7 +990,7 @@ def main() -> int:
     t_direct = cuda_time(lambda: morton.encode(verts_t, tris_t, params),
                          iters=5)
     del verts, tris, verts_t, tris_t, code
-    log(f"[6/17] LUT encode path: B4 bit-exact on the verify scene; encode "
+    log(f"[6/18] LUT encode path: B4 bit-exact on the verify scene; encode "
         f"(quantize + B4) {t_lut * 1e3:.4f} ms, plain direct encode "
         f"{t_direct * 1e3:.4f} ms at 2^24 triangles")
 
@@ -988,7 +1010,7 @@ def main() -> int:
                 "block_rank_and_histogram_mxu")
     for name in off_path:
         launches[name] = counts[name]
-    log("[7/17] selfcheck: SELFCHECK PASS")
+    log("[7/18] selfcheck: SELFCHECK PASS")
 
     # -- 8. per-kernel bench
     kernels.reset_launches()
@@ -1000,14 +1022,14 @@ def main() -> int:
                  "block_rank_and_histogram"):
         if counts[name] < 1:
             fail(f"bench-kernels never launched {name}")
-    log(f"[8/17] bench-kernels at 2^24: launches {counts}")
+    log(f"[8/18] bench-kernels at 2^24: launches {counts}")
 
     # -- 9. headline sort
     res = headline.measure(1 << 26, seed=7, iters=10, device="cuda")
     log(f"      {json.dumps(res)}")
     if not res["verified"]:
         fail("radix sort of 2^26 keys differs from stable torch.sort")
-    log(f"[9/17] headline: radix {res['time_s'] * 1e3:.3f} ms, torch.sort "
+    log(f"[9/18] headline: radix {res['time_s'] * 1e3:.3f} ms, torch.sort "
         f"{res['torch_sort_time_s'] * 1e3:.3f} ms for 2^26 keys + payload; "
         "bit-exact")
 
@@ -1084,7 +1106,7 @@ def main() -> int:
     if not all(checks.values()):
         fail(f"operators differ from the numpy oracle at 2^24 rows: {checks}")
     del data, res, jd, out, matched
-    log(f"[10/17] operators: bench-matrix bit-exact across backends at full "
+    log(f"[10/18] operators: bench-matrix bit-exact across backends at full "
         f"size, launches as planned; numpy oracle at 2^24 rows "
         f"{json.dumps(checks)}; {time.perf_counter() - t0:.1f} s")
 
@@ -1237,7 +1259,7 @@ def main() -> int:
         fail(f"quantile / window differ from numpy at 2^22 rows: {checks}")
     del wd, res
     torch.cuda.empty_cache()
-    log(f"[11/17] quantile and window: bench-matrix bit-exact across "
+    log(f"[11/18] quantile and window: bench-matrix bit-exact across "
         f"backends at 2^27 rows, launches as planned; numpy oracle at 2^22 "
         f"rows {json.dumps({k: bool(x) for k, x in checks.items()})}; "
         f"{time.perf_counter() - t0:.1f} s")
@@ -1316,7 +1338,7 @@ def main() -> int:
         f"{counts} = recorded passes {planned}")
     for name in ("block_histogram", "exclusive_scan", "rank_and_scatter"):
         launches[name] += path_launches[name]
-    log(f"[12/17] out-of-core sort: bench-big certificates at 2^30 "
+    log(f"[12/18] out-of-core sort: bench-big certificates at 2^30 "
         f"(partition, merge, in-core) and 2^28 with 3 payload columns, "
         f"numpy oracle, resume; {time.perf_counter() - t0:.1f} s")
 
@@ -1506,7 +1528,7 @@ def main() -> int:
         f"= recorded passes {planned}")
     for name in ("block_histogram", "exclusive_scan", "rank_and_scatter"):
         launches[name] += path_launches[name]
-    log(f"[13/17] out-of-core operators: 12 CLI runs at the JAX CLI's "
+    log(f"[13/18] out-of-core operators: 12 CLI runs at the JAX CLI's "
         f"sizes, every check true and B1-B3 launched once per recorded "
         f"pass; numpy oracles; two resumes; "
         f"{time.perf_counter() - t0:.1f} s")
@@ -1630,7 +1652,7 @@ def main() -> int:
         f"launches {counts} = recorded passes {planned}")
     for name in ("block_histogram", "exclusive_scan", "rank_and_scatter"):
         launches[name] += path_launches[name]
-    log(f"[14/17] last out-of-core operators: 4 CLI runs at the JAX CLI's "
+    log(f"[14/18] last out-of-core operators: 4 CLI runs at the JAX CLI's "
         f"sizes, every check true and B1-B3 launched once per recorded "
         f"pass; numpy oracles; a resume; {time.perf_counter() - t0:.1f} s")
 
@@ -1757,7 +1779,7 @@ def main() -> int:
         f"agrees; launches {counts} = recorded passes {planned}")
     for name in ("block_histogram", "exclusive_scan", "rank_and_scatter"):
         launches[name] += path_launches[name]
-    log(f"[15/17] SQL tier: bench.sql at 2^27 rows and FK joins at 2^24 x "
+    log(f"[15/18] SQL tier: bench.sql at 2^27 rows and FK joins at 2^24 x "
         f"2^22 equal numpy's, {len(cpu_battery)} families equal the CPU "
         f"run's and sqlite3's, no torch.sort / argsort / unique, B1-B3 "
         f"launched once per recorded pass; {time.perf_counter() - t0:.1f} s")
@@ -1813,7 +1835,7 @@ def main() -> int:
         f"(atol 1e-3); launches {counts} = recorded passes {planned}")
     for name in ("block_histogram", "exclusive_scan", "rank_and_scatter"):
         launches[name] += path_launches[name]
-    log(f"[16/17] out-of-core SQL: bench-bigsql's ten verbs at 2^30 rows "
+    log(f"[16/18] out-of-core SQL: bench-bigsql's ten verbs at 2^30 rows "
         f"(vvjoin 2^29 x 2^27), --median and --where, every closed form "
         f"holding; {len(cpu_big)} families equal the CPU run's; no "
         f"torch.sort / argsort / unique, B1-B3 launched once per recorded "
@@ -2116,12 +2138,408 @@ def main() -> int:
             setattr(mod, name, fn)
     for name in ("block_histogram", "exclusive_scan", "rank_and_scatter"):
         launches[name] += path_launches[name]
-    log(f"[17/17] exchange layer: bench-matrix dsort at 2^26 on the default "
+    log(f"[17/18] exchange layer: bench-matrix dsort at 2^26 on the default "
         f"mesh and a LocalMesh of 8, bit-exact across backends; the "
         f"distributed sort, pipeline and dops family on a LocalMesh of 8 "
         f"equal numpy; NCCL at world size 1; no torch.sort / argsort / "
         f"unique, B1-B3 launched once per recorded pass "
         f"({path_launches['block_histogram']} times each); phase 17 "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # -- 18. the rest of the exchange layer (dwindow, dorderby, dquantile)
+    # and the distributed out-of-core sort, on a LocalMesh of 8 shards on
+    # the card, with torch.sort / argsort / unique made to raise
+    t0 = time.perf_counter()
+    for name in path_launches:
+        path_launches[name] = 0
+    torch.cuda.empty_cache()
+    from tpu_qe_torch.exchange import (distributed_group_quantile,
+                                       distributed_group_quantile_numpy,
+                                       distributed_order_by,
+                                       distributed_order_by_numpy,
+                                       distributed_quantile,
+                                       distributed_quantile_numpy,
+                                       distributed_window,
+                                       distributed_window_numpy)
+    from tpu_qe_torch.exchange.dorderby import (plan_order_by_capacity,
+                                                shard_table)
+    from tpu_qe_torch.exchange.dquantile import \
+        distributed_quantile_cont_numpy
+    from tpu_qe_torch.exchange.dsort import shard_column, shard_u64
+    from tpu_qe_torch.exchange.dwindow import auto_window_capacity
+    from tpu_qe_torch.exchange.shuffle import pow2_capacity
+    from tpu_qe_torch.ops.orderby import sort_by_multi
+    from tpu_qe_torch.ops.quantile import (canon_qs, cont_rank, disc_rank,
+                                           group_quantile, quantile,
+                                           quantile_cont)
+    from tpu_qe_torch.ops.window import window
+    from tpu_qe_torch.sort.dbigsort import (keygen_masked_numpy,
+                                            sort_big_distributed)
+    from tpu_qe_torch.table import Table, column_from_numpy, plane
+
+    def np_window(k, o, v):
+        """rn, rank, running_sum and lag (fill 3) by (key, order, row)
+        in numpy, in input order."""
+        n_ = len(k)
+        perm = np.lexsort((np.arange(n_), o, k))
+        sk_, so_, sv_ = k[perm], o[perm], v[perm].astype(np.uint64)
+        new = np.r_[True, sk_[1:] != sk_[:-1]]
+        run = new | np.r_[True, so_[1:] != so_[:-1]]
+        i_ = np.arange(n_)
+        ps = np.maximum.accumulate(np.where(new, i_, 0))
+        rs = np.maximum.accumulate(np.where(run, i_, 0))
+        cs = np.cumsum(sv_)
+        cols = {"rn": (i_ - ps + 1).astype(np.uint32),
+                "rk": (rs - ps + 1).astype(np.uint32),
+                "cs": cs - (cs[ps] - sv_[ps]),
+                "lg": np.where(new, 3, np.r_[0, v[perm][:-1]]).astype(
+                    np.uint32)}
+        out = {}
+        for nm, c in cols.items():
+            out[nm] = np.empty_like(c)
+            out[nm][perm] = c
+        return out
+
+    def on_card_cols(res):
+        """{name: numpy column} of a WindowResult / Table."""
+        cols = res.cols if hasattr(res, "cols") else {
+            nm: res[nm] for nm in res}
+        return {nm: column_to_numpy(c) for nm, c in cols.items()}
+
+    def step_timed(what, fn, valid_of=None, n_rows=None):
+        """One untimed warm-up, then one counted run between CUDA events:
+        (out, seconds, peak bytes, passes, launches)."""
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+
+        def run():
+            ev0.record()
+            out = fn()
+            ev1.record()
+            return out
+        out, counts, planned = counted(what, passes_recorded, run)
+        secs = ev0.elapsed_time(ev1) / 1e3
+        peak = torch.cuda.max_memory_allocated(dev)
+        bal = (None if valid_of is None else
+               int(valid_of(out).max()) / (n_rows / mesh.n_dev))
+        log(f"      {what}: {secs:.4f} s, {n_rows / secs / 1e9:.4f} G rows/s, "
+            f"peak {peak / 1e9:.2f} GB, {planned} sort passes, balance "
+            f"{'n/a (no rows move)' if bal is None else f'{bal:.4f}'}; "
+            f"launches {counts} = recorded passes {planned}")
+        return out
+
+    def prefixes(runs, valid):
+        """The valid prefixes of (S, W) runs, concatenated."""
+        return torch.cat([runs[s, :v] for s, v in enumerate(valid.tolist())])
+
+    mesh = LocalMesh(8, dev)
+    for mod, name, _ in saved:
+        setattr(mod, name, refuse)
+    try:
+        # (a) the dry run's window, ORDER BY and quantile steps at its own
+        # size and generators (__graft_entry__.dryrun_multichip, seed 7)
+        n = 8 * 8192
+        rng = np.random.default_rng(7)
+        rng.integers(0, 1 << 64, size=n, dtype=np.uint64)   # its sort keys
+        wkeys = rng.integers(0, 37, n).astype(np.uint64)
+        worder = rng.integers(0, 1 << 20, n, dtype=np.uint32)
+        wv = rng.integers(0, 1 << 32, n).astype(np.uint32)
+        ja_rk = np.unique(rng.integers(0, 1 << 40, n // 2,
+                                       dtype=np.uint64))[: n // 4]
+        rng.integers(0, 1 << 16, len(ja_rk), dtype=np.int64)
+        rng.integers(0, len(ja_rk), n)
+        qvals = rng.integers(0, 1 << 64, n, dtype=np.uint64)
+        dry = {}
+        wfuncs = {"rn": ("row_number",), "rk": ("rank",),
+                  "cs": ("running_sum", "v"), "lg": ("lag", "v", 3)}
+        got, _, _ = counted("distributed_window_numpy (dry run)",
+                            passes_recorded,
+                            lambda: distributed_window_numpy(
+                                wkeys, wfuncs, mesh, order=worder,
+                                values={"v": wv}, capacity_factor="auto"))
+        loc = on_card_cols(window(U64.from_numpy(wkeys, dev), wfuncs,
+                                  order=column_from_numpy(worder, dev),
+                                  values={"v": column_from_numpy(wv, dev)}))
+        want = np_window(wkeys, worder, wv)
+        dry["window"] = all(np.array_equal(got[k], want[k])
+                            and np.array_equal(got[k], loc[k]) for k in want)
+        ob_cols = {"k": wkeys, "b": wv.view(np.int32),
+                   "i": np.arange(n, dtype=np.uint32)}
+        ob_by = [("k", "desc"), "b"]
+        (got, gpos), _, _ = counted(
+            "distributed_order_by_numpy (dry run)", passes_recorded,
+            lambda: distributed_order_by_numpy(ob_cols, ob_by, mesh,
+                                               capacity_factor="auto"))
+        loc = on_card_cols(sort_by_multi(Table.from_numpy(ob_cols, dev),
+                                         ob_by))
+        perm = np.lexsort((np.arange(n), ob_cols["b"], ~wkeys))
+        dry["order_by"] = (np.array_equal(gpos, perm) and all(
+            np.array_equal(got[k], c[perm]) and np.array_equal(got[k], loc[k])
+            for k, c in ob_cols.items()))
+        q_spec = [0.0, 0.25, (1, 1), 0.99, 1.0]
+        got, _, _ = counted("distributed_quantile_numpy (dry run)",
+                            passes_recorded,
+                            lambda: distributed_quantile_numpy(qvals, q_spec,
+                                                               mesh))
+        s_q = np.sort(qvals)
+        want = np.array([s_q[disc_rank(num, sh, n)]
+                         for num, sh in canon_qs(q_spec)], dtype=np.uint64)
+        dry["quantile"] = (np.array_equal(got, want) and np.array_equal(
+            got, quantile(U64.from_numpy(qvals, dev), q_spec).to_numpy()))
+        cd_vals = (wv % 17).astype(np.uint32)
+        got, _, _ = counted(
+            "distributed_group_quantile_numpy (dry run)", passes_recorded,
+            lambda: distributed_group_quantile_numpy(wkeys, cd_vals, [(1, 1)],
+                                                     mesh, max_groups=64))
+        res = group_quantile(U64.from_numpy(wkeys, dev),
+                             column_from_numpy(cd_vals, dev), [(1, 1)])
+        ng = int(res.num_groups)
+        loc = dict(zip(res.key.to_numpy()[:ng].tolist(),
+                       column_to_numpy(res.quantiles)[0, :ng].tolist()))
+        want = {}
+        for k in np.unique(wkeys):
+            sv_g = np.sort(cd_vals[wkeys == k])
+            want[int(k)] = int(sv_g[(len(sv_g) + 1) // 2 - 1])
+        dry["group_median"] = ({k: int(v[0]) for k, v in got.items()}
+                               == want == loc)
+        cq, _, _ = counted("distributed_quantile_cont_numpy (dry run)",
+                           passes_recorded,
+                           lambda: distributed_quantile_cont_numpy(
+                               qvals, [(3, 2)], mesh))
+        fq, cq_r, frq = cont_rank(3, 2, n)
+        lcq = quantile_cont(U64.from_numpy(qvals, dev), [(3, 2)])
+        dry["cont_3_2"] = (cq.lower.to_numpy()[0] == s_q[fq]
+                           and cq.upper.to_numpy()[0] == s_q[cq_r]
+                           and cq.frac_num[0] == frq
+                           and np.array_equal(cq.lower.to_numpy(),
+                                              lcq.lower.to_numpy())
+                           and np.array_equal(cq.upper.to_numpy(),
+                                              lcq.upper.to_numpy())
+                           and cq.frac_num == lcq.frac_num)
+        if not all(dry.values()):
+            fail(f"the dry run's steps on LocalMesh(8) differ from numpy or "
+                 f"the local operators: {dry}")
+        log(f"      the dry run's window, ORDER BY, quantile, group median "
+            f"and CONT (3, 2) at {n} rows on LocalMesh(8): bit-equal to "
+            f"numpy and to the local operators on the card {dry}")
+        del wkeys, worder, wv, qvals, cd_vals
+
+        # (b) full width: 2^27 rows, the dry run's generators scaled
+        n = 1 << 27
+        rng = np.random.default_rng(7)
+        bk = rng.integers(0, 37, n).astype(np.uint64)
+        bo = rng.integers(0, 1 << 20, n, dtype=np.uint32)
+        bv = rng.integers(0, 1 << 32, n).astype(np.uint32)
+        key, order_t = shard_u64(bk, mesh), shard_column(bo, mesh)
+        vals_t = {"v": shard_column(bv, mesh)}
+        bfuncs = {"rn": ("row_number",), "rk": ("rank",),
+                  "cs": ("running_sum", "v"), "lg": ("lag", "v", 3),
+                  "lg3": ("lag", "v", 0, 3), "ms": ("moving_sum", "v", 4),
+                  "rs": ("range_sum", "v", "unbounded")}
+
+        def dwin():
+            cap = auto_window_capacity(key, order_t, mesh)
+            return distributed_window(key, bfuncs, mesh, order=order_t,
+                                      values=vals_t, capacity=cap)
+        res, ovf = step_timed("distributed_window 2^27 rows, 37 partitions, "
+                              "7 functions, LocalMesh(8)", dwin,
+                              lambda o: o[0].valid, n)
+        if int(ovf.max()):
+            fail("distributed_window at 2^27 overflowed its planned capacity")
+        key_g = U64.from_numpy(bk, dev)
+        loc = window(key_g, bfuncs, order=column_from_numpy(bo, dev),
+                     values={"v": column_from_numpy(bv, dev)}).cols
+        m = (torch.arange(res.pos.shape[1], device=dev)[None]
+             < res.valid[:, None])
+        p = res.pos[m]
+        bad = []
+        for nm, c in res.cols.items():
+            for a, b in ((c.lo, loc[nm].lo), (c.hi, loc[nm].hi)) if \
+                    isinstance(c, U64) else ((plane(c), plane(loc[nm])),):
+                flat = torch.empty_like(b)
+                flat[p] = a[m]
+                if not torch.equal(flat, b):
+                    bad.append(nm)
+        if bad:
+            fail(f"distributed_window at 2^27 differs from the local window "
+                 f"on the card: {sorted(set(bad))}")
+        del res, loc, m, p, flat
+        torch.cuda.empty_cache()
+
+        ob = {"k": bk, "b": bv.view(np.int32),
+              "i": np.arange(n, dtype=np.uint32)}
+        tab = shard_table(ob, mesh)
+
+        def dob():
+            cap = pow2_capacity(int(plan_order_by_capacity(tab, ob_by,
+                                                           mesh).max()))
+            return distributed_order_by(tab, ob_by, mesh, capacity=cap)
+        st, _, valid, ovf = step_timed(
+            "distributed_order_by 2^27 rows, 3 columns, LocalMesh(8)", dob,
+            lambda o: o[2], n)
+        want = sort_by_multi(Table.from_numpy(ob, dev), ob_by)
+        ok = not int(ovf.max())
+        for nm in ob:
+            c, w = st[nm], want[nm]
+            for a, b in ((c.lo, w.lo), (c.hi, w.hi)) if isinstance(
+                    c, U64) else ((plane(c), plane(w)),):
+                ok = ok and torch.equal(prefixes(a, valid), b)
+        if not ok:
+            fail("distributed_order_by at 2^27 differs from sort_by_multi")
+        del st, want, tab
+        torch.cuda.empty_cache()
+
+        qv = rng.integers(0, 1 << 64, n, dtype=np.uint64)
+        qcol = shard_u64(qv, mesh)
+        got = step_timed("distributed_quantile 2^27 u64 values, 5 "
+                         "quantiles, LocalMesh(8)",
+                         lambda: distributed_quantile(qcol, q_spec, mesh),
+                         None, n)
+        want = quantile(U64.from_numpy(qv, dev), q_spec)
+        if not (torch.equal(got.lo, want.lo) and torch.equal(got.hi,
+                                                             want.hi)):
+            fail("distributed_quantile at 2^27 differs from quantile")
+        del qcol, qv
+        gq = step_timed("distributed_group_quantile 2^27 rows, 37 groups, "
+                        "p50 / p99, LocalMesh(8)",
+                        lambda: distributed_group_quantile(
+                            key, vals_t["v"], [(1, 1), 0.99], mesh,
+                            max_groups=64), None, n)
+        want = group_quantile(key_g, column_from_numpy(bv, dev),
+                              [(1, 1), 0.99])
+        ng = int(want.num_groups)
+        if not (int(gq[3]) == ng == 37 and not int(gq[4])
+                and torch.equal(gq[0].lo[:ng], want.key.lo[:ng])
+                and torch.equal(gq[0].hi[:ng], want.key.hi[:ng])
+                and torch.equal(plane(gq[1])[:, :ng],
+                                plane(want.quantiles)[:, :ng])
+                and torch.equal(gq[2][:ng], want.count[:ng])):
+            fail("distributed_group_quantile at 2^27 differs from "
+                 "group_quantile")
+        del key, order_t, vals_t, key_g, want, gq, bk, bo, bv
+        torch.cuda.empty_cache()
+        log("      2^27 rows on LocalMesh(8): the window's 7 integer "
+            "columns, the ORDER BY, the quantiles and the group quantiles "
+            "bit-equal to the local operators on the card")
+
+        # (c) the distributed out-of-core sort
+        for extra in (["--devices", "8"],
+                      ["--devices", "1", "--force-composed", "--n",
+                       str(1 << 28)]):
+            argv = ["bench-big", "--distributed"] + extra
+            (row,), counts, planned = counted(" ".join(argv),
+                                              passes_recorded,
+                                              lambda: cli_rows(argv))
+            log(f"      {json.dumps(row)}")
+            if not (row["verified"] and all(row["checks"].values())
+                    and row["metric"].startswith("distributed out-of-core")):
+                fail(f"{' '.join(argv)}: a certificate failed: {row}")
+            log(f"      {' '.join(extra)}: every certificate holds, "
+                f"{row['time_s']:.4f} s, peak "
+                f"{row['peak_mem_bytes'] / 1e9:.2f} GB, balance "
+                f"{row['balance']:.4f}; launches {counts} = recorded passes "
+                f"{planned}")
+            torch.cuda.empty_cache()
+        n = 1 << 22
+        (res, (skeys, spay)), counts, planned = counted(
+            "sort_big_distributed 2^22 collect", passes_recorded,
+            lambda: sort_big_distributed(n, mesh, run_size=1 << 18,
+                                         collect=True))
+        want = keygen_masked_numpy(np.arange(n, dtype=np.uint32))
+        order = np.argsort(want, kind="stable")
+        if not (res.all_ok and np.array_equal(skeys, want[order])
+                and np.array_equal(spay, order.astype(np.uint32))):
+            fail("sort_big_distributed(2^22, collect=True) differs from "
+                 "numpy's stable sort")
+        log(f"      sort_big_distributed(2^22, LocalMesh(8), run_size=2^18, "
+            f"collect=True): keys and payloads equal numpy's stable sort; "
+            f"launches {counts} = recorded passes {planned}")
+        # a process stopped once its first bucket round is recorded,
+        # resumed through the CLI from --checkpoint-dir
+        stopper = (
+            "import os, sys\n"
+            "from tpu_qe_torch.exchange import LocalMesh\n"
+            "from tpu_qe_torch.sort import dbigsort\n"
+            "from tpu_qe_torch.utils.checkpoint import RunState\n"
+            "record = RunState.record\n"
+            "def stop_after_the_first(self, b, vals):\n"
+            "    record(self, b, vals)\n"
+            "    os._exit(3)\n"
+            "RunState.record = stop_after_the_first\n"
+            "n, run_size = int(sys.argv[2]), int(sys.argv[3])\n"
+            "dbigsort.sort_big_distributed(n, LocalMesh(8, 'cuda'),\n"
+            "    run_size=run_size, buckets_per_dev=2,\n"
+            "    checkpoint_dir=sys.argv[1])\n")
+        n, run_size = 1 << 28, 1 << 24
+        meta = np.asarray([n, 8, run_size, 2, 7, min(4096, run_size), 64,
+                           1], np.int64)
+        with tempfile.TemporaryDirectory() as full, \
+                tempfile.TemporaryDirectory() as part_dir:
+            whole = sort_big_distributed(n, mesh, run_size=run_size,
+                                         buckets_per_dev=2,
+                                         checkpoint_dir=full)
+            rc = subprocess.run([sys.executable, "-c", stopper, part_dir,
+                                 str(n), str(run_size)],
+                                timeout=600).returncode
+            if rc != 3:
+                fail(f"the run to stop after its first bucket round exited "
+                     f"with {rc}")
+            stopped = RunState.load(part_dir, meta)
+            if stopped is None or int(stopped.done.sum()) != 1:
+                fail("the stopped run did not leave one bucket round "
+                     "recorded")
+            argv = ["bench-big", "--distributed", "--devices", "8", "--n",
+                    str(n), "--run-size", str(run_size), "--buckets", "2",
+                    "--checkpoint-dir", part_dir]
+            (row,), counts, planned = counted("resumed bench-big "
+                                              "--distributed",
+                                              passes_recorded,
+                                              lambda: cli_rows(argv))
+            a, b = RunState.load(full, meta), RunState.load(part_dir, meta)
+            if not (row["verified"] and whole.all_ok and b.done.all()
+                    and np.array_equal(a.scalars, b.scalars)
+                    and np.array_equal(a.bounds, b.bounds)):
+                fail(f"the resumed distributed run differs from the whole "
+                     f"run: {row}")
+        log(f"      bench-big --distributed resumed after one of two bucket "
+            f"rounds from --checkpoint-dir (2^28 keys, runs of 2^24): every "
+            f"shard's per-bucket scalars identical to the whole run's; "
+            f"launches {counts} = recorded passes {planned}")
+
+        # (d) a GroupMesh over NCCL at world size 1: psum
+        import torch.distributed as tdist
+        tdist.init_process_group("nccl", store=tdist.HashStore(), rank=0,
+                                 world_size=1)
+        try:
+            gm, lm = make_mesh(), LocalMesh(1, dev)
+            v = torch.tensor([[5, 1 << 40, -7]], device=dev)
+            qv = rng.integers(0, 1 << 64, 1 << 20, dtype=np.uint64)
+            if not (isinstance(gm, GroupMesh)
+                    and torch.equal(gm.psum(v), lm.psum(v))
+                    and np.array_equal(
+                        distributed_quantile_numpy(qv, q_spec, gm),
+                        distributed_quantile_numpy(qv, q_spec, lm))):
+                fail("GroupMesh psum over NCCL differs from LocalMesh(1)")
+        finally:
+            tdist.destroy_process_group()
+        log("      GroupMesh over NCCL, world size 1: psum and "
+            "distributed_quantile_numpy at 2^20 equal LocalMesh(1)'s")
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    for name in ("block_histogram", "exclusive_scan", "rank_and_scatter"):
+        launches[name] += path_launches[name]
+    log(f"[18/18] the rest of the exchange layer and the distributed "
+        f"out-of-core sort: the dry run's window, ORDER BY and quantile "
+        f"steps and the same at 2^27 rows on a LocalMesh of 8 equal numpy "
+        f"and the local operators; bench-big --distributed at 2^30 and "
+        f"--force-composed at 2^28 certified, 2^22 equal to numpy, a "
+        f"resume; psum over NCCL; no torch.sort / argsort / unique, B1-B3 "
+        f"launched once per recorded pass "
+        f"({path_launches['block_histogram']} times each); phase 18 "
         f"{time.perf_counter() - t0:.1f} s")
 
     src = "tpu_qe_torch/csrc/"
@@ -2148,7 +2566,8 @@ def main() -> int:
                          "bench-big + the out-of-core operators + "
                          "bigquantile, bigwindow, bigorderby + the SQL "
                          "tier + the out-of-core SQL tier + the exchange "
-                         "layer (dsort, dops)"),
+                         "layer (dsort, dops, dwindow, dorderby, "
+                         "dquantile) + bench-big --distributed"),
          "max_abs_err": err[name],
          "ms": ms[name][0], "plain_ms": ms[name][1],
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],

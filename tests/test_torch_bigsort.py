@@ -274,6 +274,34 @@ def test_bench_big_cli_rehearses_on_the_cpu(extra, capsys, tmp_path):
     assert ("in-core" in row["metric"]) == ("--in-core" in extra)
 
 
+@pytest.mark.parametrize("extra,kind", [
+    (["--devices", "2"], "distributed out-of-core"),
+    (["--devices", "2", "--force-composed"], "distributed out-of-core"),
+    (["--devices", "1", "--force-composed", "--payload-cols", "3"],
+     "distributed out-of-core (3-col rows)"),
+    (["--devices", "1"], "out-of-core (D=1 delegated)"),
+])
+def test_bench_big_distributed_cli_rehearses_on_the_cpu(extra, kind, capsys,
+                                                        tmp_path):
+    import json
+
+    from tpu_qe_torch.__main__ import main
+    rc = main(["bench-big", "--device", "cpu", "--distributed", "--n",
+               str(1 << 14), "--run-size", str(1 << 11), "--buckets", "2",
+               "--checkpoint-dir", str(tmp_path / "ck")] + extra)
+    lines = [ln for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith("{")]
+    assert rc == 0 and len(lines) == 1
+    row = json.loads(lines[0])
+    assert row["verified"] and all(row["checks"].values())
+    assert set(row["checks"]) == {"sorted", "hash", "count", "perm",
+                                  "boundary"}
+    assert row["metric"].startswith(kind + " sort 16384 u64 keys")
+    assert row["devices"] == int(extra[1])
+    assert 1.0 <= row["balance"] < 1.5
+    assert row["value"] == "not measured" and row["device"] == "cpu"
+
+
 def test_bench_big_refuses_value_columns_in_core():
     from tpu_qe_torch.__main__ import main
     with pytest.raises(AssertionError):

@@ -1565,3 +1565,171 @@ def test_bench_matrix_dsort_on_the_card(cuda, capsys, devices):
                       if ln.startswith("{")][-1])
     assert all(row["checks"].values()) and row["value"] > 0
     assert row["devices"] == (8 if devices else torch.cuda.device_count())
+
+
+# ---- the rest of the exchange layer and the distributed out-of-core sort
+
+def _dwindow_case():
+    rng = np.random.default_rng(31)
+    n = 1 << 16
+    keys = rng.integers(0, 37, n).astype(np.uint64)
+    keys[::5] = 11                                   # a hot partition
+    keys[::97] = np.uint64((1 << 64) - 1)
+    order = (rng.integers(-8, 8, n) + (1 << 31)).astype(np.uint32)
+    vals = {"vu": rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(
+                np.uint32),
+            "vi": rng.integers(-(1 << 31), (1 << 31) - 1, n,
+                               dtype=np.int64).astype(np.int32),
+            "vf": rng.random(n).astype(np.float32)}
+    funcs = {"rn": ("row_number",), "rk": ("rank",), "dr": ("dense_rank",),
+             "pr": ("percent_rank",), "nt": ("ntile", 5),
+             "cs": ("running_sum", "vu"), "csi": ("running_sum", "vi"),
+             "csf": ("running_sum", "vf"), "cm": ("running_min", "vi"),
+             "lg": ("lag", "vu", 3), "lg3": ("lag", "vi", 0, 3),
+             "ld": ("lead", "vf", 0.5), "ld2": ("lead", "vu", 7, 2),
+             "fv": ("first_value", "vu"), "lv": ("last_value", "vi"),
+             "ms": ("moving_sum", "vu", 4), "mf": ("moving_min", "vi", 3, 2),
+             "mc": ("moving_count", 4, 1), "ts": ("total_sum", "vi"),
+             "tx": ("total_max", "vf"), "pc": ("partition_count",),
+             "ta": ("total_avg", "vu"), "ra": ("running_avg", "vi"),
+             "rs": ("range_sum", "vu", "unbounded"),
+             "rm": ("range_min", "vi", "unbounded")}
+    floats = ("pr", "csf", "ta", "ra")
+    return keys, order, vals, funcs, floats
+
+
+def test_distributed_window_on_the_card_matches_the_cpu(cuda, monkeypatch):
+    # integers bit for bit, float sums and averages within the reference's
+    # tolerance (rtol 2e-4, atol 1e-3); no n-row sort leaves the kernels
+    from tpu_qe_torch.exchange import LocalMesh, distributed_window_numpy
+    from tpu_qe_torch.sort import driver
+    keys, order, vals, funcs, floats = _dwindow_case()
+    want = distributed_window_numpy(keys, funcs, LocalMesh(8, "cpu"),
+                                    order=order, values=vals,
+                                    capacity_factor="auto")
+    _refuse_torch_sorts(monkeypatch)
+    kernels.reset_launches()
+    driver.RADIX_PASSES.clear()
+    got = distributed_window_numpy(keys, funcs, LocalMesh(8, cuda),
+                                   order=order, values=vals,
+                                   capacity_factor="auto")
+    assert _launches_match_passes()
+    for nm in funcs:
+        if nm in floats:
+            np.testing.assert_allclose(got[nm], want[nm], rtol=2e-4,
+                                       atol=1e-3, err_msg=nm)
+        else:
+            np.testing.assert_array_equal(got[nm], want[nm], err_msg=nm)
+
+
+def test_distributed_order_by_on_the_card_matches_the_cpu(cuda,
+                                                          monkeypatch):
+    from tpu_qe_torch.exchange import LocalMesh, distributed_order_by_numpy
+    from tpu_qe_torch.sort import driver
+    keys, order, vals, _, _ = _dwindow_case()
+    cols = {"k": keys, "o": order, "vi": vals["vi"], "vf": vals["vf"],
+            "i": np.arange(len(keys), dtype=np.uint32)}
+    by = [("k", "desc"), "o", ("vf", "desc")]
+    want = distributed_order_by_numpy(cols, by, LocalMesh(8, "cpu"),
+                                      capacity_factor="auto")
+    _refuse_torch_sorts(monkeypatch)
+    kernels.reset_launches()
+    driver.RADIX_PASSES.clear()
+    got = distributed_order_by_numpy(cols, by, LocalMesh(8, cuda),
+                                     capacity_factor="auto")
+    assert _launches_match_passes()
+    np.testing.assert_array_equal(got[1], want[1])
+    for nm in cols:
+        np.testing.assert_array_equal(got[0][nm], want[0][nm], err_msg=nm)
+
+
+def _dquantile_family(mesh):
+    from tpu_qe_torch.exchange import dquantile as dq
+    rng = np.random.default_rng(41)
+    n = 1 << 16
+    u64 = rng.integers(0, 1 << 64, n, dtype=np.uint64)
+    u64[::9] = np.uint64((1 << 64) - 1)
+    f32 = rng.standard_normal(n).astype(np.float32)
+    keys = rng.integers(0, 37, n).astype(np.uint64)
+    qs = [0.0, 0.25, (1, 1), 0.99, 1.0]
+    cont = dq.distributed_quantile_cont_numpy(f32, qs, mesh)
+    return {
+        "u64": dq.distributed_quantile_numpy(u64, qs, mesh),
+        "f32": dq.distributed_quantile_numpy(f32, qs, mesh),
+        "cont": (cont.lower.cpu().numpy(), cont.upper.cpu().numpy(),
+                 cont.frac_num, cont.value.cpu().numpy()),
+        "group": dq.distributed_group_quantile_numpy(
+            keys, (u64 >> np.uint64(33)).astype(np.uint32), qs, mesh,
+            max_groups=64),
+        "group_cont": dq.distributed_group_quantile_cont_numpy(
+            keys, f32, qs, mesh, max_groups=64),
+    }
+
+
+def test_distributed_quantiles_on_the_card_match_the_cpu(cuda, monkeypatch):
+    from tpu_qe_torch.exchange import LocalMesh
+    from tpu_qe_torch.sort import driver
+    want = _dquantile_family(LocalMesh(8, "cpu"))
+    _refuse_torch_sorts(monkeypatch)
+    kernels.reset_launches()
+    driver.RADIX_PASSES.clear()
+    got = _dquantile_family(LocalMesh(8, cuda))
+    assert _launches_match_passes()
+    np.testing.assert_array_equal(got["u64"], want["u64"])
+    np.testing.assert_array_equal(got["f32"], want["f32"])
+    for g, w in zip(got["cont"], want["cont"]):
+        np.testing.assert_array_equal(np.asarray(g), np.asarray(w))
+    assert got["group"] == want["group"]
+    assert got["group_cont"].keys() == want["group_cont"].keys()
+    for k, w in want["group_cont"].items():
+        np.testing.assert_array_equal(np.array(got["group_cont"][k]),
+                                      np.array(w))
+
+
+@pytest.mark.parametrize("n_dev,key_bits,payload_cols",
+                         [(8, 64, 1), (4, 5, 3), (1, 64, 2)])
+def test_sort_big_distributed_on_the_card_matches_the_cpu(
+        cuda, monkeypatch, n_dev, key_bits, payload_cols):
+    from tpu_qe_torch.exchange import LocalMesh
+    from tpu_qe_torch.sort import driver
+    from tpu_qe_torch.sort.dbigsort import sort_big_distributed
+    n = n_dev * 4 * (1 << 14)
+    kw = dict(run_size=1 << 14, buckets_per_dev=3, key_bits=key_bits,
+              collect=True, payload_cols=payload_cols, force_composed=True)
+    wres, want = sort_big_distributed(n, LocalMesh(n_dev, "cpu"), **kw)
+    _refuse_torch_sorts(monkeypatch)
+    kernels.reset_launches()
+    driver.RADIX_PASSES.clear()
+    res, got = sort_big_distributed(n, LocalMesh(n_dev, cuda), **kw)
+    assert _launches_match_passes()
+    assert res.all_ok and wres.all_ok
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    if payload_cols > 1:
+        for g, w in zip(got[2], want[2]):
+            np.testing.assert_array_equal(g, w)
+
+
+def test_bench_big_distributed_cli_on_the_card(cuda, capsys):
+    assert main(["bench-big", "--distributed", "--devices", "8", "--n",
+                 str(1 << 24), "--run-size", str(1 << 20)]) == 0
+    row = json.loads([ln for ln in capsys.readouterr().out.splitlines()
+                      if ln.startswith("{")][-1])
+    assert row["verified"] and all(row["checks"].values())
+    assert row["devices"] == 8 and row["balance"] >= 1.0
+    assert row["metric"].startswith("distributed out-of-core")
+
+
+def test_group_mesh_psum_over_nccl_at_world_size_1(cuda):
+    import torch.distributed as dist
+    from tpu_qe_torch.exchange import LocalMesh, make_mesh
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        gm, lm = make_mesh(), LocalMesh(1, cuda)
+        x = torch.tensor([[3, 1 << 40, -9]], device=cuda)
+        assert torch.equal(gm.psum(x), lm.psum(x))
+        y = torch.arange(6, dtype=torch.int32, device=cuda).reshape(1, 6)
+        assert torch.equal(gm.psum(y), lm.psum(y))
+    finally:
+        dist.destroy_process_group()

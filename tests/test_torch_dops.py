@@ -860,16 +860,20 @@ def test_plans_match_jax():
         assert mx(g) == mx(w), i
 
 
-def test_unported_names_raise_naming_item_10():
-    for name in ("distributed_order_by", "distributed_window",
-                 "distributed_quantile", "distributed_group_quantile_numpy",
-                 "plan_window_capacity"):
-        with pytest.raises(AttributeError, match="Queue A item 10"):
-            getattr(tex, name)
+def _public_exchange_names():
     from tpu_qe import exchange as jex
-    ported = [n for n in dir(jex) if not n.startswith("_")
-              and n not in tex.NOT_PORTED and n not in (
-                  "dops", "dorderby", "dquantile", "dsort", "dwindow",
-                  "shuffle")]
-    for name in ported:
-        assert hasattr(tex, name), name
+    return sorted(n for n in dir(jex) if not n.startswith("_"))
+
+
+@pytest.mark.parametrize("name", _public_exchange_names())
+def test_every_public_name_of_the_exchange_resolves(name):
+    # every public name of tpu_qe.exchange (its functions, classes and
+    # submodules) has its counterpart in tpu_qe_torch.exchange
+    assert tex.NOT_PORTED == ()
+    got = getattr(tex, name)
+    assert got is not None
+    if name in ("dops", "dorderby", "dquantile", "dsort", "dwindow",
+                "shuffle"):
+        assert got.__name__ == f"tpu_qe_torch.exchange.{name}"
+    with pytest.raises(AttributeError, match="no attribute"):
+        getattr(tex, "distributed_no_such_operator")

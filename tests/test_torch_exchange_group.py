@@ -5,9 +5,11 @@ Each world is spawned once per module (torch.multiprocessing, a free
 localhost port, a 120 s limit so that a hang fails instead of holding the
 suite) and runs the whole batch: the distributed sort of uniform, Zipf and
 all-equal keys, keys only, overlap=2 and an overflowing route (which must
-raise on every rank), then distributed_aggregate, distributed_join_fk and
-distributed_top_k. Every rank's answer must equal the LocalMesh answer
-bit for bit. This file imports nothing of JAX: the spawned ranks import
+raise on every rank), then distributed_aggregate, distributed_join_fk,
+distributed_top_k, the mesh's psum, distributed_window (a partition that
+spans every rank, the scalar chain, both row halos, totals and RANGE),
+distributed_order_by and the global and per-group distributed quantiles. Every rank's answer
+must equal the LocalMesh answer bit for bit. This file imports nothing of JAX: the spawned ranks import
 it.
 """
 
@@ -75,6 +77,51 @@ def _top_k(mesh):
                                          largest=True))
 
 
+def _psum(mesh):
+    r = mesh.ranks() + 1
+    return mesh.psum(torch.stack([r, r << 40, -r], 1))[0].tolist()
+
+
+def _window(mesh):
+    from tpu_qe_torch.exchange import dwindow
+    rng = np.random.default_rng(8)
+    keys = rng.integers(0, 5, N).astype(np.uint64)
+    keys[: N // 2] = 3                                  # spans every rank
+    order = (rng.integers(-4, 4, N) + (1 << 31)).astype(np.uint32)
+    vals = {"v": rng.integers(0, 1 << 32, N, dtype=np.uint64).astype(
+        np.uint32)}
+    funcs = {"rn": ("row_number",), "rk": ("rank",),
+             "cs": ("running_sum", "v"), "lg": ("lag", "v", 0, 3),
+             "ms": ("moving_sum", "v", 5), "ld": ("lead", "v", 1, 2),
+             "ts": ("total_sum", "v"), "rs": ("range_sum", "v", "unbounded")}
+    return dwindow.distributed_window_numpy(keys, funcs, mesh, order=order,
+                                            values=vals,
+                                            capacity_factor="auto")
+
+
+def _order_by(mesh):
+    from tpu_qe_torch.exchange import dorderby
+    rng = np.random.default_rng(10)
+    cols = {"k": rng.integers(0, 7, N).astype(np.uint64),
+            "b": rng.integers(-(1 << 31), (1 << 31) - 1, N,
+                              dtype=np.int64).astype(np.int32),
+            "i": np.arange(N, dtype=np.uint32)}
+    return dorderby.distributed_order_by_numpy(
+        cols, [("k", "desc"), "b"], mesh, capacity_factor="auto")
+
+
+def _quantile(mesh):
+    from tpu_qe_torch.exchange import dquantile
+    rng = np.random.default_rng(9)
+    vals = rng.integers(0, 1 << 64, N, dtype=np.uint64)
+    keys = rng.integers(0, 13, N).astype(np.uint64)
+    qs = [0.0, 0.25, (1, 1), 0.99, 1.0]
+    return (dquantile.distributed_quantile_numpy(vals, qs, mesh),
+            dquantile.distributed_group_quantile_numpy(
+                keys, (vals >> np.uint64(40)).astype(np.uint32), qs, mesh,
+                max_groups=16))
+
+
 CASES = {
     "uniform": _sort(_uniform(1)),
     "zipf": _sort(_zipf(2), capacity_factor=4.0),
@@ -86,6 +133,10 @@ CASES = {
     "aggregate": _aggregate,
     "join_fk": _join_fk,
     "top_k": _top_k,
+    "psum": _psum,
+    "window": _window,
+    "order_by": _order_by,
+    "quantile": _quantile,
 }
 
 

@@ -11,8 +11,8 @@
            BY, window, quantile, ...), radix backend beside torch.sort, one
            JSON row each (tpu_qe_torch/bench/matrix.py)
   bench-big      the out-of-core sort of 2^30 generated u64 keys + u32
-           payload with its certificates, one JSON line
-           (tpu_qe_torch/bench/big.py)
+           payload with its certificates, one JSON line; --distributed
+           over a mesh of shards (tpu_qe_torch/bench/big.py)
   bench-bigagg, bench-bigjoin (--outer), bench-bigpipe, bench-bigtopk,
   bench-bigdistinct, bench-bigsetops, bench-bigquantile (--cont),
   bench-bigwindow, bench-bigorderby
@@ -158,8 +158,8 @@ def _add_bigops(sub) -> None:
         p.add_argument("--run-size", type=int, default=1 << 26,
                        help=run_size_help)
         p.add_argument("--distributed", action="store_true",
-                       help="not ported yet: exits 2 (ROADMAP Queue A "
-                            "item 10)")
+                       help="the distributed dbig* operator: not ported "
+                            "yet, exits 2 (ROADMAP Queue A item 10)")
         p.add_argument("--devices", type=int, default=None,
                        help="mesh size for --distributed (not ported)")
         p.add_argument("--force-composed", action="store_true",
@@ -362,6 +362,16 @@ def main(argv=None) -> int:
     pg.add_argument("--payload-cols", type=int, default=1,
                     help="u32 payload columns per row (>= 1): index + "
                          "carried value columns")
+    pg.add_argument("--distributed", action="store_true",
+                    help="distributed out-of-core sort over the mesh "
+                         "(sort/dbigsort.py); --buckets is then buckets "
+                         "per shard")
+    pg.add_argument("--devices", type=int, default=None,
+                    help="mesh size for --distributed: a LocalMesh of N "
+                         "shards on the device (default: one per card)")
+    pg.add_argument("--force-composed", action="store_true",
+                    help="keep the composed path at one shard instead of "
+                         "delegating to the single-device sort")
     pg.add_argument("--device", type=str, default="cuda")
     pg.set_defaults(fn=_cmd_bench_big)
 

@@ -3,6 +3,7 @@ size, one JSON line.
 
     python -m tpu_qe_torch bench-big [--n 2^30] [--run-size 2^26]
         [--buckets B] [--in-core] [--strategy partition|merge]
+        [--distributed [--devices D] [--force-composed]]
         [--payload-cols P] [--checkpoint-dir DIR] [--trace-dir DIR]
         [--verbose-big] [--device cuda]
 
@@ -18,6 +19,14 @@ share of the timed run against the same kernel time, and the kernel time
 by category (bench/matrix.CATEGORIES). On a CPU device the certificates
 hold the same and every time is "not measured". Exit 0 when every
 certificate holds, else 1.
+
+--distributed runs the distributed out-of-core sort (sort/dbigsort.py)
+over make_mesh(--devices) on the device: one shard per card by default,
+a LocalMesh of D shards on the device with --devices D. --buckets is then
+per shard. At D = 1 the call delegates to sort_big unless
+--force-composed; `kind` says which path ran. The line adds `devices` and
+`balance` (the most rows a shard holds over n / D); on a LocalMesh of
+D > 1 the time is one card doing every shard's work.
 """
 
 from __future__ import annotations
@@ -34,10 +43,17 @@ from tpu_qe_torch.config import resolve_device
 WARMUP_N, WARMUP_RUN = 1 << 18, 1 << 14
 
 
-def _sort(args, dev, n: int, run_size: int, buckets: int, **kw):
+def _sort(args, dev, n: int, run_size: int, buckets: int, mesh=None,
+          stats=None, **kw):
     from tpu_qe_torch.sort.bigsort import sort_big, sort_big_incore
     if args.in_core:
         return sort_big_incore(n, device=dev)
+    if mesh is not None:
+        from tpu_qe_torch.sort.dbigsort import sort_big_distributed
+        return sort_big_distributed(
+            n, mesh, run_size=run_size, buckets_per_dev=args.buckets,
+            force_composed=args.force_composed,
+            payload_cols=args.payload_cols, stats=stats, **kw)
     return sort_big(n, run_size=run_size, n_buckets=buckets,
                     payload_cols=args.payload_cols, strategy=args.strategy,
                     device=dev, **kw)
@@ -52,34 +68,65 @@ def run(args) -> dict:
     buckets = args.buckets or max(2, -(-args.n // (1 << 26)))
     if args.checkpoint_dir:
         os.makedirs(args.checkpoint_dir, exist_ok=True)
+    mesh = None
+    warm_n = WARMUP_N
+    if args.distributed and not args.in_core:
+        from tpu_qe_torch.exchange.mesh import make_mesh
+        mesh = make_mesh(args.devices, dev)
+        warm_n = mesh.n_dev * 2 * WARMUP_RUN
+    # which path runs: at D = 1 without --force-composed the distributed
+    # call delegates to sort_big
+    composed = mesh is not None and (mesh.n_dev > 1 or args.force_composed)
     compile_s = 0.0
     if cuda:
         # one untimed run of the same path at 2^18 keys: the timed run pays
         # neither the kernels' build nor any kernel's first launch, as the
         # JAX package's timed run pays no compile
-        compile_s = _sort(args, dev, WARMUP_N, WARMUP_RUN, buckets).compile_s
+        compile_s = _sort(args, dev, warm_n, WARMUP_RUN, buckets,
+                          mesh).compile_s
         torch.cuda.reset_peak_memory_stats(dev)
-    res = _sort(args, dev, args.n, args.run_size, buckets,
+    stats = {}
+    res = _sort(args, dev, args.n, args.run_size, buckets, mesh, stats,
                 verbose=args.verbose_big, checkpoint_dir=args.checkpoint_dir)
-    kind = "in-core" if args.in_core else f"out-of-core [{args.strategy}]"
+    if args.in_core:
+        kind, where = "in-core", "1 card"
+    elif mesh is not None:
+        kind = ("distributed out-of-core" if composed
+                else "out-of-core (D=1 delegated)")
+        where = f"{mesh.n_dev} shard(s), {mesh}"
+    else:
+        kind, where = f"out-of-core [{args.strategy}]", "1 card"
     if args.payload_cols > 1:
         kind += f" ({args.payload_cols}-col rows)"
     row = {
-        "metric": f"{kind} sort {res.n} u64 keys + u32 payload, 1 card",
+        "metric": f"{kind} sort {res.n} u64 keys + u32 payload, {where}",
         "verified": res.all_ok,
         "checks": {"sorted": res.sorted_ok, "hash": res.hash_ok,
                    "count": res.count_ok, "perm": res.perm_ok,
                    "boundary": res.boundary_ok},
         "unit": "keys/s",
     }
+    if mesh is not None:
+        rows = stats.get("shard_rows") or [res.n]
+        row.update({"devices": mesh.n_dev,
+                    "balance": max(rows) / (res.n / len(rows))})
     if not cuda:
         row.update({"value": "not measured", "time_s": "not measured",
                     "device": "cpu"})
         return row
     from tpu_qe_torch.bench.sol import bigsort_sol_seconds, card
     info = card()
-    sol = None if args.in_core else bigsort_sol_seconds(
-        res.n, args.run_size, buckets, args.payload_cols, args.strategy)
+    if composed:
+        # the composed path sorts every run, then every bucket (the merge
+        # strategy's envelope over D * B buckets; the exchange's copies
+        # are left out)
+        sol = bigsort_sol_seconds(
+            res.n, args.run_size, mesh.n_dev * (args.buckets or max(
+                1, -(-res.n // mesh.n_dev // (1 << 26)))),
+            args.payload_cols, "merge")
+    else:
+        sol = None if args.in_core else bigsort_sol_seconds(
+            res.n, args.run_size, buckets, args.payload_cols, args.strategy)
     row.update({
         "value": res.keys_per_s, "time_s": res.seconds,
         "phase_runs_s": res.phase_a_s,
@@ -91,7 +138,7 @@ def run(args) -> dict:
     if args.trace_dir:
         row["profile"] = profile(
             args.trace_dir, res.seconds,
-            lambda: _sort(args, dev, args.n, args.run_size, buckets))
+            lambda: _sort(args, dev, args.n, args.run_size, buckets, mesh))
     return row
 
 

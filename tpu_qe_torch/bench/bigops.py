@@ -31,8 +31,9 @@ is profiled (torch.profiler, DIR/trace.json) and the line gains `profile`
 is "not measured". Exit 0 when every check holds, else 1.
 
 --distributed, --devices and --force-composed are accepted and refused
-(exit 2): the distributed out-of-core operators are ROADMAP Queue A item
-10.
+(exit 2): the distributed out-of-core operators (the dbig* modules) are
+ROADMAP Queue A item 10; the distributed out-of-core sort they build on
+is `bench-big --distributed`.
 """
 
 from __future__ import annotations
@@ -45,9 +46,10 @@ import torch
 
 from tpu_qe_torch.config import resolve_device
 
-NOT_PORTED = ("the distributed out-of-core operators (--distributed, "
-              "--devices, --force-composed) are not ported yet: ROADMAP "
-              "Queue A item 10")
+NOT_PORTED = ("the distributed out-of-core operators (the dbig* modules: "
+              "--distributed, --devices, --force-composed) are not ported "
+              "yet: ROADMAP Queue A item 10 (the distributed sort they "
+              "build on is bench-big --distributed)")
 WARM_N = 1 << 16            # rows of the untimed warm-up run
 WARM_RUN = 1 << 14
 

@@ -1,9 +1,8 @@
 """The multi-device layer (the port of tpu_qe/exchange): a mesh of shards
 (mesh.py), the keyed shuffle (shuffle.py), the distributed sort
-(dsort.py) and the distributed operators of dops.py.
-
-Not ported yet (ROADMAP Queue A item 10): dorderby, dwindow and dquantile;
-asking for one of their names raises AttributeError.
+(dsort.py), the distributed operators of dops.py, the distributed ORDER
+BY (dorderby.py), quantiles (dquantile.py) and window functions
+(dwindow.py).
 """
 
 from tpu_qe_torch.exchange.mesh import (  # noqa: F401
@@ -35,6 +34,23 @@ from tpu_qe_torch.exchange.dops import (  # noqa: F401
     distributed_top_k,
     distributed_top_k_numpy,
 )
+from tpu_qe_torch.exchange.dorderby import (  # noqa: F401
+    distributed_order_by,
+    distributed_order_by_numpy,
+    plan_order_by_capacity,
+)
+from tpu_qe_torch.exchange.dquantile import (  # noqa: F401
+    distributed_group_quantile,
+    distributed_group_quantile_numpy,
+    distributed_quantile,
+    distributed_quantile_numpy,
+)
+from tpu_qe_torch.exchange.dwindow import (  # noqa: F401
+    DistWindowResult,
+    distributed_window,
+    distributed_window_numpy,
+    plan_window_capacity,
+)
 from tpu_qe_torch.exchange.shuffle import (  # noqa: F401
     AXIS,
     exchange,
@@ -42,17 +58,8 @@ from tpu_qe_torch.exchange.shuffle import (  # noqa: F401
     sample_splitters,
 )
 
-NOT_PORTED = ("distributed_order_by", "distributed_order_by_numpy",
-              "plan_order_by_capacity", "distributed_group_quantile",
-              "distributed_group_quantile_numpy", "distributed_quantile",
-              "distributed_quantile_numpy", "DistWindowResult",
-              "distributed_window", "distributed_window_numpy",
-              "plan_window_capacity")
+NOT_PORTED: tuple = ()
 
 
 def __getattr__(name):
-    if name in NOT_PORTED:
-        raise AttributeError(
-            f"tpu_qe_torch.exchange.{name} is not ported yet (ROADMAP Queue "
-            "A item 10: dorderby, dwindow, dquantile)")
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -69,27 +69,29 @@ def _route(mesh, lo, hi, n_dev, samples_per_dev, backend):
     return route_by_splitters_pos(lo, hi, gpos, *sp)
 
 
-def _sort_received(recv, flag, rank, rank_bits: int, run: int, backend,
-                   with_rank: bool = True):
-    """Each shard's real received rows (flag 0) sorted by (hi, lo, rank) at
-    the front of a run of `run` rows; the rest are pad sentinels.
+def sort_real_rows(flag, keys, key_fills, rank, rank_bits: int, payloads,
+                   pay_fills, run: int, backend, with_rank: bool = False):
+    """Each shard's real received rows (flag 0) sorted by (keys..., rank)
+    at the front of a run of `run` rows; the rest are pad rows.
 
-    recv = [lo, hi, *payloads], (S, L) planes. Returns (lo, hi, rank,
-    payloads), (S, run) each (rank None unless with_rank); the pad slots
-    hold lo = hi = rank = all-ones and payload 0. One stable sort of every
-    shard's real rows, the shard as the most significant key.
+    keys: (S, L) u32 planes, most significant first; rank: (S, L) plane of
+    the exchange's stability rank, below 2^rank_bits. Returns (sorted key
+    planes, rank or None, payloads), (S, run) each; the pad slots hold
+    key_fills, all-ones ranks and pay_fills. One stable sort of every
+    shard's real rows, the shard as the most significant key. The rank
+    is unique among a shard's real rows, so rows that tie on every key
+    plane come out as an unstable sort by (keys..., rank) would give them.
     """
-    lo, hi, *pay = recv
-    shards, width = lo.shape
-    dev = lo.device
+    shards, width = flag.shape
+    dev = flag.device
     src = (flag.reshape(-1) == 0).nonzero().squeeze(1)   # (shard, slot) order
     shard = src // width
-    keys = [hi.reshape(-1)[src], lo.reshape(-1)[src], rank.reshape(-1)[src]]
-    bits = [32, 32, rank_bits]
+    kp = [k.reshape(-1)[src] for k in keys] + [rank.reshape(-1)[src]]
+    bits = [32] * len(keys) + [rank_bits]
     if shards > 1:
-        keys, bits = [shard.to(torch.int32)] + keys, [
+        kp, bits = [shard.to(torch.int32)] + kp, [
             max((shards - 1).bit_length(), 1)] + bits
-    skeys, perm = argsort_planes(keys, bits, backend)
+    skeys, perm = argsort_planes(kp, bits, backend)
     s_sorted = skeys.pop(0).to(torch.int64) if shards > 1 else shard
     # src ascends, so does its shard: each shard's first real row
     start = torch.searchsorted(shard, torch.arange(shards, device=dev))
@@ -103,9 +105,26 @@ def _sort_received(recv, flag, rank, rank_bits: int, run: int, backend,
         out[dst] = values
         return out.reshape(shards, run)
 
-    return (place(skeys[1], ONES), place(skeys[0], ONES),
-            place(skeys[2], ONES) if with_rank else None,
-            [place(p.reshape(-1)[src], 0) for p in pay])
+    return ([place(k, f) for k, f in zip(skeys, key_fills)],
+            place(skeys[-1], ONES) if with_rank else None,
+            [place(p.reshape(-1)[src], f) for p, f in zip(payloads,
+                                                          pay_fills)])
+
+
+def _sort_received(recv, flag, rank, rank_bits: int, run: int, backend,
+                   with_rank: bool = True):
+    """Each shard's real received rows sorted by (hi, lo, rank) at the
+    front of a run of `run` rows (sort_real_rows).
+
+    recv = [lo, hi, *payloads], (S, L) planes. Returns (lo, hi, rank,
+    payloads), (S, run) each (rank None unless with_rank); the pad slots
+    hold lo = hi = rank = all-ones and payload 0.
+    """
+    lo, hi, *pay = recv
+    (shi, slo), srank, spay = sort_real_rows(
+        flag, [hi, lo], [ONES, ONES], rank, rank_bits, pay, [0] * len(pay),
+        run, backend, with_rank)
+    return slo, shi, srank, spay
 
 
 def _dsort_shard(mesh, lo, hi, *payloads, n_dev: int, samples_per_dev: int,
@@ -262,6 +281,18 @@ def shard_u32(values: np.ndarray, mesh) -> torch.Tensor:
     bits = (v.view(np.int32) if v.dtype in (np.float32, np.int32)
             else as_i32(v))
     return mesh.shard(torch.from_numpy(np.ascontiguousarray(bits)))
+
+
+def shard_column(values: np.ndarray, mesh):
+    """A global numpy column -> this process's (S, n_local) shards: U64
+    for uint64, else a uint32 / int32 / float32 tensor."""
+    v = np.asarray(values)
+    if v.dtype == np.uint64:
+        return shard_u64(v, mesh)
+    dtype = {np.dtype(np.uint32): torch.uint32, np.dtype(np.int32):
+             torch.int32, np.dtype(np.float32): torch.float32}[v.dtype]
+    p = shard_u32(v, mesh)
+    return p if dtype == torch.int32 else p.view(dtype)
 
 
 def collect_u32(x: torch.Tensor, mesh) -> np.ndarray:

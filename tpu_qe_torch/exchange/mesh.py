@@ -10,6 +10,8 @@ being this process's s-th shard. Its collectives are methods of the mesh:
   all_to_all(x)   (S, D, ...) -> (S, D, ...): shard s receives, in block
                   j, the block that rank j sent to s
   pmax(x)         (S, ...) int64 -> the maximum over all D shards
+  psum(x)         (S, ...) -> the int64 sum over all D shards, on every
+                  shard
   ranks()         (S,) int64: the rank of each local shard
   shard(x)        a global (n, ...) tensor -> this process's (S, n/D, ...)
   collect(x)      (S, ...) -> (D, ...): every shard of the mesh
@@ -27,7 +29,7 @@ Two backends hold the shards:
 - ``GroupMesh(group)`` runs one rank per process over
   ``torch.distributed`` (gloo on the CPU, NCCL across cards), S = 1. Its
   collectives are ``all_gather``, ``all_to_all_single`` with equal splits
-  of the padded (D, c) blocks, and ``all_reduce(MAX)``. Several cards
+  of the padded (D, c) blocks, and ``all_reduce`` (MAX and SUM). Several cards
   take a GroupMesh, one process per card.
 
 Both keep the JAX package's padded fixed-capacity exchange
@@ -71,6 +73,9 @@ class LocalMesh:
 
     def pmax(self, x: torch.Tensor) -> torch.Tensor:
         return x.amax(0, keepdim=True).expand_as(x)
+
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        return x.to(torch.int64).sum(0, keepdim=True).expand(x.shape)
 
     def collect(self, x: torch.Tensor) -> torch.Tensor:
         return x
@@ -116,6 +121,11 @@ class GroupMesh:
     def pmax(self, x: torch.Tensor) -> torch.Tensor:
         out = x.to(torch.int64).clone()
         dist.all_reduce(out, op=dist.ReduceOp.MAX, group=self.group)
+        return out
+
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        out = x.to(torch.int64).clone()
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=self.group)
         return out
 
     def collect(self, x: torch.Tensor) -> torch.Tensor:

@@ -257,11 +257,17 @@ def quantile_cont(col, qs, backend: str = "radix") -> ContQuantileResult:
                                   U64(b.lo[1::2], b.hi[1::2]),
                                   fracs, shifts, None)
     lower, upper = b[0::2], b[1::2]
+    return ContQuantileResult(lower, upper, fracs, shifts, _interp_f32(
+        lower, upper, [fr / (1 << sh) for fr, sh in zip(fracs, shifts)]))
+
+
+def _interp_f32(lower: torch.Tensor, upper: torch.Tensor,
+                fracs) -> torch.Tensor:
+    """float32 interpolation lower + (upper - lower) * fracs of (Q,)
+    columns at host fractions."""
     lo_f = _to_f32(lower)
-    w = torch.tensor([fr / (1 << sh) for fr, sh in zip(fracs, shifts)],
-                     dtype=torch.float32, device=lo_f.device)
-    return ContQuantileResult(lower, upper, fracs, shifts,
-                              lo_f + (_to_f32(upper) - lo_f) * w)
+    w = torch.tensor(fracs, dtype=torch.float32, device=lo_f.device)
+    return lo_f + (_to_f32(upper) - lo_f) * w
 
 
 class GroupContQuantileResult(NamedTuple):

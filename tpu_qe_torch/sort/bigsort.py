@@ -103,10 +103,12 @@ def _sq_mod32(x: torch.Tensor) -> torch.Tensor:
     return (lo * lo + (((lo * hi) << 17) & U32_MASK)) & U32_MASK
 
 
-def _certify(slo, shi, spay, svals, n_valid: int, seed: int):
+def _certify(slo, shi, spay, svals, n_valid: int, seed: int,
+             keygen=keygen_hash):
     """The nine certificate scalars of a sorted bucket (s_ok, h_ok, count,
     payload sum and sum of squares mod 2^32, first and last key words) as
-    one int64 tensor on the device; rows past n_valid are sentinels."""
+    one int64 tensor on the device; rows past n_valid are sentinels.
+    keygen(payload, seed) is the key each row must hold."""
     dev = slo.device
     ok_sorted = torch.ones((), dtype=torch.bool, device=dev)
     ok_hash = torch.ones((), dtype=torch.bool, device=dev)
@@ -118,7 +120,7 @@ def _certify(slo, shi, spay, svals, n_valid: int, seed: int):
         ok_sorted &= ((hi[1:] > hi[:-1])
                       | ((hi[1:] == hi[:-1]) & (lo[1:] >= lo[:-1]))).all()
         pay = spay[a:b]
-        want = keygen_hash(pay, seed)
+        want = keygen(pay, seed)
         ok_hash &= ((slo[a:b] == want.lo) & (shi[a:b] == want.hi)).all()
         # every value column still belongs to its row's index
         for j, sv in enumerate(svals):
