@@ -164,10 +164,31 @@ Run from the root of the repository on a machine with a CUDA card. Phases:
    --checkpoint-dir with every shard's per-bucket scalars identical to a
    whole run's; and a GroupMesh over NCCL at world size 1 whose psum (and
    distributed quantile) equal a LocalMesh of 1's; B1-B3 launched once
-   per recorded pass in each.
+   per recorded pass in each;
+19. the distributed out-of-core operators (ops/dbig*.py), torch.sort /
+   argsort / unique made to raise, on a LocalMesh of 8: the reference dry
+   run's out-of-core steps at its own size (8 shards x 2 runs x 2048 rows,
+   its generators, seed 7) against its numpy oracles (GROUP BY with min /
+   max, the FK join's match count, the window's row_number and exact
+   running sum, the median and p99, the top 64, INTERSECT), and
+   COUNT(DISTINCT), the fused join -> GROUP BY and ORDER BY at the same
+   size against numpy; then the nine CLIs with --distributed --devices 8
+   at the JAX CLI's default sizes (bench-bigagg 2^30 rows and 2^20 groups,
+   bench-bigjoin and bench-bigpipe 2^29 x 2^29, bench-bigtopk 2^30 with
+   k 1024 and --largest, bench-bigdistinct 2^30, bench-bigsetops 2^29 +
+   2^29 for union, intersect and except, bench-bigquantile 2^30 and
+   --cont, bench-bigwindow 2^29, bench-bigorderby 2^30; runs of 2^26),
+   every check true, with each one's time, rows/s, peak memory, sort
+   passes and balance; bench-bigagg and bench-bigjoin with --devices 1
+   --force-composed at 2^28; a bench-bigagg --distributed process stopped
+   after one of two round tables and a bench-bigjoin --distributed process
+   stopped after one of two bucket rounds, each resumed through the CLI
+   from --checkpoint-dir and equal to an uninterrupted run; a GroupMesh
+   over NCCL at world size 1 whose composed GROUP BY equals LocalMesh(1)'s;
+   B1-B3 launched once per recorded pass in each.
 
 Then it prints the kernel summary as one JSON line (per kernel: launches on
-the main path and the paths of phases 10-18, largest difference from its
+the main path and the paths of phases 10-19, largest difference from its
 references, its time, its plain twin's, the least time the card could
 take for the same bytes or operations, and the time of the one PyTorch
 call that computes the same function, where there is one), the
@@ -242,7 +263,7 @@ def main() -> int:
 
     # -- 1. device
     smi = nvidia_smi_line()
-    log(f"[1/18] device: {smi}; torch {torch.__version__}, "
+    log(f"[1/19] device: {smi}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.device_count()} card(s)")
 
     # -- 2. build
@@ -251,7 +272,7 @@ def main() -> int:
     t1 = time.perf_counter()
     native.pipeline_oracle(10, 10, 7)
     t2 = time.perf_counter()
-    log(f"[2/18] build: CUDA kernels {t1 - t0:.1f} s, C++ core {t2 - t1:.1f} s")
+    log(f"[2/19] build: CUDA kernels {t1 - t0:.1f} s, C++ core {t2 - t1:.1f} s")
 
     # -- 3. kernels against their twins and the C++ oracles
     err = {name: 0 for name in kernels.LAUNCHES}
@@ -550,7 +571,7 @@ def main() -> int:
     log("      exclusive_scan: 1000 scans back to back with fresh scratch "
         "and a scan beside a busy stream bit-exact")
     torch.cuda.synchronize()
-    log("[3/18] radix kernels bit-exact against twins and C++ oracles; "
+    log("[3/19] radix kernels bit-exact against twins and C++ oracles; "
         "max_abs_err " + json.dumps({k: err[k] for k in (
             "block_histogram", "exclusive_scan", "block_rank_and_histogram",
             "rank_and_scatter")}))
@@ -870,7 +891,7 @@ def main() -> int:
                 log(f"      n={n} {label} block={block} shift={shift}: "
                     "B6 bit-exact against twin, B3 and the C++ rank")
     torch.cuda.synchronize()
-    log("[4/18] B4, B5, B6 bit-exact against twins and oracles; max_abs_err "
+    log("[4/19] B4, B5, B6 bit-exact against twins and oracles; max_abs_err "
         + json.dumps({k: err[k] for k in ("encode_quantized_lut",
                                           "sort_chunks",
                                           "block_rank_and_histogram_mxu")}))
@@ -962,7 +983,7 @@ def main() -> int:
                      f"pass ({passes})")
         if launches is None:
             launches = counts
-    log("[5/18] main path: VERIFY PASS at 2^24 triangles for 8x8, 6x11 "
+    log("[5/19] main path: VERIFY PASS at 2^24 triangles for 8x8, 6x11 "
         "and 11x6")
 
     # -- 6. LUT encode path on the verify scene: B4 through morton.encode
@@ -990,7 +1011,7 @@ def main() -> int:
     t_direct = cuda_time(lambda: morton.encode(verts_t, tris_t, params),
                          iters=5)
     del verts, tris, verts_t, tris_t, code
-    log(f"[6/18] LUT encode path: B4 bit-exact on the verify scene; encode "
+    log(f"[6/19] LUT encode path: B4 bit-exact on the verify scene; encode "
         f"(quantize + B4) {t_lut * 1e3:.4f} ms, plain direct encode "
         f"{t_direct * 1e3:.4f} ms at 2^24 triangles")
 
@@ -1010,7 +1031,7 @@ def main() -> int:
                 "block_rank_and_histogram_mxu")
     for name in off_path:
         launches[name] = counts[name]
-    log("[7/18] selfcheck: SELFCHECK PASS")
+    log("[7/19] selfcheck: SELFCHECK PASS")
 
     # -- 8. per-kernel bench
     kernels.reset_launches()
@@ -1022,14 +1043,14 @@ def main() -> int:
                  "block_rank_and_histogram"):
         if counts[name] < 1:
             fail(f"bench-kernels never launched {name}")
-    log(f"[8/18] bench-kernels at 2^24: launches {counts}")
+    log(f"[8/19] bench-kernels at 2^24: launches {counts}")
 
     # -- 9. headline sort
     res = headline.measure(1 << 26, seed=7, iters=10, device="cuda")
     log(f"      {json.dumps(res)}")
     if not res["verified"]:
         fail("radix sort of 2^26 keys differs from stable torch.sort")
-    log(f"[9/18] headline: radix {res['time_s'] * 1e3:.3f} ms, torch.sort "
+    log(f"[9/19] headline: radix {res['time_s'] * 1e3:.3f} ms, torch.sort "
         f"{res['torch_sort_time_s'] * 1e3:.3f} ms for 2^26 keys + payload; "
         "bit-exact")
 
@@ -1106,7 +1127,7 @@ def main() -> int:
     if not all(checks.values()):
         fail(f"operators differ from the numpy oracle at 2^24 rows: {checks}")
     del data, res, jd, out, matched
-    log(f"[10/18] operators: bench-matrix bit-exact across backends at full "
+    log(f"[10/19] operators: bench-matrix bit-exact across backends at full "
         f"size, launches as planned; numpy oracle at 2^24 rows "
         f"{json.dumps(checks)}; {time.perf_counter() - t0:.1f} s")
 
@@ -1259,7 +1280,7 @@ def main() -> int:
         fail(f"quantile / window differ from numpy at 2^22 rows: {checks}")
     del wd, res
     torch.cuda.empty_cache()
-    log(f"[11/18] quantile and window: bench-matrix bit-exact across "
+    log(f"[11/19] quantile and window: bench-matrix bit-exact across "
         f"backends at 2^27 rows, launches as planned; numpy oracle at 2^22 "
         f"rows {json.dumps({k: bool(x) for k, x in checks.items()})}; "
         f"{time.perf_counter() - t0:.1f} s")
@@ -1338,7 +1359,7 @@ def main() -> int:
         f"{counts} = recorded passes {planned}")
     for name in ("block_histogram", "exclusive_scan", "rank_and_scatter"):
         launches[name] += path_launches[name]
-    log(f"[12/18] out-of-core sort: bench-big certificates at 2^30 "
+    log(f"[12/19] out-of-core sort: bench-big certificates at 2^30 "
         f"(partition, merge, in-core) and 2^28 with 3 payload columns, "
         f"numpy oracle, resume; {time.perf_counter() - t0:.1f} s")
 
@@ -1528,7 +1549,7 @@ def main() -> int:
         f"= recorded passes {planned}")
     for name in ("block_histogram", "exclusive_scan", "rank_and_scatter"):
         launches[name] += path_launches[name]
-    log(f"[13/18] out-of-core operators: 12 CLI runs at the JAX CLI's "
+    log(f"[13/19] out-of-core operators: 12 CLI runs at the JAX CLI's "
         f"sizes, every check true and B1-B3 launched once per recorded "
         f"pass; numpy oracles; two resumes; "
         f"{time.perf_counter() - t0:.1f} s")
@@ -1652,7 +1673,7 @@ def main() -> int:
         f"launches {counts} = recorded passes {planned}")
     for name in ("block_histogram", "exclusive_scan", "rank_and_scatter"):
         launches[name] += path_launches[name]
-    log(f"[14/18] last out-of-core operators: 4 CLI runs at the JAX CLI's "
+    log(f"[14/19] last out-of-core operators: 4 CLI runs at the JAX CLI's "
         f"sizes, every check true and B1-B3 launched once per recorded "
         f"pass; numpy oracles; a resume; {time.perf_counter() - t0:.1f} s")
 
@@ -1779,7 +1800,7 @@ def main() -> int:
         f"agrees; launches {counts} = recorded passes {planned}")
     for name in ("block_histogram", "exclusive_scan", "rank_and_scatter"):
         launches[name] += path_launches[name]
-    log(f"[15/18] SQL tier: bench.sql at 2^27 rows and FK joins at 2^24 x "
+    log(f"[15/19] SQL tier: bench.sql at 2^27 rows and FK joins at 2^24 x "
         f"2^22 equal numpy's, {len(cpu_battery)} families equal the CPU "
         f"run's and sqlite3's, no torch.sort / argsort / unique, B1-B3 "
         f"launched once per recorded pass; {time.perf_counter() - t0:.1f} s")
@@ -1835,7 +1856,7 @@ def main() -> int:
         f"(atol 1e-3); launches {counts} = recorded passes {planned}")
     for name in ("block_histogram", "exclusive_scan", "rank_and_scatter"):
         launches[name] += path_launches[name]
-    log(f"[16/18] out-of-core SQL: bench-bigsql's ten verbs at 2^30 rows "
+    log(f"[16/19] out-of-core SQL: bench-bigsql's ten verbs at 2^30 rows "
         f"(vvjoin 2^29 x 2^27), --median and --where, every closed form "
         f"holding; {len(cpu_big)} families equal the CPU run's; no "
         f"torch.sort / argsort / unique, B1-B3 launched once per recorded "
@@ -2138,7 +2159,7 @@ def main() -> int:
             setattr(mod, name, fn)
     for name in ("block_histogram", "exclusive_scan", "rank_and_scatter"):
         launches[name] += path_launches[name]
-    log(f"[17/18] exchange layer: bench-matrix dsort at 2^26 on the default "
+    log(f"[17/19] exchange layer: bench-matrix dsort at 2^26 on the default "
         f"mesh and a LocalMesh of 8, bit-exact across backends; the "
         f"distributed sort, pipeline and dops family on a LocalMesh of 8 "
         f"equal numpy; NCCL at world size 1; no torch.sort / argsort / "
@@ -2532,7 +2553,7 @@ def main() -> int:
             setattr(mod, name, fn)
     for name in ("block_histogram", "exclusive_scan", "rank_and_scatter"):
         launches[name] += path_launches[name]
-    log(f"[18/18] the rest of the exchange layer and the distributed "
+    log(f"[18/19] the rest of the exchange layer and the distributed "
         f"out-of-core sort: the dry run's window, ORDER BY and quantile "
         f"steps and the same at 2^27 rows on a LocalMesh of 8 equal numpy "
         f"and the local operators; bench-big --distributed at 2^30 and "
@@ -2540,6 +2561,315 @@ def main() -> int:
         f"resume; psum over NCCL; no torch.sort / argsort / unique, B1-B3 "
         f"launched once per recorded pass "
         f"({path_launches['block_histogram']} times each); phase 18 "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # -- 19. the distributed out-of-core operators (ops/dbig*.py) on a
+    # LocalMesh of 8 shards on the card, torch.sort / argsort / unique made
+    # to raise: the dry run's steps, the nine CLIs with --distributed, two
+    # --force-composed runs at D = 1, two resumes, a GroupMesh over NCCL
+    t0 = time.perf_counter()
+    for name in path_launches:
+        path_launches[name] = 0
+    torch.cuda.empty_cache()
+    from tpu_qe_torch.ops import bigdistinct as b_dist
+    from tpu_qe_torch.ops import bigorderby as b_ob
+    from tpu_qe_torch.ops import bigpipe as b_pipe
+    from tpu_qe_torch.ops import bigwindow as b_win
+    from tpu_qe_torch.ops import (dbigagg, dbigdistinct, dbigjoin,
+                                  dbigorderby, dbigpipe, dbigquantile,
+                                  dbigsetops, dbigtopk, dbigwindow)
+
+    mesh = LocalMesh(8, dev)
+    dist_rows = []
+    for mod, name, _ in saved:
+        setattr(mod, name, refuse)
+    try:
+        # (a) the reference dry run's out-of-core steps at its own size
+        # (__graft_entry__.dryrun_multichip: 8 shards x 2 runs x 2048 rows,
+        # seed 7), each against the numpy oracle the dry run uses
+        run, dry = 2048, {}
+        n = 8 * 2 * run
+        idx = np.arange(n, dtype=np.uint32)
+        (res, tbl), _, _ = counted(
+            "dbigagg (dry run)", passes_recorded,
+            lambda: dbigagg.aggregate_big_distributed(
+                n, mesh, n_groups=512, run_size=run, collect=True,
+                minmax=True))
+        gid = bigagg.group_of_index_numpy(idx, 512)
+        cnt = np.bincount(gid, minlength=512)
+        sums = np.zeros(512, np.uint64)
+        np.add.at(sums, gid, idx.astype(np.uint64))
+        mn = np.full(512, 0xFFFFFFFF, np.uint32)
+        mx = np.zeros(512, np.uint32)
+        np.minimum.at(mn, gid, idx)
+        np.maximum.at(mx, gid, idx)
+        keep = cnt > 0
+        dry["dbigagg"] = bool(
+            res.all_ok and np.array_equal(tbl["key"], np.flatnonzero(keep))
+            and np.array_equal(tbl["count"], cnt[keep])
+            and np.array_equal(tbl["sum"], sums[keep])
+            and np.array_equal(tbl["min"], mn[keep])
+            and np.array_equal(tbl["max"], mx[keep]))
+        res, _, _ = counted("dbigjoin (dry run)", passes_recorded,
+                            lambda: dbigjoin.join_big_distributed(
+                                n, n, mesh, run_size=run, buckets_per_dev=2))
+        dry["dbigjoin"] = res.all_ok and res.matched == (n + 1) // 2
+        (res, got), _, _ = counted(
+            "dbigwindow (dry run)", passes_recorded,
+            lambda: dbigwindow.window_big_distributed(
+                n, mesh, partitions=16, run_size=run, buckets_per_dev=2,
+                collect=True))
+        okey, oord, oval = b_win.rows_numpy(idx, 16)
+        perm = np.lexsort((idx, oord, okey))
+        sk_, sv_ = okey[perm], oval[perm].astype(np.uint64)
+        new = np.r_[True, sk_[1:] != sk_[:-1]]
+        i_ = np.arange(n)
+        ps = np.maximum.accumulate(np.where(new, i_, 0))
+        cs = np.cumsum(sv_)
+        dry["dbigwindow"] = bool(
+            res.all_ok
+            and np.array_equal(got["rn"], (i_ - ps + 1).astype(np.uint32))
+            and np.array_equal(got["cum"], cs - np.r_[0, cs[:-1]][ps]))
+        res, _, _ = counted("dbigquantile (dry run)", passes_recorded,
+                            lambda: dbigquantile.quantile_big_distributed(
+                                n, [(1, 1), 0.99], mesh, run_size=run))
+        sq = np.sort(keygen_hash_numpy(idx))
+        ((p99_num, p99_shift),) = canon_qs([0.99])
+        dry["dbigquantile"] = bool(
+            res.all_ok and res.values[0] == sq[(n + 1) // 2 - 1]
+            and res.values[1] == sq[disc_rank(p99_num, p99_shift, n)])
+        (res, (tk, tp)), _, _ = counted(
+            "dbigtopk (dry run)", passes_recorded,
+            lambda: dbigtopk.top_k_big_distributed(n, 64, mesh, run_size=run,
+                                                   collect=True))
+        okeys = keygen_hash_numpy(idx)
+        order = np.argsort(okeys, kind="stable")[:64]
+        dry["dbigtopk"] = bool(res.all_ok and np.array_equal(tk, okeys[order])
+                               and np.array_equal(tp, order.astype(
+                                   np.uint32)))
+        res, _, _ = counted("dbigsetops intersect (dry run)", passes_recorded,
+                            lambda: dbigsetops.set_op_big_distributed(
+                                "intersect", n, n, mesh, g_a=96, g_b=160,
+                                offset=32, run_size=run, collect=True,
+                                capacity_factor=8.0))
+        want = bigsetops.expected_result_numpy("intersect", n, 96, n, 160,
+                                               32)
+        dry["dbigsetops"] = bool(res.all_ok and all(
+            np.array_equal(res.table[c], w)
+            for c, w in zip(("key", "count_a", "count_b"), want)))
+        res, _, _ = counted("dbigdistinct", passes_recorded,
+                            lambda: dbigdistinct.count_distinct_big_distributed(
+                                n, mesh, n_groups=64, n_values=100,
+                                run_size=run, collect=True,
+                                capacity_factor=8.0))
+        k_, v_ = b_dist.rows_of_index_numpy(idx, 64, 100)
+        pairs = np.unique((k_.astype(np.uint64) << np.uint64(32)) | v_)
+        dry["dbigdistinct"] = bool(
+            res.all_ok and np.array_equal(res.table["key"], np.arange(64))
+            and np.array_equal(res.table["count_distinct"], np.bincount(
+                (pairs >> np.uint64(32)).astype(np.int64), minlength=64))
+            and np.array_equal(res.table["count"], np.bincount(
+                k_, minlength=64)))
+        (res, tbl), _, _ = counted(
+            "dbigpipe", passes_recorded,
+            lambda: dbigpipe.join_aggregate_big_distributed(
+                n, n, mesh, n_groups=128, run_size=run, collect=True))
+        rk_ = keygen_hash_numpy((idx * np.uint32(2654435761)) % np.uint32(n))
+        lk_ = rk_ & ~np.uint64(1)
+        hit = idx % 2 == 0
+        jv = murmur_fmix32_numpy(
+            (lk_ & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+            ^ (lk_ >> np.uint64(32)).astype(np.uint32)
+            ^ np.uint32(0xABCD1234)).astype(np.uint64)
+        g_ = b_pipe.group_of_join_key_numpy(lk_, 128)
+        cnt = np.bincount(g_[hit], minlength=128)
+        sums = np.zeros(128, np.uint64)
+        np.add.at(sums, g_[hit], jv[hit])
+        keep = cnt > 0
+        dry["dbigpipe"] = bool(
+            res.all_ok and np.array_equal(tbl["key"], np.flatnonzero(keep))
+            and np.array_equal(tbl["count"], cnt[keep])
+            and np.array_equal(tbl["sum"], sums[keep]))
+        (res, got), _, _ = counted(
+            "dbigorderby", passes_recorded,
+            lambda: dbigorderby.order_by_big_distributed(
+                n, mesh, a_card=19, run_size=run, buckets_per_dev=2,
+                collect=True))
+        a_, b_, pay_ = b_ob.rows_numpy(idx, 19)
+        perm = np.lexsort((idx, b_, ~a_))
+        dry["dbigorderby"] = bool(
+            res.all_ok and np.array_equal(got["a"], a_[perm])
+            and np.array_equal(got["b"], b_[perm])
+            and np.array_equal(got["idx"], perm.astype(np.uint32))
+            and np.array_equal(got["pay"], pay_[perm]))
+        if not all(dry.values()):
+            fail(f"the dry run's out-of-core steps on LocalMesh(8) differ "
+                 f"from numpy: {dry}")
+        log(f"      the dry run's out-of-core steps at {n} rows (8 shards x "
+            f"2 runs x {run}) and dbigdistinct, dbigpipe, dbigorderby on "
+            f"LocalMesh(8): equal to numpy {dry}")
+
+        # (b) the nine CLIs with --distributed --devices 8 at the JAX CLI's
+        # defaults (runs of 2^26)
+        for base in (["bench-bigagg"], ["bench-bigjoin"], ["bench-bigpipe"],
+                     ["bench-bigtopk"], ["bench-bigtopk", "--largest"],
+                     ["bench-bigdistinct"],
+                     ["bench-bigsetops", "--op", "union"],
+                     ["bench-bigsetops", "--op", "intersect"],
+                     ["bench-bigsetops", "--op", "except"],
+                     ["bench-bigquantile"], ["bench-bigquantile", "--cont"],
+                     ["bench-bigwindow"], ["bench-bigorderby"]):
+            argv = base + ["--distributed", "--devices", "8"]
+            (row,), counts, planned = counted(" ".join(argv),
+                                              passes_recorded,
+                                              lambda: cli_rows(argv))
+            log(f"      {json.dumps(row)}")
+            if not (row["verified"] and all(row["checks"].values())
+                    and row["composed"] and row["devices"] == 8):
+                fail(f"{' '.join(argv)}: a check failed: {row}")
+            dist_rows.append(row)
+            log(f"      {' '.join(argv)}: every check holds, "
+                f"{row['time_s']:.4f} s, {row['value'] / 1e9:.4f} G "
+                f"{row['unit']}, peak {row['peak_mem_bytes'] / 1e9:.2f} GB, "
+                f"{row['sort_passes']} sort passes, balance "
+                f"{row.get('balance', 'n/a (no rows move)')}; launches "
+                f"{counts} = recorded passes {planned}")
+            torch.cuda.empty_cache()
+
+        # (c) --devices 1 --force-composed at 2^28: the composed machinery
+        # on a mesh of one
+        for argv in (["bench-bigagg", "--n", str(1 << 28)],
+                     ["bench-bigjoin", "--n-left", str(1 << 28),
+                      "--n-right", str(1 << 28)]):
+            argv = argv + ["--distributed", "--devices", "1",
+                           "--force-composed"]
+            (row,), counts, planned = counted(" ".join(argv),
+                                              passes_recorded,
+                                              lambda: cli_rows(argv))
+            log(f"      {json.dumps(row)}")
+            if not (row["verified"] and all(row["checks"].values())
+                    and row["composed"] and row["devices"] == 1):
+                fail(f"{' '.join(argv)}: a check failed: {row}")
+            dist_rows.append(row)
+            log(f"      {' '.join(argv)}: every check holds, "
+                f"{row['time_s']:.4f} s, peak "
+                f"{row['peak_mem_bytes'] / 1e9:.2f} GB; launches {counts} = "
+                f"recorded passes {planned}")
+            torch.cuda.empty_cache()
+
+        # (d) a bench-bigagg and a bench-bigjoin --distributed --devices 8
+        # process, each stopped partway, resumed through the CLI from
+        # --checkpoint-dir, against an uninterrupted run
+        stopper = (
+            "import os, sys\n"
+            "from tpu_qe_torch.__main__ import main\n"
+            "from tpu_qe_torch.ops import bigagg, dbigjoin\n"
+            "save, record = bigagg._run_ck_save, dbigjoin._DJoinState.record\n"
+            "def stop_after_one_save(*a):\n"
+            "    save(*a)\n"
+            "    os._exit(3)\n"
+            "def stop_after_one_record(self, b, vals):\n"
+            "    record(self, b, vals)\n"
+            "    os._exit(3)\n"
+            "bigagg._run_ck_save = stop_after_one_save\n"
+            "dbigjoin._DJoinState.record = stop_after_one_record\n"
+            "main(sys.argv[1:])\n")
+        n_a, run_a = 1 << 28, 1 << 24          # two runs a shard
+        agg_argv = ["bench-bigagg", "--distributed", "--devices", "8",
+                    "--n", str(n_a), "--run-size", str(run_a)]
+        with tempfile.TemporaryDirectory() as part_dir:
+            rc = subprocess.run([sys.executable, "-c", stopper] + agg_argv
+                                + ["--checkpoint-dir", part_dir],
+                                timeout=600).returncode
+            tables = sorted(os.listdir(part_dir))
+            if rc != 3 or tables != ["bigagg_rund0.npz"]:
+                fail(f"the distributed GROUP BY stopped after one round "
+                     f"exited with {rc} and left {tables}")
+            (row,), counts, planned = counted(
+                "resumed bench-bigagg --distributed", passes_recorded,
+                lambda: cli_rows(agg_argv + ["--checkpoint-dir", part_dir]))
+            _, got = dbigagg.aggregate_big_distributed(
+                n_a, mesh, run_size=run_a, checkpoint_dir=part_dir,
+                collect=True)
+            _, want = dbigagg.aggregate_big_distributed(
+                n_a, mesh, run_size=run_a, collect=True)
+            if not (row["verified"] and all(np.array_equal(got[k], want[k])
+                                            for k in want)):
+                fail(f"the resumed distributed GROUP BY differs from a whole "
+                     f"run: {row}")
+        log(f"      bench-bigagg --distributed --devices 8 at 2^28 resumed "
+            f"with one of two round tables: every check holds, the table "
+            f"equals a whole run's; launches {counts} = recorded passes "
+            f"{planned}")
+        n_j, run_j = 1 << 27, 1 << 24
+        join_argv = ["bench-bigjoin", "--distributed", "--devices", "8",
+                     "--n-left", str(n_j), "--n-right", str(n_j),
+                     "--run-size", str(run_j), "--buckets", "2"]
+        meta = np.asarray([n_j, n_j, 8, run_j, 2, 7, 4096], np.int64)
+        with tempfile.TemporaryDirectory() as full, \
+                tempfile.TemporaryDirectory() as part_dir:
+            whole = dbigjoin.join_big_distributed(
+                n_j, n_j, mesh, run_size=run_j, buckets_per_dev=2,
+                checkpoint_dir=full)
+            rc = subprocess.run([sys.executable, "-c", stopper] + join_argv
+                                + ["--checkpoint-dir", part_dir],
+                                timeout=600).returncode
+            stopped = dbigjoin._DJoinState.load(part_dir, meta)
+            if rc != 3 or stopped is None or int(stopped.done.sum()) != 1:
+                fail(f"the distributed join stopped after one bucket round "
+                     f"exited with {rc} and did not leave one round recorded")
+            (row,), counts, planned = counted(
+                "resumed bench-bigjoin --distributed", passes_recorded,
+                lambda: cli_rows(join_argv + ["--checkpoint-dir", part_dir]))
+            a = dbigjoin._DJoinState.load(full, meta)
+            b = dbigjoin._DJoinState.load(part_dir, meta)
+            if not (row["verified"] and whole.all_ok and b.done.all()
+                    and row["matched"] == whole.matched
+                    and np.array_equal(a.scalars, b.scalars)
+                    and np.array_equal(a.bounds, b.bounds)):
+                fail(f"the resumed distributed join differs from the whole "
+                     f"run: {row}")
+        log(f"      bench-bigjoin --distributed --devices 8 at 2^27 x 2^27 "
+            f"resumed after one of two bucket rounds: every shard's "
+            f"per-bucket scalars identical to the whole run's; launches "
+            f"{counts} = recorded passes {planned}")
+
+        # (e) a GroupMesh over NCCL at world size 1: the composed GROUP BY
+        # equals LocalMesh(1)'s
+        import torch.distributed as tdist
+        tdist.init_process_group("nccl", store=tdist.HashStore(), rank=0,
+                                 world_size=1)
+        try:
+            gm = make_mesh()
+            kw = dict(n_groups=1 << 16, run_size=1 << 22, collect=True,
+                      minmax=True, force_composed=True)
+            (gres, gtab), _, _ = counted(
+                "aggregate_big_distributed on a GroupMesh", passes_recorded,
+                lambda: dbigagg.aggregate_big_distributed(1 << 24, gm, **kw))
+            lres, ltab = dbigagg.aggregate_big_distributed(
+                1 << 24, LocalMesh(1, dev), **kw)
+            if not (isinstance(gm, GroupMesh) and gres.all_ok
+                    and gres.n_groups == lres.n_groups
+                    and all(np.array_equal(gtab[k], ltab[k]) for k in ltab)):
+                fail("aggregate_big_distributed on a GroupMesh over NCCL "
+                     "differs from LocalMesh(1)")
+        finally:
+            tdist.destroy_process_group()
+        log("      GroupMesh over NCCL, world size 1: "
+            "aggregate_big_distributed(2^24, force_composed=True) equals "
+            "LocalMesh(1)'s table")
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    for name in ("block_histogram", "exclusive_scan", "rank_and_scatter"):
+        launches[name] += path_launches[name]
+    log(f"[19/19] the distributed out-of-core operators: the dry run's steps "
+        f"on LocalMesh(8) equal numpy; the nine CLIs with --distributed "
+        f"--devices 8 at the JAX CLI's sizes ({len(dist_rows) - 2} runs) and "
+        f"two --force-composed runs at 2^28, every check true; two resumes; "
+        f"a GroupMesh over NCCL; no torch.sort / argsort / unique, B1-B3 "
+        f"launched once per recorded pass "
+        f"({path_launches['block_histogram']} times each); phase 19 "
         f"{time.perf_counter() - t0:.1f} s")
 
     src = "tpu_qe_torch/csrc/"
@@ -2567,7 +2897,8 @@ def main() -> int:
                          "bigquantile, bigwindow, bigorderby + the SQL "
                          "tier + the out-of-core SQL tier + the exchange "
                          "layer (dsort, dops, dwindow, dorderby, "
-                         "dquantile) + bench-big --distributed"),
+                         "dquantile) + bench-big --distributed + the "
+                         "distributed out-of-core operators (dbig*)"),
          "max_abs_err": err[name],
          "ms": ms[name][0], "plain_ms": ms[name][1],
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],

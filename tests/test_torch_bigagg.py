@@ -272,21 +272,28 @@ def test_defaults_and_fields_are_the_reference_s():
 
 
 def test_ops_package_exports_the_ported_big_operators():
+    import inspect
+
     import tpu_qe.ops as jops
     import tpu_qe_torch.ops as tops
-    names = ("aggregate_big", "aggregate_big_multi", "join_big",
-             "join_big_outer", "count_distinct_big", "set_op_big",
-             "top_k_big", "join_aggregate_big", "quantile_big",
-             "window_big", "order_by_big")
-    for name in names:
-        fn = getattr(tops, name)
-        assert fn.__module__.startswith("tpu_qe_torch.ops.big")
-        assert fn.__name__ == getattr(jops, name).__name__
-    # every single-device entry of the reference's map, no distributed one
-    assert set(names) == set(tops._BIG_EXPORTS) == {
-        n for n, m in jops._BIG_EXPORTS.items() if not m.startswith("dbig")}
+    # the reference's whole map: the single-device and the distributed
+    # out-of-core operators
+    assert tops._BIG_EXPORTS == jops._BIG_EXPORTS
+    for name, mod in tops._BIG_EXPORTS.items():
+        fn, ref = getattr(tops, name), getattr(jops, name)
+        assert fn.__module__ == f"tpu_qe_torch.ops.{mod}", name
+        assert fn.__name__ == ref.__name__ == name
+        if mod.startswith("dbig"):
+            # the reference's parameters, defaults and order, plus at most
+            # a stats dict
+            jp = inspect.signature(ref).parameters
+            tp = dict(inspect.signature(fn).parameters)
+            assert list(tp)[:len(jp)] == list(jp), name
+            for p, q in jp.items():
+                assert tp[p].default == q.default, (name, p)
+            assert set(tp) - set(jp) <= {"stats"}, name
     with pytest.raises(AttributeError):
-        tops.window_big_distributed     # not ported yet (Queue A item 10)
+        tops.no_such_operator  # noqa: B018
 
 
 def _cli(capsys, argv):

@@ -285,15 +285,50 @@ def test_cli_defaults_are_the_reference_cli_s(cmd, monkeypatch):
     assert got["device"] == "cuda" and got["trace_dir"] is None
 
 
+# small sizes that divide over 1, 2 and 4 shards of two runs each
+_DIST_SIZES = {
+    "bench-bigagg": ["--n", "16384", "--run-size", "2048", "--groups",
+                     "512"],
+    "bench-bigjoin": ["--n-left", "8192", "--n-right", "8192",
+                      "--run-size", "1024"],
+    "bench-bigpipe": ["--n-left", "8192", "--n-right", "8192",
+                      "--run-size", "1024", "--groups", "64"],
+    "bench-bigtopk": ["--n", "16384", "--run-size", "2048", "--k", "16"],
+    "bench-bigdistinct": ["--n", "16384", "--run-size", "2048", "--groups",
+                          "64", "--values", "8"],
+    "bench-bigsetops": ["--n-a", "8192", "--n-b", "8192", "--run-size",
+                        "1024", "--g-a", "300", "--g-b", "200", "--offset",
+                        "150"],
+}
+
+
 @pytest.mark.parametrize("cmd", ["bench-bigagg", "bench-bigjoin",
                                  "bench-bigpipe", "bench-bigtopk",
                                  "bench-bigdistinct", "bench-bigsetops"])
-@pytest.mark.parametrize("flag", [["--distributed"], ["--devices", "4"],
-                                  ["--force-composed"]])
+@pytest.mark.parametrize("flag", [["--distributed", "--devices", "2"],
+                                  ["--distributed", "--devices", "4"],
+                                  ["--distributed", "--devices", "1",
+                                   "--force-composed"]])
 def test_cli_refuses_the_distributed_path(cmd, flag, capsys):
+    # --distributed runs the distributed operator on a LocalMesh of the
+    # CPU (at --devices 1 the composed path with --force-composed): every
+    # check holds and the line names the mesh
+    import json
+
     from tpu_qe_torch.__main__ import main
-    assert main([cmd, "--device", "cpu"] + flag) == 2
-    assert "ROADMAP Queue A item 10" in capsys.readouterr().err
+    d = int(flag[2])
+    assert main([cmd, "--device", "cpu"] + _DIST_SIZES[cmd] + flag) == 0
+    (row,) = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()
+              if ln.startswith("{")]
+    assert row["verified"] and all(row["checks"].values()), row
+    assert row["metric"].endswith(f", {d} devices"), row["metric"]
+    assert row["devices"] == d and row["mesh"] == f"LocalMesh({d}, cpu)"
+    assert row["time_s"] == "not measured" and row["sort_passes"] > 0
+    if cmd in ("bench-bigjoin", "bench-bigpipe", "bench-bigdistinct",
+               "bench-bigsetops"):
+        assert row["balance"] >= 1.0, row["balance"]
+    else:       # no row moves between the shards
+        assert "balance" not in row
 
 
 @pytest.mark.parametrize("extra", [[], ["--buckets", "3"]])

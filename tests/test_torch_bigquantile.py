@@ -193,10 +193,19 @@ def test_cli_rehearses_on_the_cpu(extra, capsys):
 
 
 def test_cli_refuses_the_distributed_path(capsys):
+    # --distributed --devices 2 runs the distributed operator on a
+    # LocalMesh of the CPU: every check holds and the line names the mesh
     from tpu_qe_torch.__main__ import main
-    assert main(["bench-bigquantile", "--device", "cpu", "--distributed"]
-                ) == 2
-    assert "Queue A item 10" in capsys.readouterr().err
+    argv = ["bench-bigquantile", "--device", "cpu", "--n", "16384",
+            "--run-size", "2048", "--distributed", "--devices", "2"]
+    assert main(argv) == 0
+    (row,) = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()
+              if ln.startswith("{")]
+    assert row["verified"] and all(row["checks"].values()), row
+    assert row["metric"].endswith(", 2 devices"), row["metric"]
+    assert row["devices"] == 2 and row["mesh"] == "LocalMesh(2, cpu)"
+    assert row["time_s"] == "not measured" and row["sort_passes"] > 0
+    assert row["runs"] == 8 and "balance" not in row    # no row moves
 
 
 def test_entry_points_default_to_the_card():

@@ -359,10 +359,23 @@ def test_cli_rehearses_on_the_cpu_and_resumes(capsys, tmp_path):
     assert rows[0]["sort_passes"] == 4 * 12
 
 
-def test_cli_refuses_the_distributed_path(capsys):
+def test_cli_refuses_the_distributed_path(capsys, tmp_path):
+    # --distributed --devices 2 runs the distributed operator on a
+    # LocalMesh of the CPU: every check holds and the line names the mesh
     from tpu_qe_torch.__main__ import main
-    assert main(["bench-bigwindow", "--device", "cpu", "--distributed"]) == 2
-    assert "Queue A item 10" in capsys.readouterr().err
+    argv = ["bench-bigwindow", "--device", "cpu", "--n", "16384",
+            "--run-size", "2048", "--distributed", "--devices", "2"]
+    assert main(argv) == 0
+    (row,) = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()
+              if ln.startswith("{")]
+    assert row["verified"] and all(row["checks"].values()), row
+    assert row["metric"].endswith(", 2 devices"), row["metric"]
+    assert row["devices"] == 2 and row["mesh"] == "LocalMesh(2, cpu)"
+    assert row["time_s"] == "not measured" and row["sort_passes"] > 0
+    assert row["balance"] >= 1.0, row["balance"]
+    # the distributed window keeps no checkpoint (the reference asserts)
+    with pytest.raises(AssertionError, match="single-chip path"):
+        main(argv + ["--checkpoint-dir", str(tmp_path)])
 
 
 def test_entry_point_defaults_to_the_card():

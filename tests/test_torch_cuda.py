@@ -1733,3 +1733,106 @@ def test_group_mesh_psum_over_nccl_at_world_size_1(cuda):
         assert torch.equal(gm.psum(y), lm.psum(y))
     finally:
         dist.destroy_process_group()
+
+
+def _plain(x):
+    """A result without its times (dataclasses as dicts of their other
+    fields, recursively), for comparing the card's run with the CPU's."""
+    import dataclasses
+    if dataclasses.is_dataclass(x):
+        return {k: _plain(v) for k, v in dataclasses.asdict(x).items()
+                if not (k.endswith("_s") or k == "seconds")}
+    if isinstance(x, (tuple, list)):
+        return [_plain(v) for v in x]
+    if isinstance(x, dict):
+        return {k: _plain(v) for k, v in x.items()}
+    if isinstance(x, np.ndarray):
+        return ("array", x.dtype.str, x.tolist())
+    return x
+
+
+_RUN = 1 << 14          # four shards of two runs: 2^17 rows a side
+
+
+def _dbig_case(name, mesh):
+    from tpu_qe_torch.ops import (dbigagg, dbigdistinct, dbigjoin,
+                                  dbigorderby, dbigpipe, dbigquantile,
+                                  dbigsetops, dbigtopk, dbigwindow)
+    n = mesh.n_dev * 2 * _RUN
+    if name == "agg":
+        return dbigagg.aggregate_big_distributed(
+            n, mesh, n_groups=1 << 12, run_size=_RUN, collect=True,
+            minmax=True)
+    if name == "join":
+        return dbigjoin.join_big_distributed(n, n, mesh, run_size=_RUN,
+                                             buckets_per_dev=3)
+    if name == "pipe":
+        return dbigpipe.join_aggregate_big_distributed(
+            n, n // 2, mesh, n_groups=1 << 10, run_size=_RUN // 2,
+            collect=True)
+    if name == "topk":
+        return dbigtopk.top_k_big_distributed(n, 100, mesh, run_size=_RUN,
+                                              largest=True, collect=True)
+    if name == "distinct":
+        return dbigdistinct.count_distinct_big_distributed(
+            n, mesh, n_groups=1 << 10, n_values=37, run_size=_RUN,
+            collect=True)
+    if name == "setops":
+        return [dbigsetops.set_op_big_distributed(
+            op, n, n, mesh, g_a=3 << 10, g_b=1 << 11, offset=1 << 10,
+            run_size=_RUN, collect=True)
+            for op in ("union", "intersect", "except")]
+    if name == "quantile":
+        return (dbigquantile.quantile_big_distributed(
+            n, [0.0, 0.01, (1, 1), 0.99, 1.0], mesh, run_size=_RUN),
+            dbigquantile.quantile_cont_big_distributed(
+                n, [(1, 1), (3, 2)], mesh, run_size=_RUN, key_bits=8))
+    if name == "window":
+        return dbigwindow.window_big_distributed(
+            n, mesh, partitions=3, run_size=_RUN, buckets_per_dev=2,
+            collect=True)
+    assert name == "orderby"
+    return dbigorderby.order_by_big_distributed(
+        n, mesh, a_card=7, run_size=_RUN, buckets_per_dev=2, collect=True)
+
+
+@pytest.mark.parametrize("name", ["agg", "join", "pipe", "topk", "distinct",
+                                  "setops", "quantile", "window", "orderby"])
+def test_dbig_operators_on_a_local_mesh_of_4_match_the_cpu(cuda, monkeypatch,
+                                                           name):
+    # every distributed out-of-core operator on LocalMesh(4) of the card:
+    # each result field but the times, and every collected table, equal
+    # the same operator's on LocalMesh(4) of the CPU; no torch sort runs
+    # and B1-B3 launch once per recorded pass
+    from tpu_qe_torch.exchange import LocalMesh
+    from tpu_qe_torch.sort import driver
+    want = _plain(_dbig_case(name, LocalMesh(4, "cpu")))
+    _refuse_torch_sorts(monkeypatch)
+    kernels.reset_launches()
+    driver.RADIX_PASSES.clear()
+    got = _plain(_dbig_case(name, LocalMesh(4, cuda)))
+    assert _launches_match_passes()
+    assert got == want
+
+
+@pytest.mark.parametrize("cmd", ["bench-bigagg", "bench-bigjoin",
+                                 "bench-bigpipe", "bench-bigtopk",
+                                 "bench-bigdistinct", "bench-bigsetops",
+                                 "bench-bigquantile", "bench-bigwindow",
+                                 "bench-bigorderby"])
+def test_bigops_distributed_cli_on_the_card(cuda, capsys, cmd):
+    sizes = {"bench-bigjoin": ["--n-left", "2097152", "--n-right",
+                               "2097152"],
+             "bench-bigpipe": ["--n-left", "2097152", "--n-right",
+                               "2097152"],
+             "bench-bigsetops": ["--n-a", "2097152", "--n-b", "2097152",
+                                 "--g-a", "65536", "--g-b", "65536",
+                                 "--offset", "32768"]}
+    argv = [cmd, "--distributed", "--devices", "8", "--run-size",
+            str(1 << 18)] + sizes.get(cmd, ["--n", str(1 << 22)])
+    assert main(argv) == 0
+    row = json.loads([ln for ln in capsys.readouterr().out.splitlines()
+                      if ln.startswith("{")][-1])
+    assert row["verified"] and row["devices"] == 8
+    assert row["metric"].endswith(", 8 devices")
+    assert row["peak_mem_bytes"] > 0 and row["time_s"] > 0

@@ -17,7 +17,8 @@
   bench-bigdistinct, bench-bigsetops, bench-bigquantile (--cont),
   bench-bigwindow, bench-bigorderby
            the out-of-core operators at the JAX CLI's sizes, verified on
-           the device, one JSON line each (tpu_qe_torch/bench/bigops.py)
+           the device, one JSON line each; --distributed over a mesh of
+           shards (tpu_qe_torch/bench/bigops.py)
   bench-bigsql   the out-of-core SQL tier over virtual tables: one of ten
            verbs (--verb) at the JAX CLI's sizes, checked against its closed
            form, one JSON line (tpu_qe_torch/bench/bigsql.py)
@@ -158,12 +159,16 @@ def _add_bigops(sub) -> None:
         p.add_argument("--run-size", type=int, default=1 << 26,
                        help=run_size_help)
         p.add_argument("--distributed", action="store_true",
-                       help="the distributed dbig* operator: not ported "
-                            "yet, exits 2 (ROADMAP Queue A item 10)")
+                       help="the distributed operator (ops/dbig*.py) over "
+                            "a mesh of shards")
         p.add_argument("--devices", type=int, default=None,
-                       help="mesh size for --distributed (not ported)")
+                       help="mesh size for --distributed (default: one "
+                            "shard per card; D > 1 on one card is a "
+                            "LocalMesh of D shards)")
         p.add_argument("--force-composed", action="store_true",
-                       help="the distributed path's option (not ported)")
+                       help="keep the composed path at --devices 1 (it "
+                            "delegates to the single-device operator "
+                            "otherwise)")
         p.add_argument("--verbose-big", action="store_true")
         p.add_argument("--trace-dir", type=str, default=None,
                        help="profile one more run: a Chrome trace here, "

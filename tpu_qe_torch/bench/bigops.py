@@ -18,7 +18,8 @@
     python -m tpu_qe_torch bench-bigorderby [--n 2^30] [--a-card A]
         [--run-size 2^26] [--buckets B]
 
-each with [--verbose-big] [--trace-dir DIR] [--device cuda]. The defaults
+each with [--distributed [--devices D] [--force-composed]]
+[--verbose-big] [--trace-dir DIR] [--device cuda]. The defaults
 and the fields are the JAX package's CLI's (tpu_qe/__main__.py); the line
 adds the passes its sorts ran (`sort_passes`, sort.driver.RADIX_PASSES),
 the peak device memory and the card's name and power limit, and for
@@ -30,26 +31,31 @@ is profiled (torch.profiler, DIR/trace.json) and the line gains `profile`
 (bench/big.py). On a CPU device the checks hold the same and every time
 is "not measured". Exit 0 when every check holds, else 1.
 
---distributed, --devices and --force-composed are accepted and refused
-(exit 2): the distributed out-of-core operators (the dbig* modules) are
-ROADMAP Queue A item 10; the distributed out-of-core sort they build on
-is `bench-big --distributed`.
+--distributed runs the distributed operator (ops/dbig*.py) over
+make_mesh(--devices) on the device: one shard per card by default, a
+LocalMesh of D shards on the device with --devices D (one card then does
+every shard's work, its all_to_all a copy in the card's memory). At D = 1
+the call delegates to the single-device operator unless --force-composed
+(bench-bigquantile always runs composed, as the reference does);
+--run-size is then per run of a shard and --buckets per shard. The line
+adds `devices`, the mesh, `composed` (false where D = 1 delegated) and
+`balance` where rows move (the most rows or
+route pairs a shard received over their mean); the warm-up run is the
+same path on the same mesh. bench-bigjoin --outer ignores --distributed,
+as the reference does; bench-bigagg --distributed takes no --value-cols
+and bench-bigwindow --distributed no --checkpoint-dir (the reference
+asserts both).
 """
 
 from __future__ import annotations
 
 import json
 import os
-import sys
 
 import torch
 
 from tpu_qe_torch.config import resolve_device
 
-NOT_PORTED = ("the distributed out-of-core operators (the dbig* modules: "
-              "--distributed, --devices, --force-composed) are not ported "
-              "yet: ROADMAP Queue A item 10 (the distributed sort they "
-              "build on is bench-big --distributed)")
 WARM_N = 1 << 16            # rows of the untimed warm-up run
 WARM_RUN = 1 << 14
 
@@ -139,9 +145,110 @@ def _bigorderby(args, dev, warm: bool, **kw):
                         **kw)
 
 
-def _row_bigagg(args, res) -> dict:
-    where = (f"1 card, {args.value_cols} value cols" if args.value_cols > 1
-             else "1 card")
+def _warm(mesh) -> int:
+    """Rows of the distributed warm-up run: two runs a shard."""
+    return mesh.n_dev * 2 * WARM_RUN
+
+
+def _dbigagg(args, mesh, warm: bool, **kw):
+    from tpu_qe_torch.ops.dbigagg import aggregate_big_distributed
+    kw.pop("stats", None)
+    n, run, g = ((_warm(mesh), WARM_RUN, min(args.groups, 1 << 12)) if warm
+                 else (args.n, args.run_size, args.groups))
+    return aggregate_big_distributed(n, mesh, n_groups=g, run_size=run,
+                                     minmax=args.minmax,
+                                     force_composed=args.force_composed,
+                                     **kw)
+
+
+def _dbigjoin(args, mesh, warm: bool, **kw):
+    from tpu_qe_torch.ops.dbigjoin import join_big_distributed
+    n_l, n_r, run, b = ((_warm(mesh), _warm(mesh), WARM_RUN, 2) if warm
+                        else (args.n_left, args.n_right, args.run_size,
+                              args.buckets))
+    return join_big_distributed(n_l, n_r, mesh, run_size=run,
+                                buckets_per_dev=b,
+                                force_composed=args.force_composed, **kw)
+
+
+def _dbigpipe(args, mesh, warm: bool, **kw):
+    from tpu_qe_torch.ops.dbigpipe import join_aggregate_big_distributed
+    n_l, n_r, run, g, b = (
+        (_warm(mesh), _warm(mesh), WARM_RUN, min(args.groups, 1 << 10), 2)
+        if warm else (args.n_left, args.n_right, args.run_size, args.groups,
+                      args.buckets))
+    return join_aggregate_big_distributed(
+        n_l, n_r, mesh, n_groups=g, run_size=run, buckets_per_dev=b,
+        force_composed=args.force_composed, **kw)
+
+
+def _dbigtopk(args, mesh, warm: bool, **kw):
+    from tpu_qe_torch.ops.dbigtopk import top_k_big_distributed
+    kw.pop("stats", None)
+    n, k, run = ((_warm(mesh), min(args.k, WARM_RUN), WARM_RUN) if warm
+                 else (args.n, args.k, args.run_size))
+    return top_k_big_distributed(n, k, mesh, run_size=run,
+                                 largest=args.largest,
+                                 force_composed=args.force_composed, **kw)
+
+
+def _dbigdistinct(args, mesh, warm: bool, **kw):
+    from tpu_qe_torch.ops.dbigdistinct import count_distinct_big_distributed
+    n, run, g = ((_warm(mesh), WARM_RUN, min(args.groups, 1 << 8)) if warm
+                 else (args.n, args.run_size, args.groups))
+    return count_distinct_big_distributed(
+        n, mesh, n_groups=g, n_values=args.values, run_size=run,
+        force_composed=args.force_composed, **kw)
+
+
+def _dbigsetops(args, mesh, warm: bool, **kw):
+    from tpu_qe_torch.ops.dbigsetops import set_op_big_distributed
+    if warm:
+        sizes = dict(n_a=_warm(mesh), n_b=_warm(mesh),
+                     g_a=min(args.g_a, 1 << 10), g_b=min(args.g_b, 1 << 10),
+                     offset=min(args.offset, 1 << 9), run_size=WARM_RUN)
+    else:
+        sizes = dict(n_a=args.n_a, n_b=args.n_b, g_a=args.g_a, g_b=args.g_b,
+                     offset=args.offset, run_size=args.run_size)
+    return set_op_big_distributed(args.op, mesh=mesh,
+                                  force_composed=args.force_composed,
+                                  **sizes, **kw)
+
+
+def _dbigquantile(args, mesh, warm: bool, **kw):
+    from tpu_qe_torch.ops.dbigquantile import (quantile_big_distributed,
+                                               quantile_cont_big_distributed)
+    kw.pop("stats", None)
+    n, run = (_warm(mesh), WARM_RUN) if warm else (args.n, args.run_size)
+    qs = [float(q) for q in args.qs.split(",")]
+    fn = quantile_cont_big_distributed if args.cont \
+        else quantile_big_distributed
+    return fn(n, qs, mesh, run_size=run, **kw)
+
+
+def _dbigwindow(args, mesh, warm: bool, **kw):
+    from tpu_qe_torch.ops.dbigwindow import window_big_distributed
+    n, run, p, b = ((_warm(mesh), WARM_RUN, None, 2) if warm
+                    else (args.n, args.run_size, args.partitions,
+                          args.buckets))
+    return window_big_distributed(n, mesh, partitions=p, run_size=run,
+                                  buckets_per_dev=b,
+                                  force_composed=args.force_composed, **kw)
+
+
+def _dbigorderby(args, mesh, warm: bool, **kw):
+    from tpu_qe_torch.ops.dbigorderby import order_by_big_distributed
+    n, run, a, b = ((_warm(mesh), WARM_RUN, None, 2) if warm
+                    else (args.n, args.run_size, args.a_card, args.buckets))
+    return order_by_big_distributed(n, mesh, a_card=a, run_size=run,
+                                    buckets_per_dev=b,
+                                    force_composed=args.force_composed,
+                                    **kw)
+
+
+def _row_bigagg(args, res, where: str) -> dict:
+    if args.value_cols > 1:
+        where += f", {args.value_cols} value cols"
     return {
         "metric": f"out-of-core GROUP BY {res.n} rows -> "
                   f"{res.n_groups} groups, {where}",
@@ -153,7 +260,7 @@ def _row_bigagg(args, res) -> dict:
                    "minmax": res.minmax_ok}}
 
 
-def _row_bigjoin(args, res) -> dict:
+def _row_bigjoin(args, res, where: str) -> dict:
     row = {"unit": "left rows/s", "value": res.rows_per_s,
            "time_s": res.seconds, "matched": res.matched,
            "phase_sort_s": res.phase_a_s,
@@ -163,19 +270,22 @@ def _row_bigjoin(args, res) -> dict:
                       "counts": res.count_ok}}
     if args.outer is not None:
         row["metric"] = (f"out-of-core {args.outer.upper()} OUTER join "
-                         f"{res.n_l} x {res.n_r} rows, 1 card")
+                         f"{res.n_l} x {res.n_r} rows, {where}")
         row["right_only"] = res.right_only
         row["checks"]["right_only"] = res.ro_ok
     else:
         row["metric"] = (f"out-of-core FK join {res.n_l} x {res.n_r} rows, "
-                         "1 card")
+                         f"{where}")
+    if hasattr(res, "phase_x_s"):       # the distributed join's phases
+        row["phase_plan_s"] = res.phase_b_s
+        row["phase_exchange_s"] = res.phase_x_s
     return row
 
 
-def _row_bigpipe(args, res) -> dict:
+def _row_bigpipe(args, res, where: str) -> dict:
     return {
         "metric": f"fused out-of-core join+GROUP BY {res.n_l} x {res.n_r} "
-                  f"rows -> {res.n_groups} groups, 1 card",
+                  f"rows -> {res.n_groups} groups, {where}",
         "unit": "left rows/s", "value": res.rows_per_s,
         "time_s": res.seconds, "matched": res.matched,
         "verified": res.all_ok,
@@ -183,9 +293,9 @@ def _row_bigpipe(args, res) -> dict:
                    "keys": res.keys_ok}}
 
 
-def _row_bigtopk(args, res) -> dict:
+def _row_bigtopk(args, res, where: str) -> dict:
     return {
-        "metric": f"out-of-core top-{res.k} of {res.n} rows, 1 card",
+        "metric": f"out-of-core top-{res.k} of {res.n} rows, {where}",
         "unit": "rows/s", "value": res.rows_per_s, "time_s": res.seconds,
         "phase_select_s": res.phase_a_s, "phase_combine_s": res.phase_b_s,
         "verified": res.all_ok,
@@ -193,12 +303,14 @@ def _row_bigtopk(args, res) -> dict:
                    "distinct": res.distinct_ok}}
 
 
-def _row_bigdistinct(args, res) -> dict:
+def _row_bigdistinct(args, res, where: str) -> dict:
     return {
         "metric": f"out-of-core COUNT(DISTINCT) {res.n} rows -> "
-                  f"{res.num_groups} groups, 1 card",
+                  f"{res.num_groups} groups, {where}",
         "unit": "rows/s", "value": res.rows_per_s, "time_s": res.seconds,
         "phase_dedup_s": res.dedup_s, "phase_combine_s": res.combine_s,
+        **({"phase_route_s": res.route_s} if hasattr(res, "route_s")
+           else {}),
         "runs": res.n_runs, "verified": res.all_ok,
         "checks": {"groups": res.groups_ok and res.num_groups == min(
                        res.n_groups, res.n),
@@ -206,23 +318,26 @@ def _row_bigdistinct(args, res) -> dict:
                    "keys": res.keys_ok, "no_overflow": not res.overflow}}
 
 
-def _row_bigsetops(args, res) -> dict:
+def _row_bigsetops(args, res, where: str) -> dict:
     return {
         "metric": f"out-of-core {res.op.upper()} {res.n_a}+{res.n_b} rows "
-                  f"-> {res.num} keys, 1 card",
+                  f"-> {res.num} keys, {where}",
         "unit": "rows/s", "value": res.rows_per_s, "time_s": res.seconds,
-        "phase_dedup_s": res.dedup_s, "phase_combine_s": res.combine_s,
+        "phase_dedup_s": res.dedup_s,
+        **({"phase_local_s": res.combine_s, "phase_route_s": res.route_s}
+           if hasattr(res, "route_s") else
+           {"phase_combine_s": res.combine_s}),
         "verified": res.all_ok,
         "checks": {"counts": res.counts_ok, "keys": res.keys_ok,
                    "no_overflow": not res.overflow,
                    "num": res.num == res.expected_num}}
 
 
-def _row_bigquantile(args, res) -> dict:
+def _row_bigquantile(args, res, where: str) -> dict:
     kind = "PERCENTILE_CONT" if args.cont else "quantiles"
     row = {
         "metric": f"out-of-core exact {kind} ({len(args.qs.split(','))} q) "
-                  f"over {res.n} rows, 1 card",
+                  f"over {res.n} rows, {where}",
         "value": res.rows_per_s, "unit": "rows/s", "time_s": res.seconds,
         "runs": res.n_runs, "cert_ok": res.all_ok, "verified": res.all_ok,
         "checks": {"cert": res.cert_ok}}
@@ -232,10 +347,10 @@ def _row_bigquantile(args, res) -> dict:
     return row
 
 
-def _row_bigwindow(args, res) -> dict:
+def _row_bigwindow(args, res, where: str) -> dict:
     return {
         "metric": f"out-of-core window rn+rank+sum+lag, {res.n} rows x "
-                  f"{res.partitions} partitions, 1 card",
+                  f"{res.partitions} partitions, {where}",
         "value": res.rows_per_s, "unit": "rows/s", "time_s": res.seconds,
         "phase_runs_s": res.phase_a_s, "phase_buckets_s": res.phase_c_s,
         "verified": res.all_ok,
@@ -244,10 +359,10 @@ def _row_bigwindow(args, res) -> dict:
                    "boundary": res.boundary_ok}}
 
 
-def _row_bigorderby(args, res) -> dict:
+def _row_bigorderby(args, res, where: str) -> dict:
     return {
         "metric": f"out-of-core ORDER BY a DESC, b ASC, {res.n} rows, "
-                  "1 card",
+                  f"{where}",
         "value": res.rows_per_s, "unit": "rows/s", "time_s": res.seconds,
         "phase_runs_s": res.phase_a_s, "phase_buckets_s": res.phase_c_s,
         "verified": res.all_ok,
@@ -277,22 +392,24 @@ def _sol(cmd, args, res) -> float | None:
 
 
 COMMANDS = {
-    "bigagg": (_bigagg, _row_bigagg),
-    "bigjoin": (_bigjoin, _row_bigjoin),
-    "bigpipe": (_bigpipe, _row_bigpipe),
-    "bigtopk": (_bigtopk, _row_bigtopk),
-    "bigdistinct": (_bigdistinct, _row_bigdistinct),
-    "bigsetops": (_bigsetops, _row_bigsetops),
-    "bigquantile": (_bigquantile, _row_bigquantile),
-    "bigwindow": (_bigwindow, _row_bigwindow),
-    "bigorderby": (_bigorderby, _row_bigorderby),
+    "bigagg": (_bigagg, _dbigagg, _row_bigagg),
+    "bigjoin": (_bigjoin, _dbigjoin, _row_bigjoin),
+    "bigpipe": (_bigpipe, _dbigpipe, _row_bigpipe),
+    "bigtopk": (_bigtopk, _dbigtopk, _row_bigtopk),
+    "bigdistinct": (_bigdistinct, _dbigdistinct, _row_bigdistinct),
+    "bigsetops": (_bigsetops, _dbigsetops, _row_bigsetops),
+    "bigquantile": (_bigquantile, _dbigquantile, _row_bigquantile),
+    "bigwindow": (_bigwindow, _dbigwindow, _row_bigwindow),
+    "bigorderby": (_bigorderby, _dbigorderby, _row_bigorderby),
 }
+# where the distributed stats name the rows that moved (balance)
+_MOVED = ("shard_rows", "shard_pairs")
 
 
 def run(cmd: str, args) -> dict:
     from tpu_qe_torch.sort import driver
     from tpu_qe_torch.sort.bigsort import _build_seconds
-    call, make_row = COMMANDS[cmd]
+    single, dist, make_row = COMMANDS[cmd]
     if cmd == "bigagg":
         assert args.value_cols >= 1, "--value-cols must be >= 1"
         assert args.value_cols == 1 or not (
@@ -301,6 +418,25 @@ def run(cmd: str, args) -> dict:
             "--checkpoint-dir yet"
     dev = resolve_device(args.device)
     cuda = dev.type == "cuda"
+    # bench-bigjoin --outer has no distributed form: the reference runs it
+    # on one device whatever --distributed says
+    mesh = None
+    if args.distributed and getattr(args, "outer", None) is None:
+        from tpu_qe_torch.exchange.mesh import make_mesh
+        if cmd == "bigagg":
+            assert args.value_cols == 1, \
+                "--value-cols applies to the single-chip path"
+        if cmd == "bigwindow":
+            assert args.checkpoint_dir is None, \
+                "--checkpoint-dir applies to the single-chip path"
+        mesh = make_mesh(args.devices, dev)
+
+    def call(warm: bool, **kw):
+        if mesh is None:
+            kw.pop("stats", None)
+            return single(args, dev, warm, **kw)
+        return dist(args, mesh, warm, **kw)
+
     kw = {"verbose": args.verbose_big}
     if cmd in ("bigagg", "bigjoin", "bigwindow") and args.checkpoint_dir:
         os.makedirs(args.checkpoint_dir, exist_ok=True)
@@ -309,13 +445,24 @@ def run(cmd: str, args) -> dict:
     if cuda:
         # an untimed run of the same path at a small size: the timed run
         # pays neither the kernels' build nor any kernel's first launch
-        call(args, dev, True)
+        call(True)
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
     before = sum(driver.RADIX_PASSES.values())
-    res = call(args, dev, False, **kw)
-    row = make_row(args, res)
+    stats = {}
+    res = call(False, stats=stats, **kw)
+    row = make_row(args, res, "1 card" if mesh is None
+                   else f"{mesh.n_dev} devices")
     row["sort_passes"] = sum(driver.RADIX_PASSES.values()) - before
+    if mesh is not None:
+        # at D = 1 the call delegates unless --force-composed (the
+        # quantile path always runs composed)
+        row.update({"devices": mesh.n_dev, "mesh": repr(mesh),
+                    "composed": (mesh.n_dev > 1 or args.force_composed
+                                 or cmd == "bigquantile")})
+        moved = next((stats[k] for k in _MOVED if k in stats), None)
+        if moved is not None:
+            row["balance"] = max(moved) / (sum(moved) / len(moved))
     if not cuda:
         for k in row:
             if k == "time_s" or k == "value" or k.startswith("phase_"):
@@ -324,7 +471,7 @@ def run(cmd: str, args) -> dict:
         return row
     from tpu_qe_torch.bench.sol import card
     info = card()
-    sol = _sol(cmd, args, res)
+    sol = None if mesh is not None else _sol(cmd, args, res)
     row.update({
         "compile_s": compile_s,
         "sol_fraction": None if sol is None else sol / res.seconds,
@@ -333,14 +480,11 @@ def run(cmd: str, args) -> dict:
     if args.trace_dir:
         from tpu_qe_torch.bench.big import profile
         row["profile"] = profile(args.trace_dir, res.seconds,
-                                 lambda: call(args, dev, False))
+                                 lambda: call(False))
     return row
 
 
 def main(cmd: str, args) -> int:
-    if args.distributed or args.devices is not None or args.force_composed:
-        print(f"bench-{cmd}: {NOT_PORTED}", file=sys.stderr)
-        return 2
     row = run(cmd, args)
     print(json.dumps(row), flush=True)
     return 0 if row["verified"] else 1

@@ -15,6 +15,8 @@ being this process's s-th shard. Its collectives are methods of the mesh:
   ranks()         (S,) int64: the rank of each local shard
   shard(x)        a global (n, ...) tensor -> this process's (S, n/D, ...)
   collect(x)      (S, ...) -> (D, ...): every shard of the mesh
+  barrier()       wait for every rank (a checkpoint that rank 0 writes is
+                  complete when it returns)
 
 Two backends hold the shards:
 
@@ -80,6 +82,9 @@ class LocalMesh:
     def collect(self, x: torch.Tensor) -> torch.Tensor:
         return x
 
+    def barrier(self) -> None:
+        pass
+
     def __repr__(self) -> str:
         return f"LocalMesh({self.n_dev}, {self.device})"
 
@@ -130,6 +135,9 @@ class GroupMesh:
 
     def collect(self, x: torch.Tensor) -> torch.Tensor:
         return self.all_gather(x[:, None])[0]
+
+    def barrier(self) -> None:
+        dist.barrier(group=self.group)
 
     def __repr__(self) -> str:
         return f"GroupMesh(rank {self.rank} of {self.n_dev}, {self.device})"

@@ -6,10 +6,12 @@ in-core operators).
 
 The out-of-core family is exported lazily (PEP 562), as in the reference:
 its modules import the sort drivers, which import ops.join, so eager
-imports here would cycle through this package's init. Every
-single-device one is ported: bigagg, bigjoin, bigpipe, bigouter, bigtopk,
-bigdistinct, bigsetops, bigquantile, bigwindow, bigorderby. Not yet
-ported: the distributed dbig* modules (ROADMAP Queue A item 10).
+imports here would cycle through this package's init. The map is the
+reference's: the single-device modules (bigagg, bigjoin, bigpipe,
+bigouter, bigtopk, bigdistinct, bigsetops, bigquantile, bigwindow,
+bigorderby) and the distributed ones over a mesh of shards (dbigagg,
+dbigjoin, dbigpipe, dbigtopk, dbigdistinct, dbigsetops, dbigquantile,
+dbigwindow, dbigorderby).
 """
 
 from tpu_qe_torch.ops.filter import compact, filter_table  # noqa: F401
@@ -32,12 +34,21 @@ _BIG_EXPORTS = {
     "join_big": "bigjoin",
     "join_big_outer": "bigouter",
     "count_distinct_big": "bigdistinct",
+    "count_distinct_big_distributed": "dbigdistinct",
     "set_op_big": "bigsetops",
+    "set_op_big_distributed": "dbigsetops",
     "order_by_big": "bigorderby",
+    "order_by_big_distributed": "dbigorderby",
     "quantile_big": "bigquantile",
+    "quantile_big_distributed": "dbigquantile",
     "top_k_big": "bigtopk",
     "window_big": "bigwindow",
+    "window_big_distributed": "dbigwindow",
+    "top_k_big_distributed": "dbigtopk",
     "join_aggregate_big": "bigpipe",
+    "join_aggregate_big_distributed": "dbigpipe",
+    "aggregate_big_distributed": "dbigagg",
+    "join_big_distributed": "dbigjoin",
 }
 
 

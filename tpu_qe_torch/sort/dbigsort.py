@@ -176,24 +176,96 @@ def _plan(mesh, runs, n_buckets_total: int, per_run: int) -> np.ndarray:
     return mesh.collect(bounds.to(torch.int64)).cpu().numpy()
 
 
-def _merge(blocks, t: int, i: int, offs, sizes, seed, key_bits):
-    """Phase C for local shard i (rank t) and one bucket: its segments of
-    every (source, run) block in (source, run) order, sorted; returns
-    (scalars, sorted planes, count). offs / sizes: (D, R) within-block
-    offsets and sizes of the bucket's segments."""
+def run_index(mesh, n_local: int, r: int, run_size: int,
+              device) -> torch.Tensor:
+    """(S, run_size) int64 global row indices of every local shard's run
+    r: shard d's run r holds rows d * n_local + r * run_size + [0,
+    run_size)."""
+    return (mesh.ranks()[:, None] * n_local + r * run_size
+            + torch.arange(run_size, device=device))
+
+
+def sort_shards(planes, num_keys: int):
+    """Every local shard's rows of the (S, n) int32 planes sorted by the
+    first num_keys planes (sort_planes: stable, B1-B3 on the card), into
+    fresh (S, n) planes."""
+    out = [torch.empty_like(p) for p in planes]
+    for i in range(planes[0].shape[0]):
+        for o, p in zip(out, sort_planes([p[i] for p in planes], num_keys)):
+            o[i] = p
+    return out
+
+
+def segment_plan(bounds: np.ndarray, run_size: int, n_b: int):
+    """The host plan of the whole mesh's (D, R, D * B - 1) run boundaries:
+    pos (D, R, S + 1), where bucket g of (shard d, run r) is rows
+    [pos[d, r, g], pos[d, r, g + 1]); blk_start and blk_size (D, R, D), the
+    slice of each run bound for each shard; seg_size (D, R, S); and the
+    exchange's capacities cap_blk (a shard's own slice) and cap_off (the
+    others'), sized from the exact demand."""
+    n_dev, n_runs = bounds.shape[:2]
+    S = n_dev * n_b
+    quantum = 1 << 20 if run_size >= (1 << 22) else 256
+    pos = np.concatenate([np.zeros((n_dev, n_runs, 1), np.int64),
+                          bounds.astype(np.int64),
+                          np.full((n_dev, n_runs, 1), run_size, np.int64)],
+                         axis=2)
+    blk_start = pos[:, :, 0:S + 1:n_b][:, :, :-1]         # (D, R, D)
+    blk_size = pos[:, :, n_b:S + 1:n_b] - blk_start
+    cap_blk = quantize(int(blk_size.max()), quantum, run_size)
+    eye = np.eye(n_dev, dtype=bool)[:, None, :]
+    off_max = int(np.where(eye, 0, blk_size).max()) if n_dev > 1 else 0
+    cap_off = quantize(off_max, quantum, cap_blk) if n_dev > 1 else 16
+    seg_size = pos[:, :, 1:] - pos[:, :, :-1]             # (D, R, S)
+    return pos, blk_start, blk_size, seg_size, cap_blk, cap_off
+
+
+def exchange_runs(mesh, runs, blk_start, blk_size, cap_blk: int,
+                  cap_off: int, fills):
+    """Phase X: every run's segment exchange (exchange_segments), each run
+    dropped (runs[r] = None) once its exchange is queued. Returns the
+    blocks, one list of (S, D, cap_blk) planes per run."""
+    ranks = mesh.ranks().tolist()
+    dev = mesh.device
+    blocks = []
+    for r in range(len(runs)):
+        def plan_rows(x):
+            return torch.from_numpy(np.ascontiguousarray(
+                x[ranks, r, :])).to(dev)
+        blocks.append(exchange_segments(
+            mesh, plan_rows(blk_start), plan_rows(blk_size), runs[r],
+            cap_blk, cap_off, fills))
+        runs[r] = None
+    return blocks
+
+
+def bucket_cols(blocks, i: int, offs, sizes, fills):
+    """Local shard i's segments of one bucket: from every (source, run)
+    block, in (source, run) order, which is global index order for rows
+    of equal keys; concatenated per column. offs / sizes: (D, R)
+    within-block offsets and sizes. Returns (cols, count); an empty bucket
+    is one row of `fills` (the callers read row 0)."""
     n_dev, n_runs = sizes.shape
-    ncols = len(blocks[0])
     count = int(sizes.sum())
     cols = []
-    for c in range(ncols):
+    for c, f in enumerate(fills):
         parts = [blocks[r][c][i, s, int(offs[s, r]):int(offs[s, r])
                               + int(sizes[s, r])]
                  for s in range(n_dev) for r in range(n_runs)]
-        if count == 0:   # one sentinel row: the scalars read row 0
-            parts.append(torch.full((1,), -1 if c < 2 else 0,
-                                    dtype=torch.int32,
+        if count == 0:
+            parts.append(torch.full((1,), i32(f), dtype=torch.int32,
                                     device=blocks[0][c].device))
         cols.append(torch.cat(parts))
+    return cols, count
+
+
+def _merge(blocks, i: int, offs, sizes, seed, key_bits):
+    """Phase C for local shard i and one bucket: its segments of every
+    (source, run) block, sorted; returns (scalars, sorted planes, count).
+    offs / sizes: (D, R) within-block offsets and sizes of the bucket's
+    segments."""
+    fills = (ONES, ONES) + (0,) * (len(blocks[0]) - 2)
+    cols, count = bucket_cols(blocks, i, offs, sizes, fills)
     shi, slo, spay, *svals = sort_planes([cols[1], cols[0], *cols[2:]], 2)
     del cols
     scal = _certify(slo, shi, spay, svals, count, seed,
@@ -253,7 +325,6 @@ def sort_big_distributed(n: int, mesh, run_size: int = 1 << 26,
     n_b = buckets_per_dev
     S = n_dev * n_b
     per_run = min(samples_per_run, run_size)
-    quantum = 1 << 20 if run_size >= (1 << 22) else 256
     meta = np.asarray([n, n_dev, run_size, n_b, seed, per_run, key_bits,
                        payload_cols], dtype=np.int64)
     state = (RunState.load(checkpoint_dir, meta)
@@ -280,36 +351,18 @@ def sort_big_distributed(n: int, mesh, run_size: int = 1 << 26,
         if checkpoint_dir is not None and writer:
             state = RunState.fresh(checkpoint_dir, meta, bounds, n_b,
                                    n_scalars=n_dev * N_SCALARS)
-    # pos[d, r, g] for g in 0..S: bucket g of (shard d, run r) is rows
-    # [pos[g], pos[g + 1])
-    pos = np.concatenate([np.zeros((n_dev, n_runs, 1), np.int64),
-                          bounds.astype(np.int64),
-                          np.full((n_dev, n_runs, 1), run_size, np.int64)],
-                         axis=2)
-    blk_start = pos[:, :, 0:S + 1:n_b][:, :, :-1]         # (D, R, D)
-    blk_size = pos[:, :, n_b:S + 1:n_b] - blk_start
-    cap_blk = quantize(int(blk_size.max()), quantum, run_size)
-    eye = np.eye(n_dev, dtype=bool)[:, None, :]
-    off_max = int(np.where(eye, 0, blk_size).max()) if n_dev > 1 else 0
-    cap_off = quantize(off_max, quantum, cap_blk) if n_dev > 1 else 16
-    seg_size = pos[:, :, 1:] - pos[:, :, :-1]             # (D, R, S)
+    pos, blk_start, blk_size, seg_size, cap_blk, cap_off = segment_plan(
+        bounds, run_size, n_b)
     if verbose:
         print(f"dbigsort: D={n_dev} R={n_runs} B={n_b} run={run_size} "
               f"cap_blk={cap_blk} (max {int(blk_size.max())}) "
-              f"cap_off={cap_off} (max {off_max})")
+              f"cap_off={cap_off}")
 
     t0 = _fence(dev)
     ranks = mesh.ranks().tolist()
-    fills = (ONES, ONES) + (0,) * payload_cols
-    blocks = []
     with marker("dbigsort phase X: segment exchange"):
-        for r in range(n_runs):
-            def plan_rows(x):
-                return torch.from_numpy(x[ranks, r, :]).to(dev)
-            blocks.append(exchange_segments(
-                mesh, plan_rows(blk_start), plan_rows(blk_size), runs[r],
-                cap_blk, cap_off, fills))
-            runs[r] = None     # run r is gone once its exchange is queued
+        blocks = exchange_runs(mesh, runs, blk_start, blk_size, cap_blk,
+                               cap_off, (ONES, ONES) + (0,) * payload_cols)
     del runs
     t_x = _fence(dev) - t0
 
@@ -334,8 +387,8 @@ def sort_big_distributed(n: int, mesh, run_size: int = 1 << 26,
                 g = t * n_b + b
                 # within-block offsets of bucket g's segments, (src, run)
                 offs = pos[:, :, g] - blk_start[:, :, t]
-                out, arr, count = _merge(blocks, t, i, offs,
-                                         seg_size[:, :, g], seed, key_bits)
+                out, arr, count = _merge(blocks, i, offs, seg_size[:, :, g],
+                                         seed, key_bits)
                 outs.append(out)
                 arrays.append(arr)
                 counts.append(count)
@@ -360,6 +413,8 @@ def sort_big_distributed(n: int, mesh, run_size: int = 1 << 26,
                 print(f"  bucket {b}: counts={vals[:, 2].tolist()} "
                       f"sorted={bool(vals[:, 0].all())} "
                       f"hash={bool(vals[:, 1].all())}")
+    if checkpoint_dir is not None:
+        mesh.barrier()          # rank 0's last record is on the disk
     t_c = _fence(dev) - t0
 
     total_count, sum_pay, sum_sq = 0, 0, 0
