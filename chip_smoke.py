@@ -185,10 +185,28 @@ Run from the root of the repository on a machine with a CUDA card. Phases:
    stopped after one of two bucket rounds, each resumed through the CLI
    from --checkpoint-dir and equal to an uninterrupted run; a GroupMesh
    over NCCL at world size 1 whose composed GROUP BY equals LocalMesh(1)'s;
-   B1-B3 launched once per recorded pass in each.
+   B1-B3 launched once per recorded pass in each;
+20. the SQL executor's mesh= path (Database.sql / explain over a LocalMesh
+   of 8 shards on the card), torch.sort / argsort / unique made to raise:
+   bench.sql's query (tools/bench_sql.py: filter + GROUP BY with COUNT,
+   SUM, MIN and MAX, ORDER BY the group) at 2^27 rows and 4096 groups
+   made on the card, bit-equal to the in-core Database.sql, with its
+   seconds after an untimed warm-up (host clock fenced by synchronize),
+   the share of them spent reading the registered columns back to the
+   host (_dist_table), its peak memory and B1-B3 launches; then every
+   query family of tests/sql_dist_battery.py (the set ops with and without
+   ALL, GROUP BY over one to three columns with every aggregate,
+   COUNT(DISTINCT) of u32 and u64 values, HAVING, the percentiles, SELECT
+   DISTINCT, JOIN + GROUP BY against 2^20 unique right keys, the windows,
+   ORDER BY with LIMIT / OFFSET, WHERE and a DESC float key, the zero-row
+   GROUP BY) at 2^22 rows, and the reference's own-table cases, against
+   the in-core answer (integers bit for bit, floats at the family's rtol,
+   atol 1e-3), explain naming the distributed tier; a GroupMesh over NCCL
+   at world size 1 whose GROUP BY equals LocalMesh(1)'s; B1-B3 launched
+   once per recorded pass in each.
 
 Then it prints the kernel summary as one JSON line (per kernel: launches on
-the main path and the paths of phases 10-19, largest difference from its
+the main path and the paths of phases 10-20, largest difference from its
 references, its time, its plain twin's, the least time the card could
 take for the same bytes or operations, and the time of the one PyTorch
 call that computes the same function, where there is one), the
@@ -263,7 +281,7 @@ def main() -> int:
 
     # -- 1. device
     smi = nvidia_smi_line()
-    log(f"[1/19] device: {smi}; torch {torch.__version__}, "
+    log(f"[1/20] device: {smi}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.device_count()} card(s)")
 
     # -- 2. build
@@ -272,7 +290,7 @@ def main() -> int:
     t1 = time.perf_counter()
     native.pipeline_oracle(10, 10, 7)
     t2 = time.perf_counter()
-    log(f"[2/19] build: CUDA kernels {t1 - t0:.1f} s, C++ core {t2 - t1:.1f} s")
+    log(f"[2/20] build: CUDA kernels {t1 - t0:.1f} s, C++ core {t2 - t1:.1f} s")
 
     # -- 3. kernels against their twins and the C++ oracles
     err = {name: 0 for name in kernels.LAUNCHES}
@@ -571,7 +589,7 @@ def main() -> int:
     log("      exclusive_scan: 1000 scans back to back with fresh scratch "
         "and a scan beside a busy stream bit-exact")
     torch.cuda.synchronize()
-    log("[3/19] radix kernels bit-exact against twins and C++ oracles; "
+    log("[3/20] radix kernels bit-exact against twins and C++ oracles; "
         "max_abs_err " + json.dumps({k: err[k] for k in (
             "block_histogram", "exclusive_scan", "block_rank_and_histogram",
             "rank_and_scatter")}))
@@ -891,7 +909,7 @@ def main() -> int:
                 log(f"      n={n} {label} block={block} shift={shift}: "
                     "B6 bit-exact against twin, B3 and the C++ rank")
     torch.cuda.synchronize()
-    log("[4/19] B4, B5, B6 bit-exact against twins and oracles; max_abs_err "
+    log("[4/20] B4, B5, B6 bit-exact against twins and oracles; max_abs_err "
         + json.dumps({k: err[k] for k in ("encode_quantized_lut",
                                           "sort_chunks",
                                           "block_rank_and_histogram_mxu")}))
@@ -983,7 +1001,7 @@ def main() -> int:
                      f"pass ({passes})")
         if launches is None:
             launches = counts
-    log("[5/19] main path: VERIFY PASS at 2^24 triangles for 8x8, 6x11 "
+    log("[5/20] main path: VERIFY PASS at 2^24 triangles for 8x8, 6x11 "
         "and 11x6")
 
     # -- 6. LUT encode path on the verify scene: B4 through morton.encode
@@ -1011,7 +1029,7 @@ def main() -> int:
     t_direct = cuda_time(lambda: morton.encode(verts_t, tris_t, params),
                          iters=5)
     del verts, tris, verts_t, tris_t, code
-    log(f"[6/19] LUT encode path: B4 bit-exact on the verify scene; encode "
+    log(f"[6/20] LUT encode path: B4 bit-exact on the verify scene; encode "
         f"(quantize + B4) {t_lut * 1e3:.4f} ms, plain direct encode "
         f"{t_direct * 1e3:.4f} ms at 2^24 triangles")
 
@@ -1031,7 +1049,7 @@ def main() -> int:
                 "block_rank_and_histogram_mxu")
     for name in off_path:
         launches[name] = counts[name]
-    log("[7/19] selfcheck: SELFCHECK PASS")
+    log("[7/20] selfcheck: SELFCHECK PASS")
 
     # -- 8. per-kernel bench
     kernels.reset_launches()
@@ -1043,14 +1061,14 @@ def main() -> int:
                  "block_rank_and_histogram"):
         if counts[name] < 1:
             fail(f"bench-kernels never launched {name}")
-    log(f"[8/19] bench-kernels at 2^24: launches {counts}")
+    log(f"[8/20] bench-kernels at 2^24: launches {counts}")
 
     # -- 9. headline sort
     res = headline.measure(1 << 26, seed=7, iters=10, device="cuda")
     log(f"      {json.dumps(res)}")
     if not res["verified"]:
         fail("radix sort of 2^26 keys differs from stable torch.sort")
-    log(f"[9/19] headline: radix {res['time_s'] * 1e3:.3f} ms, torch.sort "
+    log(f"[9/20] headline: radix {res['time_s'] * 1e3:.3f} ms, torch.sort "
         f"{res['torch_sort_time_s'] * 1e3:.3f} ms for 2^26 keys + payload; "
         "bit-exact")
 
@@ -1127,7 +1145,7 @@ def main() -> int:
     if not all(checks.values()):
         fail(f"operators differ from the numpy oracle at 2^24 rows: {checks}")
     del data, res, jd, out, matched
-    log(f"[10/19] operators: bench-matrix bit-exact across backends at full "
+    log(f"[10/20] operators: bench-matrix bit-exact across backends at full "
         f"size, launches as planned; numpy oracle at 2^24 rows "
         f"{json.dumps(checks)}; {time.perf_counter() - t0:.1f} s")
 
@@ -1280,7 +1298,7 @@ def main() -> int:
         fail(f"quantile / window differ from numpy at 2^22 rows: {checks}")
     del wd, res
     torch.cuda.empty_cache()
-    log(f"[11/19] quantile and window: bench-matrix bit-exact across "
+    log(f"[11/20] quantile and window: bench-matrix bit-exact across "
         f"backends at 2^27 rows, launches as planned; numpy oracle at 2^22 "
         f"rows {json.dumps({k: bool(x) for k, x in checks.items()})}; "
         f"{time.perf_counter() - t0:.1f} s")
@@ -1359,7 +1377,7 @@ def main() -> int:
         f"{counts} = recorded passes {planned}")
     for name in ("block_histogram", "exclusive_scan", "rank_and_scatter"):
         launches[name] += path_launches[name]
-    log(f"[12/19] out-of-core sort: bench-big certificates at 2^30 "
+    log(f"[12/20] out-of-core sort: bench-big certificates at 2^30 "
         f"(partition, merge, in-core) and 2^28 with 3 payload columns, "
         f"numpy oracle, resume; {time.perf_counter() - t0:.1f} s")
 
@@ -1549,7 +1567,7 @@ def main() -> int:
         f"= recorded passes {planned}")
     for name in ("block_histogram", "exclusive_scan", "rank_and_scatter"):
         launches[name] += path_launches[name]
-    log(f"[13/19] out-of-core operators: 12 CLI runs at the JAX CLI's "
+    log(f"[13/20] out-of-core operators: 12 CLI runs at the JAX CLI's "
         f"sizes, every check true and B1-B3 launched once per recorded "
         f"pass; numpy oracles; two resumes; "
         f"{time.perf_counter() - t0:.1f} s")
@@ -1673,7 +1691,7 @@ def main() -> int:
         f"launches {counts} = recorded passes {planned}")
     for name in ("block_histogram", "exclusive_scan", "rank_and_scatter"):
         launches[name] += path_launches[name]
-    log(f"[14/19] last out-of-core operators: 4 CLI runs at the JAX CLI's "
+    log(f"[14/20] last out-of-core operators: 4 CLI runs at the JAX CLI's "
         f"sizes, every check true and B1-B3 launched once per recorded "
         f"pass; numpy oracles; a resume; {time.perf_counter() - t0:.1f} s")
 
@@ -1800,7 +1818,7 @@ def main() -> int:
         f"agrees; launches {counts} = recorded passes {planned}")
     for name in ("block_histogram", "exclusive_scan", "rank_and_scatter"):
         launches[name] += path_launches[name]
-    log(f"[15/19] SQL tier: bench.sql at 2^27 rows and FK joins at 2^24 x "
+    log(f"[15/20] SQL tier: bench.sql at 2^27 rows and FK joins at 2^24 x "
         f"2^22 equal numpy's, {len(cpu_battery)} families equal the CPU "
         f"run's and sqlite3's, no torch.sort / argsort / unique, B1-B3 "
         f"launched once per recorded pass; {time.perf_counter() - t0:.1f} s")
@@ -1856,7 +1874,7 @@ def main() -> int:
         f"(atol 1e-3); launches {counts} = recorded passes {planned}")
     for name in ("block_histogram", "exclusive_scan", "rank_and_scatter"):
         launches[name] += path_launches[name]
-    log(f"[16/19] out-of-core SQL: bench-bigsql's ten verbs at 2^30 rows "
+    log(f"[16/20] out-of-core SQL: bench-bigsql's ten verbs at 2^30 rows "
         f"(vvjoin 2^29 x 2^27), --median and --where, every closed form "
         f"holding; {len(cpu_big)} families equal the CPU run's; no "
         f"torch.sort / argsort / unique, B1-B3 launched once per recorded "
@@ -2159,7 +2177,7 @@ def main() -> int:
             setattr(mod, name, fn)
     for name in ("block_histogram", "exclusive_scan", "rank_and_scatter"):
         launches[name] += path_launches[name]
-    log(f"[17/19] exchange layer: bench-matrix dsort at 2^26 on the default "
+    log(f"[17/20] exchange layer: bench-matrix dsort at 2^26 on the default "
         f"mesh and a LocalMesh of 8, bit-exact across backends; the "
         f"distributed sort, pipeline and dops family on a LocalMesh of 8 "
         f"equal numpy; NCCL at world size 1; no torch.sort / argsort / "
@@ -2553,7 +2571,7 @@ def main() -> int:
             setattr(mod, name, fn)
     for name in ("block_histogram", "exclusive_scan", "rank_and_scatter"):
         launches[name] += path_launches[name]
-    log(f"[18/19] the rest of the exchange layer and the distributed "
+    log(f"[18/20] the rest of the exchange layer and the distributed "
         f"out-of-core sort: the dry run's window, ORDER BY and quantile "
         f"steps and the same at 2^27 rows on a LocalMesh of 8 equal numpy "
         f"and the local operators; bench-big --distributed at 2^30 and "
@@ -2863,13 +2881,151 @@ def main() -> int:
             setattr(mod, name, fn)
     for name in ("block_histogram", "exclusive_scan", "rank_and_scatter"):
         launches[name] += path_launches[name]
-    log(f"[19/19] the distributed out-of-core operators: the dry run's steps "
+    log(f"[19/20] the distributed out-of-core operators: the dry run's steps "
         f"on LocalMesh(8) equal numpy; the nine CLIs with --distributed "
         f"--devices 8 at the JAX CLI's sizes ({len(dist_rows) - 2} runs) and "
         f"two --force-composed runs at 2^28, every check true; two resumes; "
         f"a GroupMesh over NCCL; no torch.sort / argsort / unique, B1-B3 "
         f"launched once per recorded pass "
         f"({path_launches['block_histogram']} times each); phase 19 "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # -- 20. the SQL executor's mesh= path: Database.sql / explain over a
+    # LocalMesh of 8 shards on the card, torch.sort / argsort / unique made
+    # to raise: bench.sql's query at 2^27 rows, every shape family of
+    # tests/sql_dist_battery.py at 2^22 rows, a GroupMesh over NCCL
+    t0 = time.perf_counter()
+    for name in path_launches:
+        path_launches[name] = 0
+    torch.cuda.empty_cache()
+    spec = importlib.util.spec_from_file_location(
+        "sql_dist_battery", os.path.join(os.path.dirname(os.path.abspath(
+            __file__)), "tests", "sql_dist_battery.py"))
+    sdb = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sdb)
+    mesh = LocalMesh(8, dev)
+
+    def same_rows(want, got, rtol=1e-5, ordered=False):
+        try:
+            sdb.compare(want, got, rtol=rtol, ordered=ordered)
+        except AssertionError as e:
+            return str(e)[:300]
+        return None
+
+    for mod, name, _ in saved:
+        setattr(mod, name, refuse)
+    try:
+        # (a) bench.sql's query (tools/bench_sql.py) through mesh= at its
+        # size, the table bench.sql keeps resident: bench.sql's run with
+        # mesh=8 (an untimed warm-up, then the timed call, host clock fenced
+        # by synchronize, with the seconds of _dist_table's read-back),
+        # then the in-core Database.sql on the same columns
+        n, groups = 1 << 27, 4096
+        (row, got, (key, v)), counts, planned = counted(
+            "bench.sql's query through mesh= at 2^27 rows", passes_recorded,
+            lambda: bsql.run(n, groups, dev, mesh=8))
+        db = Database(dev)
+        db.register("t", Table({"k": key, "v": v}))
+        bad = same_rows(db.sql(bsql.QUERY), got, ordered=True)
+        if bad or not row["verified"]:
+            fail(f"bench.sql's query through mesh= differs from the in-core "
+                 f"answer or the hand-composed operators: {bad}, {row}")
+        log(f"      {json.dumps(row)}")
+        log(f"      bench.sql's query through mesh=LocalMesh(8) at 2^27 rows "
+            f"-> {row['groups_out']} groups, bit-equal to the in-core answer: "
+            f"{row['time_s']:.4f} s after a warm-up ({row['read_back_s']:.4f}"
+            f" s, {100 * row['read_back_share']:.1f} % in _dist_table's "
+            f"read-back), peak {row['peak_mem_bytes'] / 1e9:.2f} GB, "
+            f"{row['sort_passes']} sort passes; launches over the bench "
+            f"{counts} = recorded passes {planned} ({smi})")
+        del db, key, v, got
+        torch.cuda.empty_cache()
+
+        # (b) every shape family at 2^22 rows (right side 2^20 unique keys)
+        # and the tables of the reference's own-table tests, each against
+        # the in-core answer on the card; explain names the distributed tier
+        fam_s = time.perf_counter()
+        fams = 0
+        for name, f in sdb.FAMILIES.items():
+            db = Database(dev)
+            for nm, cols in sdb.tables(f.seed_for(8), n=1 << 22,
+                                       m=1 << 20).items():
+                db.register(nm, cols)
+            want = db.sql(f.sql)
+            got, counts, planned = counted(
+                f"mesh= {name}", passes_recorded,
+                lambda: db.sql(f.sql, mesh=mesh))
+            bad = same_rows(want, got, f.rtol, f.ordered)
+            if bad:
+                fail(f"mesh= {name} at 2^22 rows differs from the in-core "
+                     f"answer: {bad}")
+            if not db.explain(f.sql, mesh=mesh).startswith(
+                    "tier: distributed (8 devices)"):
+                fail(f"explain(mesh=) of {name} names another tier")
+            fams += 1
+        for name, (make, sql, ordered, _) in sdb.OWN_TABLES.items():
+            db = Database(dev)
+            for nm, cols in make().items():
+                db.register(nm, cols)
+            want = db.sql(sql)
+            got, counts, planned = counted(f"mesh= {name}", passes_recorded,
+                                           lambda: db.sql(sql, mesh=mesh))
+            bad = same_rows(want, got, ordered=ordered)
+            if bad:
+                fail(f"mesh= {name} differs from the in-core answer: {bad}")
+            fams += 1
+        tabs = sdb.tables(11, n=1 << 22, m=1 << 20)
+        db = Database(dev)
+        for nm, cols in tabs.items():
+            db.register(nm, cols)
+        empty = db.sql(sdb.FAMILIES["where_empty_result"].sql, mesh=mesh)
+        if len(empty["k"]) or len(empty["c"]):
+            fail("the zero-row GROUP BY through mesh= returned rows")
+        del db
+        torch.cuda.empty_cache()
+        log(f"      {fams} query families of tests/sql_dist_battery.py "
+            f"through mesh=LocalMesh(8) ({len(sdb.FAMILIES)} at 2^22 rows, "
+            f"{len(sdb.OWN_TABLES)} on their own tables) equal the in-core "
+            f"answers (integers bit for bit, floats at the family's rtol); "
+            f"explain names the distributed tier; B1-B3 launched once per "
+            f"recorded pass in each; {time.perf_counter() - fam_s:.1f} s")
+
+        # (c) a GroupMesh over NCCL at world size 1: a GROUP BY equals
+        # LocalMesh(1)'s answer
+        import torch.distributed as tdist
+        f = sdb.FAMILIES["group_by_three_columns"]
+        db = Database(dev)
+        for nm, cols in sdb.tables(f.seed, n=1 << 22, m=1 << 20).items():
+            db.register(nm, cols)
+        want = db.sql(f.sql, mesh=LocalMesh(1, dev))
+        tdist.init_process_group("nccl", store=tdist.HashStore(), rank=0,
+                                 world_size=1)
+        try:
+            gm = make_mesh()
+            got, counts, planned = counted(
+                "mesh= on a GroupMesh (NCCL)", passes_recorded,
+                lambda: db.sql(f.sql, mesh=gm))
+        finally:
+            tdist.destroy_process_group()
+        if not isinstance(gm, GroupMesh) or any(
+                got[c].dtype != want[c].dtype
+                or not np.array_equal(got[c], want[c]) for c in want):
+            fail("Database.sql(mesh=GroupMesh over NCCL) differs from "
+                 "LocalMesh(1)'s answer")
+        del db
+        log(f"      GroupMesh over NCCL, world size 1: a three-column GROUP "
+            f"BY at 2^22 rows equals LocalMesh(1)'s answer; launches "
+            f"{counts} = recorded passes {planned}")
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    for name in ("block_histogram", "exclusive_scan", "rank_and_scatter"):
+        launches[name] += path_launches[name]
+    log(f"[20/20] the SQL executor's mesh= path: bench.sql's query at 2^27 "
+        f"rows and {fams} query families on LocalMesh(8) equal the in-core "
+        f"answers; a GroupMesh over NCCL; no torch.sort / argsort / unique, "
+        f"B1-B3 launched once per recorded pass "
+        f"({path_launches['block_histogram']} times each); phase 20 "
         f"{time.perf_counter() - t0:.1f} s")
 
     src = "tpu_qe_torch/csrc/"
@@ -2898,7 +3054,8 @@ def main() -> int:
                          "tier + the out-of-core SQL tier + the exchange "
                          "layer (dsort, dops, dwindow, dorderby, "
                          "dquantile) + bench-big --distributed + the "
-                         "distributed out-of-core operators (dbig*)"),
+                         "distributed out-of-core operators (dbig*) + "
+                         "the SQL executor's mesh= path"),
          "max_abs_err": err[name],
          "ms": ms[name][0], "plain_ms": ms[name][1],
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],

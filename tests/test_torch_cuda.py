@@ -1836,3 +1836,61 @@ def test_bigops_distributed_cli_on_the_card(cuda, capsys, cmd):
     assert row["verified"] and row["devices"] == 8
     assert row["metric"].endswith(", 8 devices")
     assert row["peak_mem_bytes"] > 0 and row["time_s"] > 0
+
+
+@pytest.mark.parametrize("op", ["fk", "inner", "outer_full",
+                                "join_aggregate", "set_op"])
+def test_exchange_with_an_empty_side_on_the_card(cuda, op):
+    # Queue C 21 and 22 on the card: a join with no right rows, and a set
+    # op with no rows at all, answer as on LocalMesh(2) of the CPU
+    from tpu_qe_torch.exchange import LocalMesh, dops
+    keys = np.arange(1, 17, dtype=np.uint64) * np.uint64(7)
+    vals = np.arange(16, dtype=np.uint32) + 5
+    ek, ev = np.zeros(0, np.uint64), np.zeros(0, np.uint32)
+
+    def run(mesh):
+        kw = {"capacity_factor": "auto"}
+        if op == "fk":
+            return dops.distributed_join_fk_numpy(keys, [vals], ek, [ev],
+                                                  mesh, **kw)
+        if op == "inner":
+            return dops.distributed_join_inner_numpy(keys, [vals], ek, [ev],
+                                                     mesh, **kw)
+        if op == "outer_full":
+            return dops.distributed_join_outer_numpy(ek, [ev], keys, [vals],
+                                                     mesh, full=True, **kw)
+        if op == "join_aggregate":
+            return dops.distributed_join_aggregate_numpy(keys, ek, ev, mesh,
+                                                         **kw)
+        return dops.distributed_set_op_numpy(ek, ek, mesh, **kw)
+    assert _plain(run(LocalMesh(2, cuda))) == _plain(run(LocalMesh(2,
+                                                                   "cpu")))
+
+
+@pytest.mark.parametrize("name", ["group_by_aggregates", "percentiles",
+                                  "where_with_join_left", "window",
+                                  "whole_partition_frames", "order_by_limit",
+                                  "where_order_by_float_key_desc",
+                                  "set_op_except_all"])
+def test_sql_mesh_on_a_local_mesh_of_8_equals_in_core(cuda, monkeypatch,
+                                                      name):
+    # Database.sql(q, mesh=LocalMesh(8) of the card) against the in-core
+    # answer on the card (integers bit for bit, floats at the family's
+    # rtol), no torch sort in the mesh= call and B1-B3 launched once per
+    # recorded pass
+    import sql_dist_battery as B
+    from tpu_qe_torch.exchange import LocalMesh
+    from tpu_qe_torch.sort import driver
+    from tpu_qe_torch.sql import Database
+    f = B.FAMILIES[name]
+    db = Database(cuda)
+    for nm, cols in B.tables(f.seed_for(8), n=1 << 16, m=1 << 12).items():
+        db.register(nm, cols)
+    want = db.sql(f.sql)
+    with monkeypatch.context() as m:
+        _refuse_torch_sorts(m)
+        kernels.reset_launches()
+        driver.RADIX_PASSES.clear()
+        got = db.sql(f.sql, mesh=LocalMesh(8, cuda))
+        assert _launches_match_passes()
+    B.compare(want, got, rtol=f.rtol, ordered=f.ordered)

@@ -877,3 +877,87 @@ def test_every_public_name_of_the_exchange_resolves(name):
         assert got.__name__ == f"tpu_qe_torch.exchange.{name}"
     with pytest.raises(AttributeError, match="no attribute"):
         getattr(tex, "distributed_no_such_operator")
+
+
+# ------------------------ Queue C 21 and 22: a side with no rows at all
+
+_EMPTY_OPS = ["fk", "inner", "outer", "outer_full", "join_aggregate"]
+
+
+def _empty_case(n_dev, side):
+    keys = np.arange(1, 2 * n_dev + 1, dtype=np.uint64) * np.uint64(7)
+    vals = np.arange(len(keys), dtype=np.uint32) + 5
+    none = (np.zeros(0, np.uint64), np.zeros(0, np.uint32))
+    return ((keys, vals) + none) if side == "right" else (none + (keys,
+                                                                  vals))
+
+
+def _empty_join(mod, mesh, op, lk, lv, rk, rv):
+    if op == "fk":
+        return mod.distributed_join_fk_numpy(lk, [lv], rk, [rv], mesh,
+                                             capacity_factor="auto")
+    if op == "inner":
+        return mod.distributed_join_inner_numpy(lk, [lv], rk, [rv], mesh,
+                                                capacity_factor="auto")
+    if op == "join_aggregate":
+        return mod.distributed_join_aggregate_numpy(
+            lk, rk, rv, mesh, aggs=("count", "sum"), capacity_factor="auto")
+    return mod.distributed_join_outer_numpy(lk, [lv], rk, [rv], mesh,
+                                            full=op == "outer_full",
+                                            capacity_factor="auto")
+
+
+def _flat(x):
+    if isinstance(x, (tuple, list)):
+        return [a for y in x for a in _flat(y)]
+    return [x]
+
+
+@pytest.mark.parametrize("n_dev", [2, 8])
+@pytest.mark.parametrize("side", ["left", "right"])
+@pytest.mark.parametrize("op", _EMPTY_OPS)
+def test_join_with_an_empty_side_matches_jax(op, side, n_dev):
+    # the exchange once gathered from an empty plane (IndexError); the
+    # JAX gather clips and fills the pad: every answer of the reference
+    lk, lv, rk, rv = _empty_case(n_dev, side)
+    got = _empty_join(tx, _mesh(n_dev), op, lk, lv, rk, rv)
+    want = _empty_join(jx, _jmesh(n_dev), op, lk, lv, rk, rv)
+    if op == "join_aggregate":
+        assert got == want == {}
+        return
+    g, w = _flat(got), _flat(want)
+    assert len(g) == len(w)
+    for a, b in zip(g, w):
+        a, b = np.asarray(a), np.asarray(b)
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    # the answers themselves: no left row matches an empty right side,
+    # an empty left side has no rows, FULL keeps the right-only keys
+    if op == "fk":
+        assert not got[0].any() and not got[1][0].any()
+        assert len(got[0]) == len(lk)
+    elif op == "inner":
+        assert all(len(a) == 0 for a in g)
+    else:
+        assert len(got[0]) == len(lk) and not got[3].any()
+        assert not got[2][0].any()
+        if op == "outer_full":
+            np.testing.assert_array_equal(np.sort(got[4]), rk)
+
+
+@pytest.mark.parametrize("n_dev", [2, 8])
+@pytest.mark.parametrize("op", ["union", "intersect", "except"])
+def test_set_op_both_sides_empty(op, n_dev):
+    # Queue C 22 (decided): with no key on either side the JAX wrapper
+    # raises IndexError in its splitter sample; the port answers with no
+    # keys, as the local set_op does
+    e = np.zeros(0, np.uint64)
+    for kw in ({"capacity_factor": "auto"}, {}):
+        keys, ca, cb = tx.distributed_set_op_numpy(e, e, _mesh(n_dev),
+                                                   op=op, **kw)
+        assert (keys.dtype, ca.dtype, cb.dtype) == (np.uint64, np.uint32,
+                                                    np.uint32)
+        assert len(keys) == len(ca) == len(cb) == 0
+    with pytest.raises(IndexError):
+        jx.distributed_set_op_numpy(e, e, _jmesh(n_dev), op=op,
+                                    capacity_factor="auto")

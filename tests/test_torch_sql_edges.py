@@ -17,7 +17,7 @@ Database.sql on the same tables (device="cpu" for the port):
   operations and the families sqlite lacks (percentiles, float sums, u64
   DISTINCT), and tests/test_query_integration.py's join + GROUP BY as SQL
   (also against numpy);
-- what is not ported (mesh=) raising SqlError with its ROADMAP item,
+- a shape the mesh= path does not take raising the reference's SqlError,
   virtual tables registering and colliding with in-core names as in the
   reference, and the Database's device.
 
@@ -377,11 +377,26 @@ def test_explain_in_core_matches_jax():
 
 
 def test_what_is_not_ported_raises_with_its_item():
-    db = Database("cpu")
-    db.register("t", {"k": np.arange(8, dtype=np.uint32)})
-    for call in (db.sql, db.explain):
-        with pytest.raises(SqlError, match="Queue A item 10"):
-            call("SELECT k FROM t", mesh=object())
+    # the distributed mesh= path is ported: a shape it does not take
+    # raises the reference's own text (its `unsup`), no one-device
+    # fallback; mesh= over a virtual table keeps its error
+    from tpu_qe.exchange.dsort import make_mesh
+    from tpu_qe_torch.exchange import LocalMesh
+    cols = {"k": np.arange(8, dtype=np.uint32)}
+    db, jdb = Database("cpu"), JDatabase()
+    db.register("t", cols)
+    jdb.register("t", cols)
+    q = "SELECT DISTINCT k, COUNT(*) AS c FROM t GROUP BY k"
+    with pytest.raises(SqlError, match="is not supported with mesh=") as got:
+        db.sql(q, mesh=LocalMesh(2, "cpu"))
+    with pytest.raises(JSqlError) as want:
+        jdb.sql(q, mesh=make_mesh(2))
+    assert str(got.value) == str(want.value)
+    db.register_virtual("big", 1 << 10, {
+        "k": lambda i: (i & 3).view(torch.uint32)})
+    with pytest.raises(SqlError, match="mesh= with a virtual table"):
+        db.sql("SELECT k, COUNT(*) AS c FROM big GROUP BY k",
+               mesh=LocalMesh(2, "cpu"))
 
 
 def test_register_virtual_runs_and_names_collide():

@@ -100,11 +100,13 @@ def _auto_capacity(kw, mesh, plan_fn, keys, out_names):
 
 def _prefixes(mesh, cols, counts):
     """The first counts[d] rows of every shard's padded columns,
-    concatenated over the mesh: u32 numpy arrays."""
+    concatenated over the mesh: u32 numpy arrays. Only the longest prefix
+    is read back, not the padding behind it."""
     counts = mesh.collect(counts).cpu().numpy().reshape(-1)
+    m = int(counts.max()) if counts.size else 0
     out = []
     for c in cols:
-        a = collect_u32(c, mesh)
+        a = collect_u32(c[:, :m], mesh)
         out.append(np.concatenate([a[d, :int(v)]
                                    for d, v in enumerate(counts)]))
     return out
@@ -157,7 +159,10 @@ def _djoin_exchange(mesh, llo, lhi, lval_cols, rlo, rhi, rval_cols, *,
     pad_slot = torch.arange(nspan, device=dev) >= n_span_local[:, None]
 
     def bc(col, fill):
-        c = torch.where(pad_slot, i32(fill), col.gather(1, sel))
+        # an empty right shard broadcasts pad slots only
+        c = (torch.where(pad_slot, i32(fill), col.gather(1, sel))
+             if n_local_r else torch.full(pad_slot.shape, i32(fill),
+                                          dtype=col.dtype, device=dev))
         return mesh.all_gather(c)                 # (S, D * nspan)
 
     bc_lo, bc_hi = bc(rlo, ONES), bc(rhi, ONES)
@@ -736,24 +741,28 @@ def distributed_aggregate(key: U64, value: torch.Tensor, mesh,
 
 def _groups_numpy(mesh, res, aggs, is_float):
     """{key -> {agg -> value}} from an aggregate-shaped result; padding
-    groups (count 0) dropped."""
+    groups (count 0) dropped. Only the longest group prefix is read
+    back, not the padding behind it."""
     inner = _inner_aggs(aggs)
-    klo, khi = collect_u32(res[0], mesh), collect_u32(res[1], mesh)
+    ng = mesh.collect(res[-2]).cpu().numpy()
+    m = int(ng.max()) if ng.size else 0
+
+    def head(p):
+        return collect_u32(p[:, :m], mesh)
+    klo, khi = head(res[0]), head(res[1])
     cols = []
     j = 0
     res_cols = res[2:-2]
     for a in inner:
         if a == "sum" and not is_float:
-            lo_c = collect_u32(res_cols[j], mesh)
-            hi_c = collect_u32(res_cols[j + 1], mesh)
+            lo_c, hi_c = head(res_cols[j]), head(res_cols[j + 1])
             j += 2
             cols.append(lo_c.astype(np.uint64)
                         | (hi_c.astype(np.uint64) << np.uint64(32)))
             continue
-        c = collect_u32(res_cols[j], mesh)
+        c = head(res_cols[j])
         j += 1
         cols.append(c.view(np.float32) if is_float and a != "count" else c)
-    ng = mesh.collect(res[-2]).cpu().numpy()
     out = {}
     for d in range(mesh.n_dev):
         for i in range(int(ng[d])):
@@ -875,8 +884,9 @@ def distributed_count_distinct_numpy(keys, values, mesh, **kw):
                         ("capacity",))
     res = distributed_count_distinct(key, val, mesh=mesh, **kw)
     _check_overflow(res[-1])
-    klo, khi, cd = (collect_u32(c, mesh) for c in res[:3])
     ng = mesh.collect(res[3]).cpu().numpy()
+    m = int(ng.max()) if ng.size else 0        # read back no padding
+    klo, khi, cd = (collect_u32(c[:, :m], mesh) for c in res[:3])
     return {int(klo[d, i]) | (int(khi[d, i]) << 32): int(cd[d, i])
             for d in range(mesh.n_dev) for i in range(int(ng[d]))}
 
@@ -965,6 +975,12 @@ def _dset_dedup_local(alo, ahi, blo, bhi, backend):
     """One shard's (key, side) tuples with their multiplicities, the m
     distinct tuples a prefix: (klo, khi, side, occ, m)."""
     n_a, n_b = alo.shape[0], blo.shape[0]
+    if n_a + n_b == 0:
+        # no tuples: empty planes and m = 0 (the JAX body raises here,
+        # ROADMAP Queue C 22; the local set_op answers empty)
+        e = alo.new_zeros(0)
+        return e, e, e, e, torch.zeros((), dtype=torch.int64,
+                                       device=alo.device)
     side = torch.cat([torch.zeros(n_a, dtype=torch.int32, device=alo.device),
                       torch.ones(n_b, dtype=torch.int32, device=alo.device)])
     shi, slo, ss = sort_planes([torch.cat([ahi, bhi]), torch.cat([alo, blo]),

@@ -162,15 +162,18 @@ def distributed_order_by_numpy(cols_np: dict, by, mesh, **kw):
         raise RuntimeError("exchange capacity overflow; raise "
                            "capacity_factor")
     valid = mesh.collect(valid).cpu().numpy()
+    m = int(valid.max()) if valid.size else 0   # read back no padding
 
     def prefixes(c):
         if isinstance(c, U64):
-            a = U64(mesh.collect(c.lo), mesh.collect(c.hi)).to_numpy()
+            a = U64(mesh.collect(c.lo[:, :m]),
+                    mesh.collect(c.hi[:, :m])).to_numpy()
         else:
-            a = column_to_numpy(from_plane(mesh.collect(plane(c)), c.dtype))
+            a = column_to_numpy(from_plane(mesh.collect(plane(c)[:, :m]),
+                                           c.dtype))
         return np.concatenate([a[d, :int(v)] for d, v in enumerate(valid)])
 
     out = {nm: prefixes(st[nm]) for nm in st}
-    posr = mesh.collect(pos).cpu().numpy()
+    posr = mesh.collect(pos[:, :m]).cpu().numpy()
     out_pos = np.concatenate([posr[d, :int(v)] for d, v in enumerate(valid)])
     return out, out_pos.astype(np.uint32)

@@ -75,8 +75,12 @@ def _splitters(mesh, planes, n_dev, samples_per_dev, n_valid, backend):
     shards, n_local = planes[0].shape
     idx = _sample_idx(n_local, samples_per_dev, n_valid, shards,
                       planes[0].device)
-    # every shard sees the same gathered samples: sort them once
-    g = [mesh.all_gather(p.gather(1, idx))[0] for p in planes]
+    # every shard sees the same gathered samples: sort them once (empty
+    # shards sample the all-ones pad, so every splitter is the pad)
+    g = [mesh.all_gather(p.gather(1, idx) if n_local
+                         else torch.full(idx.shape, -1, dtype=p.dtype,
+                                         device=p.device))[0]
+         for p in planes]
     g = sort_planes(g, len(g), backend=backend)
     total = n_dev * samples_per_dev
     sp_idx = (torch.arange(1, n_dev, device=g[0].device) * total) // n_dev
@@ -275,8 +279,11 @@ def exchange(mesh, dest, cols, pad_values, n_dev: int, capacity: int,
     recv_cols = []
     for c, fill in zip(cols_s, pad_values):
         flat = c.reshape(-1)
-        packed = torch.where(in_run, flat[pack_idx].reshape(
-            shards, n_dev, capacity), i32(fill))
+        # an empty plane reads as the pad (the JAX gather's clip mode)
+        packed = (torch.where(in_run, flat[pack_idx].reshape(
+            shards, n_dev, capacity), i32(fill)) if n_local
+            else torch.full(in_run.shape, i32(fill), dtype=c.dtype,
+                            device=dev))
         tail = torch.where(in_tail, flat[tail_idx].reshape(shards, n_local),
                            i32(fill))
         recv_cols.append(torch.cat(

@@ -10,9 +10,11 @@ out-of-core executor over virtual tables (bigexec.py).
 
     db.register_virtual("big", n, {"k": fn})   # out-of-core (bigexec.py)
 
-Virtual tables run through the out-of-core executor (bigexec.py); the
-distributed `mesh=` path is not ported yet (ROADMAP Queue A item 10): it
-raises SqlError.
+    out = db.sql(q, mesh=LocalMesh(8, "cuda"))   # over a mesh of shards
+
+Virtual tables run through the out-of-core executor (bigexec.py); with
+`mesh=` (exchange.LocalMesh or GroupMesh) the recognized query shapes run
+through the distributed operators of exchange/, and the rest raise.
 """
 
 from tpu_qe_torch.sql.executor import Database, SqlError

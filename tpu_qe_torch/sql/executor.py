@@ -45,9 +45,11 @@ reads as 1, so v / 0 = v and v % 0 = 0); aggregate SUM of integer columns
 is exact 64-bit.
 
 Queries over virtual (out-of-core) tables, registered with
-`register_virtual`, run through sql/bigexec.py. Not ported yet: the
-distributed `mesh=` path (ROADMAP Queue A item 10), which raises SqlError
-naming its item.
+`register_virtual`, run through sql/bigexec.py. With `mesh=` (a LocalMesh
+or GroupMesh of exchange/mesh.py) the recognized query shapes run through
+the distributed operators of exchange/ (see Database._sql_distributed):
+the registered columns are read back to the host, re-sharded onto the
+mesh's device, and every shape the layer does not recognize raises.
 """
 
 from __future__ import annotations
@@ -57,16 +59,13 @@ import dataclasses
 import numpy as np
 import torch
 
-from tpu_qe_torch.bits import SIGN_BIT, U64, widen
+from tpu_qe_torch.bits import SIGN_BIT, U64, sortable_u32, widen
 from tpu_qe_torch.config import resolve_device
 from tpu_qe_torch.sort.driver import signed_key
 from tpu_qe_torch.sql import parser as P
 from tpu_qe_torch.table import Table, column_to_numpy, from_plane
 
 SqlError = P.SqlError
-
-NOT_PORTED_MESH = ("the distributed mesh= path is not ported yet: ROADMAP "
-                   "Queue A item 10")
 
 _AGG_FUNCS = frozenset(["count", "sum", "min", "max", "avg"])
 # ordered-set aggregates: PERCENTILE_DISC/CONT(q) WITHIN GROUP
@@ -172,6 +171,24 @@ def _column(arr, tag: str):
     if tag == "u32" and arr.dtype == torch.int32:
         return from_plane(arr, torch.uint32)
     return arr
+
+
+def _pow2_cap(g: int, n: int) -> int:
+    c = 1
+    while c < g:
+        c <<= 1
+    return min(c, n)
+
+
+def _host_value(tv: TV, n: int) -> np.ndarray:
+    """A row-level value broadcast to n rows and read back once: u32
+    planes as numpy uint32, U64 as uint64, bool as bool."""
+    if isinstance(tv.arr, U64):
+        return tv.arr.to_numpy()
+    if not isinstance(tv.arr, torch.Tensor):
+        raise SqlError("a u64 literal is not a row-level column")
+    a = (tv.arr.expand(n) if tv.arr.dim() == 0 else tv.arr).cpu().numpy()
+    return a.view(np.uint32) if tv.tag == "u32" else a
 
 
 def _head_np(arr, g: int) -> np.ndarray:
@@ -777,8 +794,12 @@ class Database:
         run_size / max_groups apply to VIRTUAL (out-of-core) tables: rows
         per run and the per-run group-table bound (exact overflow
         detection: raise it if a query reports overflow); stats, if given,
-        receives the out-of-core phase times. `mesh` (the distributed path)
-        is not ported yet and raises."""
+        receives the out-of-core phase times.
+
+        mesh: a LocalMesh or GroupMesh (exchange/mesh.py). Recognized query
+        shapes execute through the distributed operator layer (exchange/),
+        sharded over the mesh (see _sql_distributed); unrecognized shapes
+        raise rather than silently falling back to one device."""
         q = P.parse(query)
         vt = self._virtual_of(q)
         if vt is not None:
@@ -791,7 +812,7 @@ class Database:
             return select_big(vt, q, run_size=run_size,
                               max_groups=max_groups, stats=stats, db=self)
         if mesh is not None:
-            raise SqlError(NOT_PORTED_MESH)
+            return self._sql_distributed(q, mesh)
         frames = [self._select(s) for s in q.selects]
         if len(frames) > 1:
             frames = [_materialize(f) for f in frames]
@@ -804,7 +825,8 @@ class Database:
     def explain(self, query: str, mesh=None) -> str:
         """Plan audit: which tier and operator family one query maps to,
         WITHOUT executing anything. One line per plan step; the JAX
-        package's text for its in-core and out-of-core tiers."""
+        package's text for its in-core, out-of-core and distributed
+        tiers."""
         q = P.parse(query)
         sel = q.selects[0]
         vt = None
@@ -812,8 +834,6 @@ class Database:
             vt = self._virtual.get(s.table.name.lower())
             if vt is not None:
                 break
-        if vt is None and mesh is not None:
-            raise SqlError(NOT_PORTED_MESH)
         has_aggs = self._has_aggs(sel) or sel.having is not None
         has_win = any(it.expr != "*" and _calls(it.expr, window=True)
                       for it in sel.items)
@@ -880,6 +900,33 @@ class Database:
                                  "candidate combine")
             return fin(tier, "head: sequential run scans, early exit at "
                              "limit+offset rows (bigexec._head_big)")
+        if mesh is not None:
+            tier = f"distributed ({mesh.n_dev} devices)"
+            if len(q.selects) > 1:
+                return fin(tier, "set-op: distributed_set_op "
+                                 "(exchange/dops)")
+            if sel.distinct:
+                return fin(tier, "distinct: count-only "
+                                 "distributed_aggregate over packed "
+                                 "keys (_dist_distinct)")
+            if sel.joins:
+                return fin(tier, "join+group: "
+                                 "distributed_join_aggregate (fused "
+                                 "two-exchange FK path)")
+            if sel.group_by or has_aggs:
+                k = len(sel.group_by)
+                return fin(tier,
+                           "aggregate: distributed_aggregate"
+                           + (f" over a rank-packed {k}-column "
+                              "composite key" if k > 1 else "")
+                           + " (exchange/dops; percentiles via the "
+                             "zero-row-movement bisection)")
+            if has_win:
+                return fin(tier, "window: distributed_window "
+                                 "(exchange/dwindow: splitter "
+                                 "exchange + carry chain + row halos)")
+            return fin(tier, "order by: distributed_order_by "
+                             "(exchange/dorderby)")
         if q.set_ops:
             lines.append("set-op chain: host multiset algebra over "
                          "materialized sides")
@@ -902,6 +949,834 @@ class Database:
         if not lines:
             lines.append("scan: device expression projection")
         return fin("in-core (device-resident)")
+
+    # -- distributed execution (mesh=) ----------------------------------------
+    def _sql_distributed(self, q: P.Query, mesh) -> dict:
+        """Execute recognized query shapes through the distributed layer
+        (exchange/dops, dquantile, dwindow, dorderby) over a mesh.
+
+        Shapes (everything else raises — no silent one-device fallback):
+          - set-op chains of plain single-column SELECTs
+                                        -> distributed_set_op
+          - GROUP BY 1..k columns + COUNT/SUM/MIN/MAX/AVG/
+            COUNT(DISTINCT [u64])       -> distributed_aggregate /
+                                           distributed_count_distinct
+            (k >= 2 columns rank-pack into one u64 via _group_pack;
+             u64 COUNT(DISTINCT) dictionary-ranks to dense u32)
+          - SELECT DISTINCT col[, col]  -> count-only aggregate
+                                           (_dist_distinct)
+          - one inner JOIN + GROUP BY the join key, aggs over one right
+            column                      -> distributed_join_aggregate
+                                           (the fused two-exchange path)
+          - top-level window calls over plain columns
+                                        -> distributed_window
+          - plain column SELECT + ORDER BY -> distributed_order_by
+        GROUP BY aggregates, ORDER BY, and windows accept WHERE
+        (device-evaluated mask + reserved-pad re-sharding: a pad GROUP
+        key / pad PARTITION / direction-extreme ORDER rows — which also
+        lifts the rows-divide-the-mesh restriction for those shapes);
+        GROUP BY takes HAVING (evaluated on the replicated G-bounded
+        group frame) and the ordered-set aggregates
+        (PERCENTILE_DISC/CONT WITHIN GROUP, MEDIAN) via the
+        zero-row-movement bisection. int32 SUM/MIN/MAX with negatives
+        raise (the distributed aggregate combines u32 bit patterns —
+        the signed-exact extension lives in the in-core path only).
+        WHERE with JOIN pushes down to the referenced side's table
+        scan (single-side predicates only).
+
+        The shards live on the mesh's device; a Database on another
+        device (a CUDA Database over a CPU mesh) is the caller's choice.
+        """
+        def unsup(what):
+            return SqlError(f"{what} is not supported with mesh= "
+                            "(distributed shapes: see _sql_distributed)")
+
+        if len(q.selects) > 1:
+            fr = self._dist_setop_chain(q, mesh)
+            return dict(_frame_order_limit(fr, q.order_by, q.limit,
+                                           q.offset).cols)
+        sel = q.selects[0]
+        if sel.having is not None and not (
+                not sel.joins and (sel.group_by or self._has_aggs(sel))):
+            raise unsup("HAVING outside GROUP BY aggregates")
+        if sel.distinct:
+            if sel.joins or sel.group_by or self._has_aggs(sel):
+                raise unsup("SELECT DISTINCT with joins or aggregates")
+            fr = self._dist_distinct(sel, mesh)
+            return dict(_frame_order_limit(fr, q.order_by, q.limit,
+                                           q.offset).cols)
+        if sel.joins:
+            fr = self._dist_join_agg(sel, mesh)
+        elif sel.group_by or self._has_aggs(sel):
+            fr = self._dist_group(sel, mesh)
+        elif any(it.expr != "*" and _calls(it.expr, window=True)
+                 for it in sel.items):
+            fr = self._dist_window(sel, mesh)
+        else:
+            fr = self._dist_order_by(sel, q, mesh)
+            return dict(Frame(
+                {k: v[q.offset:(None if q.limit is None
+                                else q.offset + q.limit)]
+                 for k, v in fr.cols.items()}
+                if q.limit is not None or q.offset else fr.cols,
+                fr.tags).cols)
+        return dict(_frame_order_limit(fr, q.order_by, q.limit,
+                                       q.offset).cols)
+
+    def _dist_table(self, ref: P.TableRef):
+        """One registered table read back to host numpy columns (one
+        device-to-host copy a column): the distributed SQL layer
+        materializes host columns before re-sharding them onto the
+        mesh."""
+        t = self._tables.get(ref.name.lower())
+        if t is None:
+            raise SqlError(f"unknown table {ref.name!r}")
+        cols = t.to_numpy()
+        tags = {nm: _tag_of(t[nm]) for nm in t.column_names}
+        return cols, tags
+
+    @staticmethod
+    def _plain_col(e, what="distributed select items") -> str:
+        if not isinstance(e, P.Col):
+            raise SqlError(f"{what} must be plain columns")
+        return e.name
+
+    def _dist_setop_chain(self, q: P.Query, mesh) -> Frame:
+        from tpu_qe_torch.exchange.dops import distributed_set_op_numpy
+        sides = []
+        for sel in q.selects:
+            if (sel.joins or sel.where is not None or sel.group_by
+                    or len(sel.items) != 1 or sel.items[0].expr == "*"):
+                raise SqlError("distributed set ops take plain "
+                               "single-column SELECTs")
+            cols, tags = self._dist_table(sel.table)
+            nm = self._plain_col(sel.items[0].expr)
+            out = sel.items[0].alias or nm
+            sides.append((cols[nm], tags[nm], out))
+        if len(sides) != 2:
+            raise SqlError("distributed set ops take exactly two "
+                           "selects (intermediate results do not "
+                           "re-shard)")
+        (acol, atag, aname) = sides[0]
+        (bcol, btag, _) = sides[1]
+        op, all_ = q.set_ops[0]
+        if atag != btag:
+            raise SqlError(f"set-op column dtypes differ ({atag} vs "
+                           f"{btag}) — positional pairing would "
+                           "silently promote")
+        # ALL variants expand from the operator's exact per-key
+        # (count_a, count_b) multiplicities: UNION ALL = ca+cb copies,
+        # INTERSECT ALL = min(ca, cb), EXCEPT ALL = max(ca-cb, 0)
+        # over the union key set (keys only in a keep ca copies)
+        keys, ca, cb = distributed_set_op_numpy(
+            _lift64_np(acol), _lift64_np(bcol), mesh,
+            op="union" if all_ and op == "except" else op,
+            capacity_factor="auto")
+        if all_:
+            if op == "union":
+                reps = ca.astype(np.int64) + cb.astype(np.int64)
+            elif op == "intersect":
+                reps = np.minimum(ca, cb).astype(np.int64)
+            else:
+                reps = np.maximum(ca.astype(np.int64)
+                                  - cb.astype(np.int64), 0)
+            keys = np.repeat(keys, reps)
+        return Frame({aname: _unlift64_np(np.sort(keys), acol.dtype)},
+                     {aname: atag})
+
+    def _agg_calls_of(self, sel: P.Select):
+        calls = []
+        for it in sel.items:
+            if it.expr == "*":
+                raise SqlError("SELECT * in a distributed aggregate")
+            cs = _calls(it.expr, window=False)
+            if cs and (len(cs) != 1 or cs[0] is not it.expr):
+                raise SqlError("distributed aggregates must be "
+                               "top-level select items")
+            calls += cs
+        if sel.having is not None:
+            calls += _calls(sel.having, window=False)
+        return calls
+
+    def _where_mask(self, sel: P.Select) -> np.ndarray:
+        """Distributed WHERE: the predicate is elementwise, so it runs
+        through the device expression engine over the registered table
+        and the boolean mask reads back once (the filtered frame then
+        re-shards through the numpy wrappers)."""
+        return self._where_mask_on(sel.table, sel.where)
+
+    def _where_mask_on(self, ref: P.TableRef, where) -> np.ndarray:
+        """Evaluate a boolean predicate over one registered table
+        (device expression engine, one mask readback)."""
+        table, names, tags = self._bind_table(ref)
+        env = _RowEnv(table, names, tags, self.device)
+        tv = _eval(where, env, table.num_rows)
+        if tv.tag != "bool":
+            raise SqlError("WHERE must be boolean")
+        return _host_value(tv, table.num_rows)
+
+    @staticmethod
+    def _group_pack(cols: dict, tags: dict, gnames: list):
+        """Pack 1..k group columns into ONE u64 key plane for the
+        distributed exchanges (which move a single U64 key).
+
+        One column lifts directly (order-preserving bit lift). Two or
+        more columns RANK-PACK: per-column np.unique ranks in mixed
+        radix, so the packed u64 orders lexicographically by column
+        VALUES and decodes exactly. The distributed SQL layer
+        materializes host columns before re-sharding (see _dist_table),
+        so the host-side dictionary is within this layer's execution
+        model. The all-ones u64 stays reserved for mesh padding: ranks
+        multiply to < 2^63.
+
+        Returns (gkey u64[n], unpack: sorted u64 keys -> {name: col}).
+        """
+        if len(gnames) == 1:
+            nm = gnames[0]
+            if cols[nm].dtype == np.bool_:
+                def unpackb(gvals: np.ndarray) -> dict:
+                    return {nm: gvals.astype(bool)}
+                return cols[nm].astype(np.uint64), unpackb
+
+            def unpack1(gvals: np.ndarray) -> dict:
+                return {nm: _unlift64_np(gvals, cols[nm].dtype)}
+            return _lift64_np(cols[nm]), unpack1
+        uniqs, card = [], []
+        gkey = None
+        for nm in gnames:
+            u, inv = np.unique(cols[nm], return_inverse=True)
+            uniqs.append(u)
+            card.append(max(len(u), 1))
+            r = inv.astype(np.uint64)
+            gkey = r if gkey is None \
+                else gkey * np.uint64(card[-1]) + r
+        prod = 1
+        for c in card:
+            prod *= c
+        if prod >= (1 << 63):
+            raise SqlError("GROUP BY cardinality product exceeds the "
+                           "u64 composite key space — reduce the "
+                           "number of group columns or their "
+                           "cardinalities")
+
+        def unpack(gvals: np.ndarray) -> dict:
+            out, rem = {}, gvals.copy()
+            for nm, u, c in zip(gnames[::-1], uniqs[::-1], card[::-1]):
+                out[nm] = u[(rem % np.uint64(c)).astype(np.int64)]
+                rem = rem // np.uint64(c)
+            return out
+        return gkey, unpack
+
+    def _dist_group(self, sel: P.Select, mesh) -> Frame:
+        from tpu_qe_torch.exchange.dops import (
+            distributed_aggregate_numpy, distributed_count_distinct_numpy)
+        cols, tags = self._dist_table(sel.table)
+        if not sel.group_by:
+            raise SqlError("distributed aggregates need GROUP BY")
+        gnames = [g.name for g in sel.group_by]
+        aliases = {it.alias: it.expr for it in sel.items
+                   if it.expr != "*" and it.alias
+                   and not _calls(it.expr, window=False)}
+        for gname in gnames:
+            if gname in cols:
+                continue
+            if gname in aliases:
+                # aliased group expression (GROUP BY v % 5 AS m,
+                # sqlite-style): evaluate through the device engine
+                # over the unfiltered table; the host column then
+                # filters and packs like a physical one
+                table, names, tags_ = self._bind_table(sel.table)
+                env = _RowEnv(table, names, tags_, self.device)
+                tv = _eval(aliases[gname], env, table.num_rows)
+                cols[gname] = _host_value(tv, table.num_rows)
+                tags[gname] = tv.tag
+                continue
+            raise SqlError(f"unknown column {gname!r}")
+        PADKEY = int(np.uint64(0xFFFFFFFFFFFFFFFF))
+        if sel.where is not None:
+            # WHERE is elementwise: evaluate the mask through the
+            # device expression engine, filter the host frame, and pad
+            # back to a mesh multiple below
+            mask = self._where_mask(sel)
+            cols = {k: v[mask] for k, v in cols.items()}
+        # the all-ones u64 key is RESERVED at this layer (results drop
+        # it as the padding group; the quantile exchange uses it as the
+        # distinct-key sentinel) — 32-bit group columns cannot produce
+        # it (they lift with hi == 0), and rank-packed composites stay
+        # below 2^63; reject it on a single u64 column rather than
+        # silently dropping a real group. Checked AFTER the WHERE
+        # filter: a query whose predicate removes every reserved-key
+        # row is valid.
+        if len(gnames) == 1 and tags[gnames[0]] == "u64" and bool(
+                (cols[gnames[0]] == np.uint64(PADKEY)).any()):
+            raise SqlError("u64 group keys may not use the reserved "
+                           "max value 2^64-1 (distributed padding / "
+                           "sentinel key)")
+        gkey, unpack_groups = self._group_pack(cols, tags, gnames)
+        # pad to a mesh multiple with the reserved group key (dropped
+        # from the results). This also lifts the rows-divide-the-mesh
+        # restriction.
+        n_dev = mesh.n_dev
+        n_pad = (-len(gkey)) % n_dev
+        if n_pad or len(gkey) == 0:
+            n_pad = n_pad if len(gkey) else n_dev
+            gkey = np.concatenate(
+                [gkey, np.full(n_pad, PADKEY, np.uint64)])
+            cols = {k: np.concatenate([v, np.zeros(n_pad, v.dtype)])
+                    for k, v in cols.items()}
+        calls = self._agg_calls_of(sel)
+        # plan one distributed_aggregate per value column; COUNT(*)
+        # rides any of them (or a dedicated count when none)
+        per_col: dict[str, set] = {}
+        distinct_cols = []
+        for c in calls:
+            if c.func in _PCT_FUNCS:
+                continue        # collected into pct_specs below
+            if c.func not in _AGG_FUNCS:
+                raise SqlError(f"unknown aggregate {c.func}")
+            if c.distinct:
+                if c.func != "count":
+                    raise SqlError("DISTINCT only inside COUNT()")
+                distinct_cols.append(self._plain_col(c.args[0]))
+                continue
+            if c.func == "count":
+                continue
+            vn = self._plain_col(c.args[0])
+            if tags[vn] == "u64":
+                raise SqlError("aggregates over u64 columns are not "
+                               "supported")
+            want = {"avg": {"sum", "count"}}.get(c.func, {c.func})
+            per_col.setdefault(vn, set()).update(want)
+            if tags[vn] == "i32" and (per_col[vn] & {"sum", "min", "max"}
+                                      ) and (cols[vn] < 0).any():
+                raise SqlError(
+                    "distributed SUM/MIN/MAX over int32 with negatives "
+                    "is not supported (u32 bit-pattern combine); use "
+                    "the local path or bias-map the column")
+        # ordered-set aggregates ride the zero-row-movement bisection
+        # (exchange/dquantile) — collect specs like the local path
+        pct_specs: dict[tuple, list] = {}
+        pct_of: dict[int, tuple] = {}
+        from tpu_qe_torch.ops.quantile import canon_qs
+        for c in calls:
+            if c.func not in _PCT_FUNCS:
+                continue
+            if c.func == "median":
+                vn, kind, q = self._plain_col(c.args[0]), "disc", (1, 1)
+            else:
+                if c.within_order is None:
+                    raise SqlError(f"{c.func} needs WITHIN GROUP "
+                                   "(ORDER BY col)")
+                kind = "disc" if c.func == "percentile_disc" else "cont"
+                vn = c.within_order.name
+                (q,) = canon_qs([float(c.args[0].value)])
+            if tags[vn] == "u64":
+                raise SqlError("percentiles over u64 columns are not "
+                               "supported distributed")
+            qlist = pct_specs.setdefault((vn, kind), [])
+            if q not in qlist:
+                qlist.append(q)
+            pct_of[id(c)] = (vn, kind, qlist.index(q))
+
+        results: dict[int, dict] = {}
+        need_count = True
+        for vn, aggs in per_col.items():
+            aggs = set(aggs)
+            if need_count:
+                aggs.add("count")
+                need_count = False
+            res = distributed_aggregate_numpy(
+                gkey, cols[vn], mesh, aggs=tuple(sorted(aggs)),
+                capacity_factor="auto")
+            for k, row in res.items():
+                dst = results.setdefault(k, {})
+                for a, v in row.items():
+                    dst[f"{vn}_{a}"] = v
+                    if a == "count":
+                        dst["__count"] = v
+        if need_count:
+            res = distributed_aggregate_numpy(
+                gkey, np.zeros(len(gkey), np.uint32), mesh,
+                aggs=("count",), capacity_factor="auto")
+            for k, row in res.items():
+                results.setdefault(k, {})["__count"] = row["count"]
+        for vn in distinct_cols:
+            if tags[vn] == "u64":
+                # dictionary-rank the u64 values to dense u32 on the
+                # host (this layer already holds host columns):
+                # COUNT(DISTINCT rank) == COUNT(DISTINCT value), and
+                # ranks < n < 2^32 always fit the exchange's u32 plane
+                _, inv_ = np.unique(_lift64_np(cols[vn]),
+                                    return_inverse=True)
+                bits = inv_.astype(np.uint32)
+            elif tags[vn] == "u32":
+                bits = cols[vn]
+            else:
+                bits = sortable_u32(torch.from_numpy(np.ascontiguousarray(
+                    cols[vn]))).numpy().view(np.uint32)
+            res = distributed_count_distinct_numpy(
+                gkey, bits, mesh, capacity_factor="auto")
+            for k, v in res.items():
+                results.setdefault(k, {})[f"{vn}_count_distinct"] = v
+        if pct_specs:
+            from tpu_qe_torch.exchange.dquantile import (
+                QuantileOverflow, distributed_group_quantile_cont_numpy,
+                distributed_group_quantile_numpy)
+            for (vn, kind), qlist in pct_specs.items():
+                fn = (distributed_group_quantile_numpy if kind == "disc"
+                      else distributed_group_quantile_cont_numpy)
+                # the exact group count is already known from the
+                # aggregate pass above (results covers every group incl.
+                # the pad group): seed max_groups there so the retry
+                # loop (kept as the exact-overflow backstop) never pays a
+                # wasted execution
+                mg = _pow2_cap(max(len(results), 1) + 1, 1 << 62)
+                while True:
+                    try:
+                        res = fn(gkey, cols[vn], qlist, mesh,
+                                 max_groups=mg)
+                        break
+                    except QuantileOverflow:
+                        # only the exact-overflow signal retries with a
+                        # larger cap; any other failure surfaces at once
+                        if mg >= len(gkey):
+                            raise
+                        mg = min(mg * 4, max(len(gkey), 1))
+                for k, v in res.items():
+                    dst = results.setdefault(k, {})
+                    for qi, val in enumerate(v):
+                        dst[f"{vn}_{kind}_{qi}"] = val
+        results.pop(PADKEY, None)     # the reserved padding group
+        gvals = np.array(sorted(results), np.uint64)
+        g = len(gvals)
+        gcols_out = unpack_groups(gvals)
+
+        def col_of(c: P.Call) -> np.ndarray:
+            if c.func in _PCT_FUNCS:
+                vn, kind, qi = pct_of[id(c)]
+                vals = np.array([results[k][f"{vn}_{kind}_{qi}"]
+                                 for k in gvals])
+                return (vals if kind == "cont"
+                        else vals.astype(cols[vn].dtype))
+            if c.func == "count" and not c.distinct:
+                return np.array([results[k]["__count"] for k in gvals],
+                                np.int64)
+            vn = self._plain_col(c.args[0])
+            if c.distinct:
+                return np.array(
+                    [results[k][f"{vn}_count_distinct"] for k in gvals],
+                    np.int64)
+            if c.func == "avg":
+                s = np.array([results[k][f"{vn}_sum"] for k in gvals],
+                             np.float64)
+                n = np.array([results[k]["__count"] for k in gvals],
+                             np.float64)
+                return s / np.maximum(n, 1)
+            v = np.array([results[k][f"{vn}_{c.func}"] for k in gvals])
+            if c.func in ("min", "max") and tags[vn] != "u32":
+                v = _unlift64_np(v.astype(np.uint64), cols[vn].dtype) \
+                    if tags[vn] == "u64" else v.astype(cols[vn].dtype) \
+                    if tags[vn] == "f32" else v
+            return v
+
+        out, otags = {}, {}
+        for i, it in enumerate(sel.items):
+            name = it.alias or self._auto_name(it.expr, i)
+            if isinstance(it.expr, P.Col) and it.expr.name in gnames:
+                out[name] = gcols_out[it.expr.name]
+            elif it.alias is not None and it.alias in gnames:
+                out[name] = gcols_out[it.alias]   # aliased group expr
+            elif isinstance(it.expr, P.Call):
+                out[name] = col_of(it.expr)
+            else:
+                raise SqlError("distributed aggregate items are the "
+                               "group column or aggregate calls")
+            otags[name] = str(out[name].dtype)
+        if sel.having is not None:
+            # HAVING on the replicated G-bounded group frame (host)
+            def eval_h(e):
+                if isinstance(e, P.Call):
+                    return col_of(e)
+                if isinstance(e, P.Col):
+                    if e.name in gnames:
+                        return gcols_out[e.name]
+                    raise SqlError(f"HAVING column {e.key!r} is not "
+                                   "a group column")
+                if isinstance(e, P.Lit):
+                    return np.asarray(e.value)
+                if isinstance(e, P.Unary):
+                    v = eval_h(e.operand)
+                    return ~v.astype(bool) if e.op == "not" else -v
+                if isinstance(e, P.Binary):
+                    return _np_binop(e.op, eval_h(e.left),
+                                     eval_h(e.right))
+                raise SqlError("unsupported HAVING expression "
+                               f"{type(e).__name__}")
+            keep = np.broadcast_to(eval_h(sel.having).astype(bool),
+                                   (g,))
+            out = {k: v[keep] for k, v in out.items()}
+        return Frame(out, otags)
+
+    def _dist_distinct(self, sel: P.Select, mesh) -> Frame:
+        """SELECT DISTINCT col[, col...] [WHERE ...]: the GROUP BY
+        machinery with no aggregates — one count-only distributed
+        aggregate over the packed key plane; only the G-bounded
+        distinct key set returns (dedup IS the compression)."""
+        from tpu_qe_torch.exchange.dops import distributed_aggregate_numpy
+        cols, tags = self._dist_table(sel.table)
+        gnames, outs = [], []
+        for i, it in enumerate(sel.items):
+            nm = self._plain_col(it.expr, "distributed DISTINCT items")
+            if nm not in cols:
+                raise SqlError(f"unknown column {nm!r}")
+            if nm not in gnames:
+                gnames.append(nm)
+            outs.append((it.alias or nm, nm))
+        if sel.where is not None:
+            mask = self._where_mask(sel)
+            cols = {k: v[mask] for k, v in cols.items()}
+        PADKEY = int(np.uint64(0xFFFFFFFFFFFFFFFF))
+        if len(gnames) == 1 and tags[gnames[0]] == "u64" and bool(
+                (cols[gnames[0]] == np.uint64(PADKEY)).any()):
+            raise SqlError("u64 DISTINCT keys may not use the reserved "
+                           "max value 2^64-1 (distributed padding)")
+        gkey, unpack_groups = self._group_pack(cols, tags, gnames)
+        n_dev = mesh.n_dev
+        n_pad = (-len(gkey)) % n_dev
+        if n_pad or len(gkey) == 0:
+            n_pad = n_pad if len(gkey) else n_dev
+            gkey = np.concatenate(
+                [gkey, np.full(n_pad, PADKEY, np.uint64)])
+        res = distributed_aggregate_numpy(
+            gkey, np.zeros(len(gkey), np.uint32), mesh,
+            aggs=("count",), capacity_factor="auto")
+        res.pop(PADKEY, None)
+        gvals = np.array(sorted(res), np.uint64)
+        gcols = unpack_groups(gvals)
+        return Frame({on: gcols[nm] for on, nm in outs},
+                     {on: str(gcols[nm].dtype) for on, nm in outs})
+
+    def _dist_join_agg(self, sel: P.Select, mesh) -> Frame:
+        from tpu_qe_torch.exchange.dops import (
+            distributed_join_aggregate_numpy)
+        if len(sel.joins) != 1 or sel.joins[0].how != "inner":
+            raise SqlError("distributed joins: exactly one INNER JOIN")
+        j = sel.joins[0]
+        lcols, ltags = self._dist_table(sel.table)
+        rcols, rtags = self._dist_table(j.table)
+        lb, rb = sel.table.binding, j.table.binding
+
+        def side_of(c: P.Col):
+            if c.table == lb or (c.table is None and c.name in lcols
+                                 and c.name not in rcols):
+                return "l", c.name
+            if c.table == rb or (c.table is None and c.name in rcols):
+                return "r", c.name
+            raise SqlError(f"cannot resolve {c.key!r}")
+
+        ls, lkn = side_of(j.left_col)
+        rs, rkn = side_of(j.right_col)
+        if (ls, rs) == ("r", "l"):
+            lkn, rkn = rkn, lkn
+        if sel.where is not None:
+            # WHERE pushes down to ONE side's table scan (SQL
+            # semantics: filter before the inner join is equivalent
+            # when the predicate references one side only); the mask
+            # evaluates through the device expression engine over that
+            # side and the filtered frame pads back below
+            from tpu_qe_torch.sql.bigexec import _walk_cols
+            wc: list = []
+            _walk_cols(sel.where, wc)
+            wsides = {side_of(c)[0] for c in wc}
+            if len(wsides) != 1:
+                raise SqlError(
+                    "distributed WHERE with JOIN must reference one "
+                    "side's columns only (single-side pushdown)")
+            if wsides == {"l"}:
+                mask = self._where_mask_on(sel.table, sel.where)
+                lcols = {k: v[mask] for k, v in lcols.items()}
+            else:
+                mask = self._where_mask_on(j.table, sel.where)
+                rcols = {k: v[mask] for k, v in rcols.items()}
+        lkey, rkey = _lift64_np(lcols[lkn]), _lift64_np(rcols[rkn])
+        if len(sel.group_by) != 1:
+            raise SqlError("distributed join needs GROUP BY the join "
+                           "key (the fused join->GROUP BY path)")
+        gs, gn = side_of(sel.group_by[0])
+        if gs != "l" or gn != lkn:
+            raise SqlError("distributed join aggregates GROUP BY the "
+                           "LEFT join key")
+        calls = self._agg_calls_of(sel)
+        vcols = set()
+        aggs = set()
+        for c in calls:
+            if c.distinct:
+                raise SqlError("COUNT(DISTINCT) is not supported in the "
+                               "distributed fused join")
+            if c.func == "count":
+                aggs.add("count")
+                continue
+            s, vn = side_of(c.args[0]) if c.args and isinstance(
+                c.args[0], P.Col) else (None, None)
+            if s != "r":
+                raise SqlError("distributed fused join aggregates RIGHT "
+                               "value columns")
+            vcols.add(vn)
+            aggs.update({"avg": {"sum", "count"}}.get(c.func, {c.func}))
+        if len(vcols) != 1:
+            raise SqlError("distributed fused join takes exactly one "
+                           "right value column")
+        vn = vcols.pop()
+        if rtags[vn] == "i32" and ({"sum", "min", "max"} & aggs) \
+                and (rcols[vn] < 0).any():
+            raise SqlError("distributed SUM/MIN/MAX over int32 with "
+                           "negatives is not supported")
+        # the fused path is the FK join: the straddler-broadcast bound
+        # (n_dev-1 slots) holds only for unique right keys, and SQL's
+        # one-to-many JOIN semantics differ from FK pick-one anyway —
+        # detect the shape here rather than overflow inside the exchange
+        if len(np.unique(rcols[rkn])) != len(rcols[rkn]):
+            raise SqlError("distributed fused join requires unique "
+                           "right join keys (the FK/dimension shape)")
+        aggs.add("count")
+        # pad both sides to a mesh multiple (lifts the rows-divide-the-
+        # mesh restriction; WHERE makes lengths arbitrary). Left pads
+        # share ONE reserved key; right pads get DISTINCT reserved keys
+        # (the exchange requires unique right keys). 32-bit join keys
+        # lift with hi == 0 and can never collide with the reserved top
+        # band; u64 keys inside the band raise rather than alias.
+        n_dev = mesh.n_dev
+        TOP = np.uint64(0xFFFFFFFFFFFFFFFF)
+        band_lo = TOP - np.uint64(n_dev)
+        for kk, tg in ((lkey, ltags[lkn]), (rkey, rtags[rkn])):
+            if tg == "u64" and bool((kk > band_lo).any()):
+                raise SqlError("u64 join keys may not use the top "
+                               f"{n_dev + 1} values (reserved for "
+                               "distributed mesh padding)")
+        lpad = (-len(lkey)) % n_dev if len(lkey) else n_dev
+        rpad = (-len(rkey)) % n_dev if len(rkey) else n_dev
+        rv = np.asarray(rcols[vn])
+        if lpad:
+            lkey = np.concatenate([lkey, np.full(lpad, TOP, np.uint64)])
+        if rpad:
+            rkey = np.concatenate(
+                [rkey, TOP - np.uint64(1)
+                 - np.arange(rpad, dtype=np.uint64)])
+            rv = np.concatenate([rv, np.zeros(rpad, rv.dtype)])
+        res = distributed_join_aggregate_numpy(
+            lkey, rkey, rv, mesh, aggs=tuple(sorted(aggs)),
+            capacity_factor="auto")
+        gvals = np.array(sorted(res), np.uint64)
+
+        def col_of(c: P.Call):
+            if c.func == "count":
+                return np.array([res[k]["count"] for k in gvals],
+                                np.int64)
+            if c.func == "avg":
+                s = np.array([res[k]["sum"] for k in gvals], np.float64)
+                n = np.array([res[k]["count"] for k in gvals],
+                             np.float64)
+                return s / np.maximum(n, 1)
+            return np.array([res[k][c.func] for k in gvals])
+
+        out, otags = {}, {}
+        for i, it in enumerate(sel.items):
+            name = it.alias or self._auto_name(it.expr, i)
+            if isinstance(it.expr, P.Col):
+                out[name] = _unlift64_np(gvals, lcols[lkn].dtype)
+            elif isinstance(it.expr, P.Call):
+                out[name] = col_of(it.expr)
+            else:
+                raise SqlError("distributed join items are the group "
+                               "column or aggregate calls")
+            otags[name] = str(out[name].dtype)
+        return Frame(out, otags)
+
+    def _dist_window(self, sel: P.Select, mesh) -> Frame:
+        from tpu_qe_torch.exchange.dwindow import distributed_window_numpy
+        cols, tags = self._dist_table(sel.table)
+        if sel.where is not None:
+            # WHERE before windows is SQL semantics; the filtered frame
+            # pads back to a mesh multiple below with a RESERVED pad
+            # partition (hi != 0 — 32-bit partition keys cannot collide),
+            # so real partitions' carry chains never see pad rows and
+            # the pad outputs trim off the tail
+            mask = self._where_mask(sel)
+            cols = {k: v[mask] for k, v in cols.items()}
+        funcs, values, plain = {}, {}, []
+        i64names: set = set()
+        spec = None
+        for i, it in enumerate(sel.items):
+            if it.expr == "*":
+                raise SqlError("SELECT * with distributed windows")
+            name = it.alias or self._auto_name(it.expr, i)
+            if isinstance(it.expr, P.Col):
+                plain.append((name, it.expr.name))
+                continue
+            c = it.expr
+            if not (isinstance(c, P.Call) and c.window is not None):
+                raise SqlError("distributed window items are plain "
+                               "columns or window calls")
+            if len(c.window.partition_by) != 1:
+                raise SqlError("distributed windows partition by one "
+                               "column")
+            key = (c.window.partition_by[0].name,
+                   c.window.order_by.name if c.window.order_by else None)
+            if spec is None:
+                spec = key
+            elif spec != key:
+                # whole-partition calls (no ORDER BY) may ride an
+                # ordered spec over the same partition column — their
+                # kinds are order-independent
+                if key[0] == spec[0] and (key[1] is None
+                                          or spec[1] is None):
+                    if spec[1] is None:
+                        spec = key
+                else:
+                    raise SqlError("distributed windows share one "
+                                   "(PARTITION BY, ORDER BY) spec")
+            fr = c.window.frame_rows
+            if c.window.frame_range not in (None, "unbounded"):
+                raise SqlError("bounded RANGE frames are in-core only "
+                               "(an order-VALUE bound reaches back an "
+                               "unbounded number of rows — no finite "
+                               "row halo covers it)")
+            # the shared in-core kind resolver: frames, whole-partition
+            # (total_*) remaps, COUNT<->row_number/partition_count,
+            # AVG's moving/running/total split — all supported by the
+            # dwindow chain (total carries + offset-k halos)
+            kind = _window_kind(c)
+            if kind in ("row_number", "rank", "dense_rank",
+                        "percent_rank", "partition_count"):
+                funcs[name] = (kind,)
+            elif kind == "moving_count":
+                funcs[name] = (kind, None if fr is None else fr + 1,
+                               c.window.frame_follow or 0)
+            elif kind == "ntile":
+                funcs[name] = (kind, int(c.args[0].value))
+            else:
+                vn = self._plain_col(c.args[0], "window arguments")
+                values[vn] = cols[vn]
+                if kind in ("lag", "lead"):
+                    fill, off = _lag_args(c)
+                    funcs[name] = (kind, vn, fill, off)
+                elif kind.startswith("moving_"):
+                    fo = c.window.frame_follow
+                    funcs[name] = (
+                        (kind, vn, None if fr is None else fr + 1, fo)
+                        if fo else (kind, vn, fr + 1))
+                elif kind.startswith("range_"):
+                    funcs[name] = (kind, vn, "unbounded")
+                else:
+                    funcs[name] = (kind, vn)
+                if kind in ("running_sum", "moving_sum", "total_sum",
+                            "range_sum") \
+                        and tags[vn] == "i32":
+                    # sign-extended pair sums come back as u64 bit
+                    # patterns — resolve to two's-complement i64 at
+                    # emission (matches the local path's i64sum tag)
+                    i64names.add(name)
+        if spec is None:
+            raise SqlError("no window calls found")
+        pname, oname = spec
+        PADKEY = np.uint64(0xFFFFFFFFFFFFFFFF)
+        pkey = _lift64_np(cols[pname])
+        if tags[pname] == "u64" and bool((pkey == PADKEY).any()):
+            raise SqlError("u64 partition keys may not use the "
+                           "reserved max value 2^64-1")
+        n_dev = mesh.n_dev
+        m = len(pkey)
+        n_pad = (-m) % n_dev if m else n_dev
+        if n_pad:
+            pkey = np.concatenate([pkey,
+                                   np.full(n_pad, PADKEY, np.uint64)])
+            values = {k: np.concatenate([v, np.zeros(n_pad, v.dtype)])
+                      for k, v in values.items()}
+        order = None if oname is None else cols[oname]
+        if n_pad and order is not None:
+            order = np.concatenate([order,
+                                    np.zeros(n_pad, order.dtype)])
+        res = distributed_window_numpy(
+            pkey, funcs, mesh, order=order,
+            values=values, capacity_factor="auto")
+        out, otags = {}, {}
+        for i, it in enumerate(sel.items):
+            name = it.alias or self._auto_name(it.expr, i)
+            if isinstance(it.expr, P.Col):
+                out[name] = cols[it.expr.name]
+            else:
+                # pad-partition outputs sit at the input-order tail
+                v = res[name][:m] if n_pad else res[name]
+                if name in i64names:
+                    v = v.view(np.int64)
+                out[name] = v
+            otags[name] = str(out[name].dtype)
+        return Frame(out, otags)
+
+    @staticmethod
+    def _order_pad_extreme(dtype, desc: bool) -> np.ndarray:
+        """One row of the value that sorts LAST under the given direction
+        — pads built from it land at the global tail of the distributed
+        ORDER BY (their transformed planes are all-ones and their input
+        positions exceed every real row's, so the stability tie-break
+        keeps them strictly after any equal real row). A float32 pad is a
+        NaN bit pattern built as uint32 and viewed: float arithmetic on
+        it could canonicalize the NaN and move it ahead of a real row."""
+        if dtype == np.uint32:
+            return np.array([0 if desc else 0xFFFFFFFF], np.uint32)
+        if dtype == np.int32:
+            return np.array([-(1 << 31) if desc else (1 << 31) - 1],
+                            np.int32)
+        if dtype == np.float32:
+            bits = 0xFFFFFFFF if desc else 0x7FFFFFFF   # -NaN / +NaN
+            return np.array([bits], np.uint32).view(np.float32)
+        if dtype == np.uint64:
+            return np.array([0 if desc else 0xFFFFFFFFFFFFFFFF], np.uint64)
+        raise SqlError(f"ORDER BY over unsupported dtype {dtype}")
+
+    def _dist_order_by(self, sel: P.Select, q: P.Query, mesh) -> Frame:
+        from tpu_qe_torch.exchange.dorderby import distributed_order_by_numpy
+        cols, tags = self._dist_table(sel.table)
+        sel_names = []
+        for i, it in enumerate(sel.items):
+            if it.expr == "*":
+                sel_names += [(nm, nm) for nm in sorted(cols)]
+                continue
+            nm = self._plain_col(it.expr)
+            sel_names.append((it.alias or nm, nm))
+        if not q.order_by:
+            raise SqlError("distributed plain SELECT needs ORDER BY "
+                           "(it IS the distributed operator)")
+        by = [(item.col.name, "desc" if item.desc else "asc")
+              for item in q.order_by]
+        if sel.where is not None:
+            mask = self._where_mask(sel)
+            cols = {k: v[mask] for k, v in cols.items()}
+        need = {src for _, src in sel_names} | {b[0] for b in by}
+        # pad to a mesh multiple with rows that sort strictly last
+        # (also lifts the rows-divide-the-mesh restriction here)
+        n_dev = mesh.n_dev
+        m = len(next(iter(cols.values())))
+        n_pad = (-m) % n_dev if m else n_dev
+        if n_pad:
+            dirs = dict(by)
+
+            def pad_col(nm):
+                c = cols[nm]
+                if nm in dirs:
+                    # np.repeat copies the pad's bytes (NaN payloads too)
+                    return np.repeat(self._order_pad_extreme(
+                        c.dtype, dirs[nm] == "desc"), n_pad)
+                return np.zeros(n_pad, c.dtype)
+            cols = {nm: np.concatenate([cols[nm], pad_col(nm)])
+                    for nm in cols}
+        st, _pos = distributed_order_by_numpy(
+            {nm: cols[nm] for nm in need}, by, mesh,
+            capacity_factor="auto")
+        if n_pad:
+            st = {nm: v[:-n_pad] for nm, v in st.items()}
+        return Frame({out: st[src] for out, src in sel_names},
+                     {out: tags[src] for out, src in sel_names})
 
     # -- FROM/JOIN ----------------------------------------------------------
     def _bind_table(self, ref: P.TableRef):
