@@ -1,0 +1,9 @@
+"""kernels.radix_roofline, read in the host-paced cells, which report
+rows_per_s_hostpaced."""
+
+import os
+
+from qe_bench.common.harness import load_module
+
+read = load_module(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "kernels.radix_roofline.py")).read
