@@ -14,11 +14,10 @@ time, the peak device memory and the card's name and power limit. On the
 card an untimed run of the same path at 2^18 keys comes first (the build
 and the kernels' first launches). With --trace-dir one more run is
 profiled (torch.profiler, DIR/trace.json) and the line gains `profile`:
-that run's wall time, its summed kernel time and idle share, the idle
-share of the timed run against the same kernel time, and the kernel time
-by category (bench/matrix.CATEGORIES). On a CPU device the certificates
-hold the same and every time is "not measured". Exit 0 when every
-certificate holds, else 1.
+that run's wall time, its summed kernel time and idle share, and the
+kernel time by category (bench/matrix.CATEGORIES). On a CPU device the
+certificates hold the same and every time is "not measured". Exit 0 when
+every certificate holds, else 1.
 
 --distributed runs the distributed out-of-core sort (sort/dbigsort.py)
 over make_mesh(--devices) on the device: one shard per card by default,
@@ -137,17 +136,15 @@ def run(args) -> dict:
         "device": info["name"], "power_limit": info["power_limit"]})
     if args.trace_dir:
         row["profile"] = profile(
-            args.trace_dir, res.seconds,
+            args.trace_dir,
             lambda: _sort(args, dev, args.n, args.run_size, buckets, mesh))
     return row
 
 
-def profile(trace_dir: str, seconds: float, run) -> dict:
+def profile(trace_dir: str, run) -> dict:
     """One more run of the path (`run()`, no checkpoint) under
-    torch.profiler: its kernel time by category, and the idle share both
-    of the traced run and of the timed run of `seconds` (1 - kernel time /
-    its time): the profiler slows the host, and these paths' host enqueues
-    many small kernels."""
+    torch.profiler: its kernel time by category and its idle share (1 -
+    kernel time / its time)."""
     from tpu_qe_torch.bench.matrix import device_time
     from tpu_qe_torch.utils.profiling import trace_session
     with trace_session(trace_dir) as prof:
@@ -155,10 +152,8 @@ def profile(trace_dir: str, seconds: float, run) -> dict:
         run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    out = {"trace": os.path.join(trace_dir, "trace.json"),
-           **device_time(prof, wall_ms)}
-    out["timed_run_idle_share"] = 1 - out["device_busy_ms"] / (seconds * 1e3)
-    return out
+    return {"trace": os.path.join(trace_dir, "trace.json"),
+            **device_time(prof, wall_ms)}
 
 
 def main(args) -> int:

@@ -479,8 +479,7 @@ def run(cmd: str, args) -> dict:
         "device": info["name"], "power_limit": info["power_limit"]})
     if args.trace_dir:
         from tpu_qe_torch.bench.big import profile
-        row["profile"] = profile(args.trace_dir, res.seconds,
-                                 lambda: call(False))
+        row["profile"] = profile(args.trace_dir, lambda: call(False))
     return row
 
 

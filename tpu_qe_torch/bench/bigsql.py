@@ -294,7 +294,7 @@ def run(args) -> dict:
     if args.trace_dir:
         from tpu_qe_torch.bench.big import profile
         row["profile"] = profile(
-            args.trace_dir, wall,
+            args.trace_dir,
             lambda: db.sql(sql, run_size=args.run_size, max_groups=mg))
     return row
 

@@ -6,20 +6,23 @@ One JSON row per kernel, with the row names of tpu_qe/bench/kernels.py:
 B4 and its plain twin beside the plain direct interleave, B1, B3's rank
 mode and B3's scatter of both key words and one payload, the kernel a sort
 spends its time in (all three at the main path's block, printed in the
-row), and B5 on chunks of 8192. Times are CUDA-event means (tpu_qe_torch.utils.profiling); bytes
-are what each kernel must read and write. A machine without CUDA fails:
-nothing is timed on the CPU.
+row), and B5 on chunks of 8192. Times are CUDA-event means
+(`profile_kernel`); bytes are what each kernel must read and write. A
+machine without CUDA fails: nothing is timed on the CPU.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import logging
+from typing import Callable
 
 import numpy as np
 import torch
 
 from tpu_qe_torch import morton, native
-from tpu_qe_torch.bench.sol import card
+from tpu_qe_torch.bench.sol import card, hbm_peak_bytes_per_s
 from tpu_qe_torch.config import resolve_device
 from tpu_qe_torch.constants import BLOCK
 from tpu_qe_torch.kernels import morton as mk
@@ -28,9 +31,57 @@ from tpu_qe_torch.kernels.histogram import (block_histogram,
                                             block_rank_and_histogram,
                                             rank_and_scatter)
 from tpu_qe_torch.kernels.scan import exclusive_scan
-from tpu_qe_torch.utils.profiling import KernelStats, profile_kernel
+from tpu_qe_torch.utils.timing import cuda_time
 
 CHUNK = 8192
+
+log = logging.getLogger("tpu_qe_torch")
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelStats:
+    """Achieved bandwidth of one kernel against the card's HBM peak."""
+
+    name: str
+    seconds: float
+    bytes_moved: int
+    elements: int
+
+    @property
+    def achieved_gbps(self) -> float:
+        return self.bytes_moved / self.seconds / 1e9 if self.seconds else 0.0
+
+    @property
+    def sol_fraction(self) -> float:
+        peak = hbm_peak_bytes_per_s()
+        return (self.bytes_moved / peak) / self.seconds if self.seconds \
+            else 0.0
+
+    @property
+    def elements_per_s(self) -> float:
+        return self.elements / self.seconds if self.seconds else 0.0
+
+    def row(self) -> str:
+        return (f"{self.name:<32} {self.seconds * 1e3:8.4f} ms "
+                f"{self.achieved_gbps:8.1f} GB/s  "
+                f"{self.sol_fraction * 100:5.1f}% SOL  "
+                f"{self.elements_per_s / 1e6:8.0f} Melem/s")
+
+
+def profile_kernel(name: str, fn: Callable[[], object], bytes_moved: int,
+                   elements: int, iters: int = 10) -> KernelStats:
+    """Time fn() (one kernel call) with CUDA events and report bandwidth.
+
+    The JAX package times kernels by chained differential runs and puts an
+    optimization barrier between iterations; both exist for the TPU's
+    remote dispatch latency and XLA's fusion across the chain. CUDA events
+    recorded on the stream around back-to-back launches need neither:
+    eager PyTorch fuses nothing, and the events bracket device time only.
+    """
+    stats = KernelStats(name=name, seconds=cuda_time(fn, iters=iters),
+                        bytes_moved=bytes_moved, elements=elements)
+    log.info("%s", stats.row())
+    return stats
 
 
 def _i32(a: np.ndarray, dev: torch.device) -> torch.Tensor:

@@ -160,8 +160,7 @@ def run(n: int, groups: int, device, trace_dir: str | None = None,
                     "read_back_share": read_back / t_sql})
     if trace_dir:
         from tpu_qe_torch.bench.big import profile
-        row["profile"] = profile(trace_dir, t_sql,
-                                 lambda: db.sql(QUERY, mesh=on))
+        row["profile"] = profile(trace_dir, lambda: db.sql(QUERY, mesh=on))
     return row, got, (key, v)
 
 

@@ -38,6 +38,7 @@ from tpu_qe_torch.ops.segscan import (cummax_int64, cumsum_u64_pair,
                                       scan_assoc)
 from tpu_qe_torch.sort.planes import argsort_planes
 from tpu_qe_torch.table import from_plane, plane, take_column
+from tpu_qe_torch.utils.profiling import span
 
 _VALID_AGGS = ("count", "sum", "min", "max", "count_distinct")
 _INT32_MIN, _INT32_MAX = -(1 << 31), (1 << 31) - 1
@@ -240,13 +241,16 @@ def group_aggregate(key: U64, value: torch.Tensor | None = None,
     it is False are excluded through the sort (invalid rows sort last).
     max_groups: pad outputs to max_groups and extract group ends by binary
     search; num_groups stays exact and overflow is 1 past the bound.
+    Traced as ops.group, with its device time.
     """
     aggs = tuple(aggs)
-    if "mean" in aggs:
-        res = _group_aggregate(key, value, _with_mean_inputs(aggs), valid,
-                               max_groups, backend)
-        return _mean(res, aggs)
-    return _group_aggregate(key, value, aggs, valid, max_groups, backend)
+    with span("ops.group", device=key.lo.device):
+        if "mean" in aggs:
+            res = _group_aggregate(key, value, _with_mean_inputs(aggs),
+                                   valid, max_groups, backend)
+            return _mean(res, aggs)
+        return _group_aggregate(key, value, aggs, valid, max_groups,
+                                backend)
 
 
 def _group_aggregate(key, value, aggs, valid, max_groups, backend):
@@ -410,8 +414,15 @@ def group_aggregate_multi(key: U64, values: dict, aggs: dict,
     sum of u32 columns, the two's-complement signed sum of i32 columns.
     Float sums difference a running cumsum, whose rounding depends on the
     row order inside a group (the JAX package's unstable sort leaves that
-    order open; the port's sort keeps input order).
+    order open; the port's sort keeps input order). Traced as ops.group,
+    as group_aggregate.
     """
+    with span("ops.group", device=key.lo.device):
+        return _group_aggregate_multi(key, values, aggs, valid, max_groups,
+                                      backend)
+
+
+def _group_aggregate_multi(key, values, aggs, valid, max_groups, backend):
     names = tuple(sorted(values))
     for nm in names:
         for a in aggs.get(nm, ()):

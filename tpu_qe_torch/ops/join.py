@@ -22,6 +22,7 @@ from tpu_qe_torch.ops.segscan import cummax_int64
 from tpu_qe_torch.sort.driver import signed_key
 from tpu_qe_torch.sort.planes import argsort_planes
 from tpu_qe_torch.table import Column, Table, from_plane, plane, take_column
+from tpu_qe_torch.utils.profiling import span
 
 
 def searchsorted_u64(sorted_key: U64, query: U64, side: str = "left"):
@@ -260,17 +261,18 @@ def join_inner(left: Table, right: Table, key: str = "key",
                backend: str = "radix") -> InnerJoinResult:
     """One-to-many inner equi-join (duplicate right keys allowed) into a
     padded output of `out_budget` slots (default 2 * n_left), with the
-    exact match count and an overflow flag."""
+    exact match count and an overflow flag. Traced as ops.join."""
     if not isinstance(right[key], U64):
         raise TypeError("join key must be u64")
     if out_budget is None:
         out_budget = max(2 * left.num_rows, 16)
-    right_sorted = right.sort_by(key, backend=backend)
-    ranges = join_sorted(left[key], right_sorted[key])
-    li, ri, num_out, overflow = expand_ranges(ranges, out_budget)
-    li, ri, cols = _slots(left.drop(key), right_sorted.drop(key), li, ri,
-                          num_out)
-    return InnerJoinResult(Table(cols), li, ri, num_out, overflow)
+    with span("ops.join"):
+        right_sorted = right.sort_by(key, backend=backend)
+        ranges = join_sorted(left[key], right_sorted[key])
+        li, ri, num_out, overflow = expand_ranges(ranges, out_budget)
+        li, ri, cols = _slots(left.drop(key), right_sorted.drop(key), li,
+                              ri, num_out)
+        return InnerJoinResult(Table(cols), li, ri, num_out, overflow)
 
 
 def _sort_padded_right(right: Table, rkey: U64, r_valid, backend):
@@ -363,6 +365,7 @@ def join_outer(left: Table, right: Table, key: str = "key",
     right row, unmatched rows once with matched=False and right columns
     zero. how="full" adds `right_only`: right rows whose key no left row
     has (sorted-key order, key column included, padded, exact count).
+    Traced as ops.join, as join_inner.
     """
     if how not in ("left", "full"):
         raise ValueError(f"how must be 'left' or 'full': {how!r}")
@@ -370,6 +373,11 @@ def join_outer(left: Table, right: Table, key: str = "key",
         raise TypeError("join key must be u64")
     if out_budget is None:
         out_budget = max(2 * left.num_rows, 16)
+    with span("ops.join"):
+        return _join_outer(left, right, key, how, out_budget, backend)
+
+
+def _join_outer(left, right, key, how, out_budget, backend):
     right_sorted = right.sort_by(key, backend=backend)
     lkey, rkey_sorted = left[key], right_sorted[key]
     ranges = join_sorted(lkey, rkey_sorted)

@@ -11,6 +11,7 @@ from tpu_qe_torch import morton, native
 from tpu_qe_torch.bits import U64, narrow
 from tpu_qe_torch.config import SceneConfig, SortConfig, resolve_device
 from tpu_qe_torch.sort import sort_u64
+from tpu_qe_torch.utils.profiling import span
 
 
 class MortonIndex(NamedTuple):
@@ -23,15 +24,19 @@ class MortonIndex(NamedTuple):
 def sorted_morton_index(verts: torch.Tensor, tris: torch.Tensor,
                         params: morton.MortonParams,
                         sort: SortConfig | None = None) -> MortonIndex:
-    """Encode triangles and stably sort (code, index) on their device."""
+    """Encode triangles and stably sort (code, index) on their device.
+    Traced as morton.frame, the encode inside it as morton.encode."""
     sort = sort or SortConfig()
-    code = morton.encode(verts, tris, params)
-    idx = torch.arange(tris.shape[0], dtype=torch.int32, device=tris.device)
-    skey, (sidx,) = sort_u64(code, idx, backend=sort.backend,
-                             key_bits=sort.key_bits,
-                             bits_per_pass=sort.bits_per_pass,
-                             block=sort.block)
-    return MortonIndex(skey, sidx)
+    with span("morton.frame"):
+        with span("morton.encode"):
+            code = morton.encode(verts, tris, params)
+        idx = torch.arange(tris.shape[0], dtype=torch.int32,
+                           device=tris.device)
+        skey, (sidx,) = sort_u64(code, idx, backend=sort.backend,
+                                 key_bits=sort.key_bits,
+                                 bits_per_pass=sort.bits_per_pass,
+                                 block=sort.block)
+        return MortonIndex(skey, sidx)
 
 
 def sorted_morton_index_distributed(x, y, z, params: morton.MortonParams,

@@ -35,7 +35,7 @@ from tpu_qe_torch.config import resolve_device
 from tpu_qe_torch.constants import BLOCK
 from tpu_qe_torch.kernels.histogram import block_histogram, rank_and_scatter
 from tpu_qe_torch.kernels.scan import exclusive_scan
-from tpu_qe_torch.utils.profiling import marker
+from tpu_qe_torch.utils.profiling import span
 
 
 def signed_key(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
@@ -85,14 +85,15 @@ def sort_radix(planes: list, digits, block=BLOCK):
     planes.clear()
     RADIX_PASSES[lo.shape[0], 4 if hi is lo else 8, len(payloads)] += len(
         digits)
-    for i, (shift, bits) in enumerate(digits):
-        with marker(f"radix sort histogram pass {i}"):
-            hist = block_histogram(lo, hi, shift, bits, block)
-        with marker(f"radix sort scan pass {i}"):
-            base = exclusive_scan(hist.reshape(-1))
-        with marker(f"radix sort scatter pass {i}"):
-            lo, hi, payloads = rank_and_scatter(lo, hi, payloads, base, shift,
-                                                bits, block)
+    with span("sort.radix"):
+        for i, (shift, bits) in enumerate(digits):
+            with span(f"radix sort histogram pass {i}"):
+                hist = block_histogram(lo, hi, shift, bits, block)
+            with span(f"radix sort scan pass {i}"):
+                base = exclusive_scan(hist.reshape(-1))
+            with span(f"radix sort scatter pass {i}"):
+                lo, hi, payloads = rank_and_scatter(lo, hi, payloads, base,
+                                                    shift, bits, block)
     return lo, hi, payloads
 
 

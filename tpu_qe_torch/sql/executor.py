@@ -63,7 +63,8 @@ from tpu_qe_torch.bits import SIGN_BIT, U64, sortable_u32, widen
 from tpu_qe_torch.config import resolve_device
 from tpu_qe_torch.sort.driver import signed_key
 from tpu_qe_torch.sql import parser as P
-from tpu_qe_torch.table import Table, column_to_numpy, from_plane
+from tpu_qe_torch.table import DTYPES, Table, column_to_numpy, from_plane
+from tpu_qe_torch.utils.profiling import span
 
 SqlError = P.SqlError
 
@@ -180,14 +181,49 @@ def _pow2_cap(g: int, n: int) -> int:
     return min(c, n)
 
 
+# Every read of a device value on the host waits for the device: each is
+# one sql.sync span, so a traced query counts its synchronisations.
+
+def _cpu(t: torch.Tensor) -> torch.Tensor:
+    """t copied to the host: one synchronisation, traced as sql.sync."""
+    with span("sql.sync"):
+        return t.cpu()
+
+
+def _int(t: torch.Tensor) -> int:
+    """A 0-d device value read back as an int: one synchronisation,
+    traced as sql.sync."""
+    with span("sql.sync"):
+        return int(t)
+
+
+def _upload(key: U64, device: torch.device) -> U64:
+    """Host planes copied to `device`: a copy from pageable memory waits
+    for the device, so each plane is one sql.sync span."""
+    def up(p):
+        with span("sql.sync"):
+            return p.to(device)
+    return U64(up(key.lo), up(key.hi))
+
+
+def _host(col) -> np.ndarray:
+    """A device column read back as numpy (u32 as uint32, U64 as uint64
+    from two copies, other tensors in their dtype)."""
+    if isinstance(col, U64):
+        return U64(_cpu(col.lo), _cpu(col.hi)).to_numpy()
+    if col.dtype in DTYPES:
+        return column_to_numpy(_cpu(col))
+    return _cpu(col).numpy()
+
+
 def _host_value(tv: TV, n: int) -> np.ndarray:
     """A row-level value broadcast to n rows and read back once: u32
     planes as numpy uint32, U64 as uint64, bool as bool."""
     if isinstance(tv.arr, U64):
-        return tv.arr.to_numpy()
+        return _host(tv.arr)
     if not isinstance(tv.arr, torch.Tensor):
         raise SqlError("a u64 literal is not a row-level column")
-    a = (tv.arr.expand(n) if tv.arr.dim() == 0 else tv.arr).cpu().numpy()
+    a = _cpu(tv.arr.expand(n) if tv.arr.dim() == 0 else tv.arr).numpy()
     return a.view(np.uint32) if tv.tag == "u32" else a
 
 
@@ -196,11 +232,7 @@ def _head_np(arr, g: int) -> np.ndarray:
     back as numpy uint32, U64 as uint64). The JAX package slices to a
     power-of-two cap first to bound its compile count; torch compiles
     nothing, so the slice is exactly g rows."""
-    if isinstance(arr, U64):
-        return U64(arr.lo[:g], arr.hi[:g]).to_numpy()
-    if arr.dtype in (torch.uint32, torch.int32, torch.float32):
-        return column_to_numpy(arr[:g])
-    return arr[:g].cpu().numpy()
+    return _host(_slice(arr, 0, g))
 
 
 def _sortable(arr, tag: str) -> torch.Tensor:
@@ -338,6 +370,13 @@ class _RowEnv:
         if tag == "u32":
             value = value - (1 << 32) if value >= 1 << 31 else value
         return torch.full((), value, dtype=_DTYPE[tag], device=self.device)
+
+
+def _eval_traced(e, env: _RowEnv, n: int) -> TV:
+    """_eval of a top-level expression (WHERE, a select item, an
+    aggregate argument), traced as sql.expr with its device time."""
+    with span("sql.expr", device=env.device):
+        return _eval(e, env, n)
 
 
 def _eval(e, env: _RowEnv, n: int) -> TV:
@@ -491,8 +530,8 @@ def _eval_binary(e: P.Binary, env: _RowEnv, n: int) -> TV:
             elif lit.lit_value is not None:
                 iv = int(lit.lit_value)
             elif lit.arr.dim() == 0:        # a constant expression
-                iv = int(widen(lit.arr) if lit.tag == "u32"
-                         else lit.arr.item())
+                iv = _int(widen(lit.arr) if lit.tag == "u32"
+                          else lit.arr)
             else:
                 raise SqlError("u64 columns compare against u64 "
                                "columns or integer literals")
@@ -610,19 +649,20 @@ def _is_dev(col) -> bool:
 def _materialize(fr: Frame) -> Frame:
     """Read every still-device column back to numpy with the JAX
     package's dtypes: uint32 for u32 columns, bool for the bool tag (also
-    when it rode a sort as u32), int64 for i64sum pairs."""
+    when it rode a sort as u32), int64 for i64sum pairs. Traced as
+    sql.finish."""
     cols = {}
-    for k, v in fr.cols.items():
-        tag = fr.tags.get(k)
-        if isinstance(v, U64):
-            raw = v.to_numpy()
-            cols[k] = raw.view(np.int64) if tag == "i64sum" else raw
-        elif isinstance(v, torch.Tensor):
-            a = (v.cpu().numpy() if v.dtype == torch.bool
-                 else column_to_numpy(v))
-            cols[k] = a.astype(bool) if tag == "bool" else a
-        else:
-            cols[k] = v
+    with span("sql.finish"):
+        for k, v in fr.cols.items():
+            tag = fr.tags.get(k)
+            if isinstance(v, U64):
+                raw = _host(v)
+                cols[k] = raw.view(np.int64) if tag == "i64sum" else raw
+            elif isinstance(v, torch.Tensor):
+                a = _host(v)
+                cols[k] = a.astype(bool) if tag == "bool" else a
+            else:
+                cols[k] = v
     return Frame(cols, fr.tags)
 
 
@@ -683,7 +723,7 @@ def _frame_order_limit(fr: Frame, order_by, limit,
     frames). np.lexsort takes keys least-significant first (last key is
     primary), so the input-position key goes first (stable tie-break) and
     order items are appended in reverse. OFFSET fetches limit+offset rows
-    and drops the head."""
+    and drops the head. The host path is traced as sql.finish."""
     eff = None if limit is None else limit + offset
     if (order_by or limit is not None) and any(
             _is_dev(v) for v in fr.cols.values()):
@@ -694,24 +734,25 @@ def _frame_order_limit(fr: Frame, order_by, limit,
                              for k, v in out.cols.items()}, out.tags)
             return out
     fr = _materialize(fr)
-    if order_by:
-        keys = [np.arange(fr.num_rows)]
-        for item in reversed(order_by):
-            name = _resolve_order_name(fr, item.col.key)
-            k = fr.cols[name]
-            if item.desc:
-                if k.dtype == np.uint64:
-                    k = np.iinfo(np.uint64).max - k
-                elif k.dtype.kind == "f":
-                    k = -k.astype(np.float64)
-                else:
-                    k = -(k.astype(np.int64))
-            keys.append(k)
-        perm = np.lexsort(keys)
-        fr = Frame({k: v[perm] for k, v in fr.cols.items()}, fr.tags)
-    if limit is not None:
-        fr = Frame({k: v[offset:offset + limit]
-                    for k, v in fr.cols.items()}, fr.tags)
+    with span("sql.finish"):
+        if order_by:
+            keys = [np.arange(fr.num_rows)]
+            for item in reversed(order_by):
+                name = _resolve_order_name(fr, item.col.key)
+                k = fr.cols[name]
+                if item.desc:
+                    if k.dtype == np.uint64:
+                        k = np.iinfo(np.uint64).max - k
+                    elif k.dtype.kind == "f":
+                        k = -k.astype(np.float64)
+                    else:
+                        k = -(k.astype(np.int64))
+                keys.append(k)
+            perm = np.lexsort(keys)
+            fr = Frame({k: v[perm] for k, v in fr.cols.items()}, fr.tags)
+        if limit is not None:
+            fr = Frame({k: v[offset:offset + limit]
+                        for k, v in fr.cols.items()}, fr.tags)
     return fr
 
 
@@ -799,28 +840,33 @@ class Database:
         mesh: a LocalMesh or GroupMesh (exchange/mesh.py). Recognized query
         shapes execute through the distributed operator layer (exchange/),
         sharded over the mesh (see _sql_distributed); unrecognized shapes
-        raise rather than silently falling back to one device."""
-        q = P.parse(query)
-        vt = self._virtual_of(q)
-        if vt is not None:
+        raise rather than silently falling back to one device.
+
+        Traced as the root span sql.query."""
+        with span("sql.query"):
+            with span("sql.parse"):
+                q = P.parse(query)
+            vt = self._virtual_of(q)
+            if vt is not None:
+                if mesh is not None:
+                    raise SqlError("mesh= with a virtual table is not "
+                                   "supported (the out-of-core executor "
+                                   "is single-chip; see ops/dbigagg for "
+                                   "the distributed composition)")
+                from tpu_qe_torch.sql.bigexec import select_big
+                return select_big(vt, q, run_size=run_size,
+                                  max_groups=max_groups, stats=stats,
+                                  db=self)
             if mesh is not None:
-                raise SqlError("mesh= with a virtual table is not "
-                               "supported (the out-of-core executor "
-                               "is single-chip; see ops/dbigagg for "
-                               "the distributed composition)")
-            from tpu_qe_torch.sql.bigexec import select_big
-            return select_big(vt, q, run_size=run_size,
-                              max_groups=max_groups, stats=stats, db=self)
-        if mesh is not None:
-            return self._sql_distributed(q, mesh)
-        frames = [self._select(s) for s in q.selects]
-        if len(frames) > 1:
-            frames = [_materialize(f) for f in frames]
-        fr = frames[0]
-        for (op, all_), nxt in zip(q.set_ops, frames[1:]):
-            fr = self._set_op(fr, nxt, op, all_)
-        fr = _frame_order_limit(fr, q.order_by, q.limit, q.offset)
-        return dict(_materialize(fr).cols)
+                return self._sql_distributed(q, mesh)
+            frames = [self._select(s) for s in q.selects]
+            if len(frames) > 1:
+                frames = [_materialize(f) for f in frames]
+            fr = frames[0]
+            for (op, all_), nxt in zip(q.set_ops, frames[1:]):
+                fr = self._set_op(fr, nxt, op, all_)
+            fr = _frame_order_limit(fr, q.order_by, q.limit, q.offset)
+            return dict(_materialize(fr).cols)
 
     def explain(self, query: str, mesh=None) -> str:
         """Plan audit: which tier and operator family one query maps to,
@@ -1824,7 +1870,7 @@ class Database:
                     res = J.join_outer(lt, rt2, key="__sqlkey",
                                        how=j.how, out_budget=budget)
                     matched = res.matched
-                num = int(res.num_out)
+                num = _int(res.num_out)
                 if num <= budget:
                     out, valid_n = res.table.drop("__sqlkey"), num
                     break
@@ -1851,7 +1897,7 @@ class Database:
                 # right-only rows: real right side, NULL (zero) left side
                 # — appended below the left-expanded section, with
                 # __left_matched marking which side is real per row
-                ro, n_ro = res.right_only, int(res.num_right_only)
+                ro, n_ro = res.right_only, _int(res.num_right_only)
                 cols2 = {}
                 for pname, c in cols.items():
                     if pname == mname:
@@ -1885,18 +1931,22 @@ class Database:
 
     # -- SELECT core ----------------------------------------------------------
     def _select(self, sel: P.Select) -> Frame:
-        table, names, tags = self._from_clause(sel)
+        with span("sql.from"):
+            table, names, tags = self._from_clause(sel)
         env = _RowEnv(table, names, tags, self.device)
         n = table.num_rows
 
         if sel.where is not None:
-            tv = _eval(sel.where, env, n)
+            tv = _eval_traced(sel.where, env, n)
             if tv.tag != "bool":
                 raise SqlError("WHERE must be boolean")
             from tpu_qe_torch.ops.filter import compact
             mask = tv.arr.expand(n) if tv.arr.dim() == 0 else tv.arr
-            ct, cnt = compact(table, mask)
-            k = int(cnt)
+            # the executor reads the kept count, so it holds the span
+            with span("ops.compact", rows_in=n) as traced:
+                ct, cnt = compact(table, mask)
+                k = _int(cnt)
+                traced.count(rows_kept=k)
             table = ct.head(k)
             env = _RowEnv(table, names, tags, self.device)
             n = k
@@ -1945,7 +1995,7 @@ class Database:
             if id(it.expr) in wcols:
                 cols[name], tags[name] = wcols[id(it.expr)]
                 continue
-            tv = _eval(it.expr, env, n)
+            tv = _eval_traced(it.expr, env, n)
             arr = tv.arr
             if tv.tag == "bigint":
                 raise SqlError("a u64 literal is only valid in a "
@@ -2100,7 +2150,7 @@ class Database:
         for c in gcols:
             if c.table is None and c.name not in env.names \
                     and c.name in aliases:
-                tv = _eval(aliases[c.name], env, n)
+                tv = _eval_traced(aliases[c.name], env, n)
                 if not isinstance(tv.arr, U64) and tv.arr.dim() == 0:
                     tv = TV(tv.arr.expand(n), tv.tag, tv.lit_value)
                 gtvs.append(tv)
@@ -2158,7 +2208,7 @@ class Database:
             if _calls(arg, window=False) or _calls(arg, window=True):
                 raise SqlError("nested calls inside aggregate "
                                "arguments are not supported")
-            tv = _eval(arg, env, n)
+            tv = _eval_traced(arg, env, n)
             arr = tv.arr
             tag = tv.tag
             if tag == "bigint":
@@ -2240,7 +2290,7 @@ class Database:
                                           | {"count"}))
         mres = (group_aggregate_multi(gkey, values, aggspec)
                 if values else group_aggregate(gkey, aggs=("count",)))
-        g = int(mres.num_groups)
+        g = _int(mres.num_groups)
 
         # per-group frame of aggregate results (numpy, G-bounded: every
         # n-row device output is head-sliced ON THE DEVICE before the
@@ -2273,7 +2323,7 @@ class Database:
                 bits = _sortable(tv, env.tags[phys])
             dres = group_aggregate(gkey, from_plane(bits, torch.uint32),
                                    aggs=("count_distinct",))
-            dg = int(dres.num_groups)
+            dg = _int(dres.num_groups)
             assert dg == g, (dg, g)
             agg_np[f"{phys}_count_distinct"] = _head_np(
                 dres.aggs["count_distinct"], g)
@@ -2295,7 +2345,7 @@ class Database:
             else:
                 qr = group_quantile_cont(gkey, val, qlist)
                 rows = qr.value          # f32 interpolation
-            qg = int(qr.num_groups)
+            qg = _int(qr.num_groups)
             assert qg == g, (qg, g)
             for qi in range(len(qlist)):
                 pct_np[(phys, kind, qi)] = _head_np(rows[qi], g)
@@ -2306,7 +2356,7 @@ class Database:
             # dense-id path: group g's column values sit at row g of
             # the compacted first-occurrence planes (id order == the
             # aggregation's key order: ids 0..G-1, all present)
-            assert g == int(_ng), (g, _ng)
+            assert g == _int(_ng), (g, _ng)
             off = 0
             for c2, t in zip(gcols, gtvs):
                 if t.tag == "u64":
@@ -2385,34 +2435,36 @@ class Database:
             raise SqlError(f"unsupported grouped expression "
                            f"{type(e).__name__}")
 
-        keep = np.ones(g, bool)
-        if sel.having is not None:
-            keep = np.broadcast_to(
-                eval_grouped(sel.having).astype(bool), (g,))
-        cols, tags = {}, {}
-        for i, it in enumerate(sel.items):
-            if it.expr == "*":
-                raise SqlError("SELECT * with GROUP BY is not supported")
-            name = it.alias or self._auto_name(it.expr, i)
-            # the group-key shortcut applies only when the item IS a
-            # group key: a direct column reference matching a GROUP BY
-            # column, or exactly the aliased expression the GROUP BY
-            # named. Anything else sharing the name (an aggregate
-            # aliased to the group column, an expression OVER the key)
-            # evaluates through eval_grouped.
-            is_gkey = name in gvals and (
-                (isinstance(it.expr, P.Col) and any(
-                    c2.key == it.expr.key
-                    or (it.expr.table is None and c2.name == it.expr.name)
-                    for c2 in gcols))
-                or (name in alias_gcols
-                    and aliases.get(name) is it.expr))
-            if is_gkey:
-                v = gvals[name]
-            else:
-                v = np.broadcast_to(eval_grouped(it.expr), (g,))
-            cols[name] = np.asarray(v)[keep]
-            tags[name] = str(cols[name].dtype)
+        # the numpy group frame: HAVING and the select items
+        with span("sql.finish"):
+            keep = np.ones(g, bool)
+            if sel.having is not None:
+                keep = np.broadcast_to(
+                    eval_grouped(sel.having).astype(bool), (g,))
+            cols, tags = {}, {}
+            for i, it in enumerate(sel.items):
+                if it.expr == "*":
+                    raise SqlError("SELECT * with GROUP BY is not supported")
+                name = it.alias or self._auto_name(it.expr, i)
+                # the group-key shortcut applies only when the item IS a
+                # group key: a direct column reference matching a GROUP BY
+                # column, or exactly the aliased expression the GROUP BY
+                # named. Anything else sharing the name (an aggregate
+                # aliased to the group column, an expression OVER the key)
+                # evaluates through eval_grouped.
+                is_gkey = name in gvals and (
+                    (isinstance(it.expr, P.Col) and any(
+                        c2.key == it.expr.key
+                        or (it.expr.table is None and c2.name == it.expr.name)
+                        for c2 in gcols))
+                    or (name in alias_gcols
+                        and aliases.get(name) is it.expr))
+                if is_gkey:
+                    v = gvals[name]
+                else:
+                    v = np.broadcast_to(eval_grouped(it.expr), (g,))
+                cols[name] = np.asarray(v)[keep]
+                tags[name] = str(cols[name].dtype)
         return Frame(cols, tags)
 
     # -- DISTINCT / set ops -------------------------------------------------
@@ -2436,8 +2488,8 @@ class Database:
                 key = U64(_sortable(fr.cols[names[1]], tags[1]),
                           _sortable(fr.cols[names[0]], tags[0]))
             res = group_aggregate(key, aggs=("count",))
-            g = int(res.num_groups)
-
+            g = _int(res.num_groups)
+    
             def unlift(p, t):
                 words = _head_np(from_plane(p, torch.uint32), g)
                 if t == "bool":
@@ -2491,15 +2543,15 @@ class Database:
             raise SqlError(f"{op.upper()}: mismatched column dtypes "
                            f"({ka.dtype} vs {kb.dtype})")
         from tpu_qe_torch.ops.setops import set_op as dev_set_op
-        pa = U64.from_numpy(_lift64_np(ka), self.device)
-        pb = U64.from_numpy(_lift64_np(kb), self.device)
+        pa = _upload(U64.from_numpy(_lift64_np(ka), "cpu"), self.device)
+        pb = _upload(U64.from_numpy(_lift64_np(kb), "cpu"), self.device)
         # EXCEPT ALL keeps max(ca-cb, 0) copies of EVERY key (Postgres
         # multiset semantics) — keys present in both sides with ca > cb
         # survive, so the multiplicities must come from the union key
         # set, not the except-distinct one
         keys, c_a, c_b, num = dev_set_op(
             pa, pb, "union" if (all_ and op == "except") else op)
-        m = int(num)
+        m = _int(num)
         k64 = _head_np(keys, m)
         ca = _head_np(c_a, m).astype(np.int64)
         cb = _head_np(c_b, m).astype(np.int64)
