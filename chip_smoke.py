@@ -53,10 +53,15 @@ Run from the root of the repository on a machine with a CUDA card. Phases:
    the tensor-core price of its products and the parent kernel's time;
 5. main path: `verify` at 2^24 triangles for the 8x8-bit, 6x11-bit and
    11x6-bit schedules, bit-exact against the C++ pipeline oracle, with the
-   kernel launch counts of each run;
+   kernel launch counts of each run (B1-B3 once per pass, the fused encode
+   once);
 6. LUT encode path: `morton.encode(use_lut=True)` and `(quirk_lut=True)`
    on the verify scene (2^24 triangles), bit-exact against the C++ encoder,
-   with B4's launches counted;
+   with B4's launches counted; then the fused encode (`morton.encode`'s
+   default on the card) at 2^24 and 2^26 triangles, bit-exact against the
+   C++ encoder and its plain twin (`quantize` + `encode_quantized` on the
+   card) with its launch count, its time beside the twin's, its bound by
+   the bytes it needs and a model of uniform random vertex reads;
 7. self-check: `python -m tpu_qe_torch.selfcheck`'s main() must return 0;
    B5's and B6's launches are counted there;
 8. bench-kernels at 2^24: one JSON row per kernel;
@@ -999,6 +1004,9 @@ def main() -> int:
             if counts[name] != passes:
                 fail(f"{name} launched {counts[name]} times, not once per "
                      f"pass ({passes})")
+        if counts["encode_triangles"] != 1:
+            fail(f"verify launched the fused encode "
+                 f"{counts['encode_triangles']} times, not once")
         if launches is None:
             launches = counts
     log("[5/20] main path: VERIFY PASS at 2^24 triangles for 8x8, 6x11 "
@@ -1026,12 +1034,66 @@ def main() -> int:
             f"the C++ encoder, launches {counts}")
     t_lut = cuda_time(lambda: morton.encode(verts_t, tris_t, params,
                                             use_lut=True), iters=5)
-    t_direct = cuda_time(lambda: morton.encode(verts_t, tris_t, params),
-                         iters=5)
-    del verts, tris, verts_t, tris_t, code
-    log(f"[6/20] LUT encode path: B4 bit-exact on the verify scene; encode "
-        f"(quantize + B4) {t_lut * 1e3:.4f} ms, plain direct encode "
-        f"{t_direct * 1e3:.4f} ms at 2^24 triangles")
+    del code
+
+    def fused_row(verts, tris, gen, verts_t, tris_t, params) -> str:
+        """The fused encode of one scene: launches, bit-exact against the
+        C++ encoder and the plain twin, the times of both, and the bound by
+        the bytes the function needs (the indices and the vertex array
+        read once, 8 bytes of key written), beside a model of uniform
+        random access (each vertex row of each triangle read from DRAM as
+        the 32-byte sectors it spans). Sets the summary's encode_triangles
+        entries to this scene's numbers."""
+        kernels.reset_launches()
+        code = morton.encode(verts_t, tris_t, params)
+        torch.cuda.synchronize()
+        counts = dict(kernels.LAUNCHES)
+        if counts["encode_triangles"] != 1 or sum(counts.values()) != 1:
+            fail(f"morton.encode launched {counts}, not the fused kernel "
+                 "once")
+        plain = mk.encode_triangles_plain(verts_t, tris_t, params)
+        wlo, whi = words(gen.encode(verts, tris))
+        compare("encode_triangles", code.lo, wlo, plain.lo)
+        compare("encode_triangles", code.hi, whi, plain.hi)
+        del code, plain
+        t_kernel = min(cuda_time(lambda: morton.encode(verts_t, tris_t,
+                                                       params), iters=20)
+                       for _ in range(2)) * 1e3
+        t_plain = cuda_time(lambda: mk.encode_triangles_plain(
+            verts_t, tris_t, params), iters=3, warmup=1) * 1e3
+        first = tris_t.to(torch.int64) * 12
+        sectors = int(((first + 11) // 32 - first // 32 + 1).sum())
+        del first
+        nt, nv = tris_t.shape[0], verts_t.shape[0]
+        stream = nt * (3 * tris_t.element_size() + 8)
+        b_bytes = (stream + nv * 12) / hbm * 1e3
+        b_sector = (stream + 32 * sectors) / hbm * 1e3
+        ms["encode_triangles"] = (t_kernel, t_plain)
+        bounds["encode_triangles"] = (b_bytes, "bytes")
+        sector_ms["encode_triangles"] = b_sector
+        return (f"fused encode at {nt} triangles: bit-exact against the C++ "
+                f"encoder and the plain twin, 1 launch; kernel "
+                f"{t_kernel:.4f} ms, plain twin {t_plain:.4f} ms, bound "
+                f"{b_bytes:.4f} ms by bytes ({b_bytes / t_kernel:.4f} of "
+                f"it); uniform random access model {b_sector:.4f} ms "
+                f"({sectors / nt / 3:.4f} sectors a vertex row)")
+
+    sector_ms = {}
+    rows6 = [fused_row(verts, tris, gen, verts_t, tris_t, params)]
+    del verts, tris, verts_t, tris_t
+    verts, tris, smin, smax = native.scene_generate(22369621, 67108864, 7)
+    gen = native.MortonGen(smin, smax)
+    rows6.append(fused_row(verts, tris, gen, torch.from_numpy(verts).to(dev),
+                           torch.from_numpy(tris.astype(np.int32)).to(dev),
+                           morton.MortonParams.from_native(gen, dev)))
+    del verts, tris
+    torch.cuda.empty_cache()
+    for row in rows6:
+        log(f"      {row}")
+    log(f"[6/20] encode paths: B4 and the fused encode bit-exact on the "
+        f"verify scene and the fused encode at 2^26, against the C++ "
+        f"encoder and its plain twin; encode (quantize + B4) "
+        f"{t_lut * 1e3:.4f} ms at 2^24 triangles")
 
     # -- 7. on-card self-check
     kernels.reset_launches()
@@ -3042,6 +3104,8 @@ def main() -> int:
         ("sort_chunks", src + "bitonic.cu", "tpu_qe/kernels/bitonic.py:86"),
         ("block_rank_and_histogram_mxu", src + "rank_mxu.cu",
          "tpu_qe/kernels/rank_mxu.py:106"),
+        # the port's own kernel: the JAX package's encode is plain jnp
+        ("encode_triangles", src + "morton.cu", None),
     ]
     rows = [
         {"name": name, "route": "cuda", "source": source, "replaces": rep,
@@ -3062,6 +3126,9 @@ def main() -> int:
          "library_ms": lib_ms[name]}
         for name, source, rep in summary]
     rows[1]["launch_floor_ms"] = floor_ms    # under exclusive_scan's bound
+    # the fused encode at 2^26 triangles (phase 6): its uniform random
+    # access model beside the bound by bytes
+    rows[-1]["random_access_model_ms"] = sector_ms["encode_triangles"]
     # B1 and B3's rank mode at 9..16-bit digits take other kernels: their
     # times and byte bounds at 11 and 16 bits, 2^24 keys
     for row in (rows[0], rows[2]):

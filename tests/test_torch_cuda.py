@@ -176,11 +176,17 @@ def test_each_wrapper_counts_its_launches(cuda):
     bk.sort_chunks(k.lo[:1024].reshape(1, 1024), k.hi[:1024].reshape(1, 1024),
                    rows=8)
     rk.block_rank_and_histogram_mxu(k.lo, k.hi, 0)
+    v = torch.rand((10, 3), device=cuda)
+    mk.encode_triangles(v, q, params)
+    mk.encode_points(v[:, 0].contiguous(), v[:, 1].contiguous(),
+                     v[:, 2].contiguous(), None, params)
+    morton.encode_quantized(q, q[:, 0])                 # plain torch
     assert kernels.LAUNCHES == {"block_histogram": 1, "exclusive_scan": 1,
                                 "block_rank_and_histogram": 1,
                                 "rank_and_scatter": 1,
                                 "encode_quantized_lut": 1, "sort_chunks": 1,
-                                "block_rank_and_histogram_mxu": 1}
+                                "block_rank_and_histogram_mxu": 1,
+                                "encode_triangles": 1, "encode_points": 1}
 
 
 def test_kernel_limits_raise(cuda):
@@ -340,6 +346,149 @@ def test_morton_encode_lut_on_the_card_matches_native(cuda):
         assert kernels.LAUNCHES["encode_quantized_lut"] == 1
         np.testing.assert_array_equal(got.to_numpy(),
                                       gen.encode(verts, tris, quirk=quirk))
+
+
+def _odd_scene(nv, nt, seed):
+    """A seeded scene with vertices outside its box on both sides (cells
+    clamped at 0 and 2^20 - 1), degenerate triangles and sizes that clamp
+    at 4095; its C++ encoder and params."""
+    verts, tris, smin, smax = native.scene_generate(nv, nt, seed)
+    rng = np.random.default_rng(seed)
+    verts = verts.copy()
+    far = rng.integers(0, nv, nv // 10)
+    verts[far] = (verts[far] * 4 - 1.5 * (smax - smin)).astype(np.float32)
+    tris = tris.copy()
+    tris[: nt // 20] = tris[: nt // 20, :1]          # all corners equal
+    gen = native.MortonGen(smin, smax)
+    return verts, tris, gen
+
+
+@pytest.mark.parametrize("index_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("nv,nt", [(1, 1), (4000, 12_289),
+                                   ((1 << 20) // 3, 1 << 20)])
+def test_fused_encode_matches_native_and_twin(cuda, nv, nt, index_dtype):
+    verts, tris, gen = _odd_scene(nv, nt, nt)
+    params = morton.MortonParams.from_native(gen, cuda)
+    v = torch.from_numpy(verts).to(cuda)
+    t = torch.from_numpy(tris.astype(np.int64)).to(cuda, index_dtype)
+    kernels.reset_launches()
+    got = morton.encode(v, t, params)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["encode_triangles"] == 1
+    assert sum(kernels.LAUNCHES.values()) == 1
+    np.testing.assert_array_equal(got.to_numpy(), gen.encode(verts, tris))
+    twin = mk.encode_triangles_plain(v, t, params)
+    _same(got.lo, twin.lo)
+    _same(got.hi, twin.hi)
+    # the CPU twin on the same inputs
+    cpu = morton.encode(v.cpu(), t.cpu(),
+                        morton.MortonParams.from_native(gen, "cpu"))
+    np.testing.assert_array_equal(got.to_numpy(), cpu.to_numpy())
+
+
+def test_fused_encode_of_no_triangles_launches_nothing(cuda):
+    params = _params(cuda)
+    v = torch.rand((10, 3), device=cuda)
+    kernels.reset_launches()
+    for dtype in (torch.int32, torch.int64):
+        got = morton.encode(v, torch.empty((0, 3), dtype=dtype, device=cuda),
+                            params)
+        assert got.lo.shape == (0,) and got.hi.device == v.device
+    got = morton.encode_points(v[:0, 0], v[:0, 1], v[:0, 2], params)
+    torch.cuda.synchronize()
+    assert got.lo.shape == (0,)
+    assert sum(kernels.LAUNCHES.values()) == 0
+
+
+@pytest.mark.parametrize("with_size", [False, True])
+@pytest.mark.parametrize("n", [1, 1023, 1 << 20])
+def test_fused_point_encode_matches_twin(cuda, n, with_size):
+    g = torch.Generator(device=cuda).manual_seed(n)
+    x, y, z = (torch.rand(n, generator=g, device=cuda) * 300 - 150
+               for _ in range(3))
+    size = (torch.rand(n, generator=g, device=cuda) * 400 if with_size
+            else None)
+    params = morton.MortonParams.for_scene([-100.0] * 3, [100.0] * 3, cuda)
+    kernels.reset_launches()
+    got = morton.encode_points(x, y, z, params, size=size)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["encode_points"] == 1
+    assert sum(kernels.LAUNCHES.values()) == 1
+    want = mk.encode_points_plain(x, y, z, size, params)
+    _same(got.lo, want.lo)
+    _same(got.hi, want.hi)
+    cpu = morton.encode_points(
+        x.cpu(), y.cpu(), z.cpu(),
+        morton.MortonParams.for_scene([-100.0] * 3, [100.0] * 3, "cpu"),
+        size=None if size is None else size.cpu())
+    np.testing.assert_array_equal(got.to_numpy(), cpu.to_numpy())
+    # points are degenerate triangles to the C++ encoder (no size only)
+    if size is None and n <= 1023:
+        pts = torch.stack([x, y, z], 1).cpu().numpy()
+        tris = np.repeat(np.arange(n, dtype=np.uint32)[:, None], 3, axis=1)
+        gen = native.MortonGen(np.full(3, -100, np.float32),
+                               np.full(3, 100, np.float32))
+        np.testing.assert_array_equal(got.to_numpy(), gen.encode(pts, tris))
+
+
+def test_fused_encode_back_to_back_and_beside_a_busy_stream(cuda):
+    verts, tris, gen = _odd_scene(5000, 40_000, 5)
+    params = morton.MortonParams.from_native(gen, cuda)
+    v = torch.from_numpy(verts).to(cuda)
+    t = torch.from_numpy(tris.astype(np.int32)).to(cuda)
+    want = gen.encode(verts, tris)
+    kernels.reset_launches()
+    outs = [morton.encode(v, t, params) for _ in range(20)]
+    side = torch.cuda.Stream(cuda)
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(1 << 20)
+        late = morton.encode(v, t, params)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["encode_triangles"] == 21
+    for got in outs + [late]:
+        np.testing.assert_array_equal(got.to_numpy(), want)
+
+
+def test_sorted_morton_index_on_the_card_matches_the_frame_reference(cuda):
+    from qe_bench.reference import frame
+    from tpu_qe_torch.pipeline import sorted_morton_index
+    g = torch.Generator(device=cuda).manual_seed(3)
+    nv, nt = 30_000, 100_003
+    box = ((0.0, 0.0, 0.0), (1.0, 1.0, 1.0))
+    data = {"verts": torch.rand((nv, 3), generator=g, device=cuda) * 0.9375,
+            "tris": torch.randint(0, nv, (nt, 3), generator=g, device=cuda,
+                                  dtype=torch.int32),
+            "box": box}
+    offset = [0.01, 0.03, 0.05]
+    kernels.reset_launches()
+    got = sorted_morton_index(
+        data["verts"] + torch.tensor(offset, device=cuda), data["tris"],
+        morton.MortonParams.for_scene(*box, cuda))
+    assert kernels.LAUNCHES["encode_triangles"] == 1
+    want = frame.answer(data, {"offset": offset})
+    _same(got.code.lo, want["code_lo"])
+    _same(got.code.hi, want["code_hi"])
+    _same(got.order, want["order"])
+
+
+def test_fused_encode_rejects_bad_arguments(cuda):
+    params = _params(cuda)
+    v = torch.zeros((10, 3), device=cuda)
+    t = torch.zeros((4, 3), dtype=torch.int32, device=cuda)
+    x = torch.zeros(10, device=cuda)
+    for bad in (lambda: mk.encode_triangles(v[:, :2], t, params),
+                lambda: mk.encode_triangles(v.double(), t, params),
+                lambda: mk.encode_triangles(v, t.to(torch.int16), params),
+                lambda: mk.encode_triangles(v, t.T.contiguous().T, params),
+                lambda: mk.encode_triangles(v, t.cpu(), params),
+                lambda: mk.encode_triangles(
+                    v, t, params._replace(offset=params.offset.cpu())),
+                lambda: mk.encode_points(x, x, x[:5], None, params),
+                lambda: mk.encode_points(x, x, x.double(), None, params),
+                lambda: mk.encode_points(x, x, x, x.cpu(), params),
+                lambda: mk.encode_points(x[::2], x[:5], x[:5], None, params)):
+        with pytest.raises(ValueError):
+            bad()
 
 
 def _chunks(nb, width, seed, ties, n_pay):

@@ -1,9 +1,12 @@
 """B4 (tpu_qe_torch.kernels.morton) and the point encoder on CPU tensors,
 against the JAX Pallas kernel (interpret mode, as tests/test_morton_kernel.py
 runs it), JAX's LUT path, the port's size-LUT path and the C++ direct
-encoder. Inputs come from numpy seeds; tolerance: exact equality.
+encoder; the fused encode's wrappers (encode_triangles, encode_points) on
+CPU tensors, whose plain twin must equal tpu_qe_torch.morton's quantize +
+encode_quantized, the JAX package's encode and the C++ encoder. Inputs come
+from numpy seeds; tolerance: exact equality.
 
-The CUDA kernel itself is held against this twin on the card by
+The CUDA kernels themselves are held against these twins on the card by
 tests/test_torch_cuda.py and chip_smoke.py.
 """
 
@@ -164,3 +167,119 @@ def test_bad_arguments_raise():
     with pytest.raises(ValueError):                   # not contiguous
         mk.encode_quantized_lut(_t(np.zeros((3, 10))).T, j, tp.lut_lo,
                                 tp.lut_hi)
+
+
+def _odd_scene(nt, seed):
+    """A seeded scene of nt triangles over nt // 3 + 1 vertices with
+    vertices outside the box on both sides (cells clamped at 0 and at
+    2^20 - 1), degenerate triangles (all corners one vertex) and long
+    triangles whose size index clamps at 4095."""
+    nv = nt // 3 + 1
+    verts, tris, smin, smax = native.scene_generate(nv, nt, seed)
+    rng = np.random.default_rng(seed)
+    verts = verts.copy()
+    far = rng.integers(0, nv, max(nv // 5, 1))
+    ext = smax - smin
+    verts[far] = (smin + (rng.uniform(-1.5, 2.5, (far.shape[0], 3))
+                          * ext)).astype(np.float32)
+    tris = tris.astype(np.int64)
+    tris[::7] = tris[::7, :1]
+    gen = jnative.MortonGen(smin, smax)
+    jp = jmorton.MortonParams.from_native(gen)
+    tp = morton.MortonParams.from_reference(
+        {k: np.asarray(v) for k, v in jp._asdict().items()}, "cpu")
+    return verts, tris, gen, jp, tp
+
+
+@pytest.mark.parametrize("index_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("nt", [1, 1000, 4097])
+def test_fused_encode_twin_matches_plain_jax_and_native(nt, index_dtype):
+    verts, tris, gen, jp, tp = _odd_scene(nt, nt)
+    v = torch.from_numpy(verts)
+    t = torch.from_numpy(tris).to(index_dtype)
+    before = dict(LAUNCHES)
+    got = mk.encode_triangles(v, t, tp)
+    via = morton.encode(v, t, tp)
+    assert LAUNCHES == before
+    plain = morton.encode_quantized(*morton.quantize(v, t, tp))
+    np.testing.assert_array_equal(got.to_numpy(), plain.to_numpy())
+    np.testing.assert_array_equal(via.to_numpy(), plain.to_numpy())
+    want = jmorton.encode(jnp.asarray(verts),
+                          jnp.asarray(tris.astype(np.int32)), jp)
+    np.testing.assert_array_equal(got.to_numpy(), want.to_numpy())
+    np.testing.assert_array_equal(got.to_numpy(), gen.encode(verts, tris))
+    # the scene reaches both clamps of the cells and of the size index
+    q = gen.quantize(verts, tris)
+    if nt > 1:
+        assert (q[:, :3] == 0).any() and (q[:, :3] == (1 << 20) - 1).any()
+        assert (q[:, 3] == 4095).any() and (q[:, 3] == 0).any()
+
+
+@pytest.mark.parametrize("with_size", [False, True])
+@pytest.mark.parametrize("n", [1, 1000, 4097])
+def test_fused_point_encode_twin_matches_plain_and_jax(n, with_size):
+    jp, tp = _params(9)
+    rng = np.random.default_rng(100 + n)
+    pts = (rng.uniform(-1, 1, (n, 3)) * 90).astype(np.float32)
+    size = (rng.uniform(0, 400, n).astype(np.float32) if with_size
+            else None)
+    cols = [torch.from_numpy(pts[:, i].copy()) for i in range(3)]
+    tsize = None if size is None else torch.from_numpy(size)
+    before = dict(LAUNCHES)
+    got = mk.encode_points(*cols, tsize, tp)
+    assert LAUNCHES == before
+    plain = morton.encode_quantized(*morton.quantize_points(*cols, tsize, tp))
+    np.testing.assert_array_equal(got.to_numpy(), plain.to_numpy())
+    want = jmorton.encode_points(*(jnp.asarray(pts[:, i]) for i in range(3)),
+                                 jp, size=None if size is None
+                                 else jnp.asarray(size))
+    np.testing.assert_array_equal(got.to_numpy(), want.to_numpy())
+
+
+def test_fused_encode_of_nothing_on_cpu():
+    _, tp = _params()
+    for dtype in (torch.int32, torch.int64):
+        got = mk.encode_triangles(torch.zeros((4, 3)),
+                                  torch.zeros((0, 3), dtype=dtype), tp)
+        assert got.lo.shape == got.hi.shape == (0,)
+    got = mk.encode_points(*(torch.zeros(0),) * 3, None, tp)
+    assert got.lo.shape == (0,)
+
+
+def test_fused_encode_bad_arguments_raise():
+    _, tp = _params()
+    v = torch.zeros((10, 3))
+    t = torch.zeros((4, 3), dtype=torch.int32)
+    x = torch.zeros(10)
+    meta = torch.device("meta")
+    cases = [
+        lambda: mk.encode_triangles(v[:, :2], t, tp),             # shapes
+        lambda: mk.encode_triangles(v.reshape(-1), t, tp),
+        lambda: mk.encode_triangles(v, t[:, :2], tp),
+        lambda: mk.encode_triangles(v.double(), t, tp),           # dtypes
+        lambda: mk.encode_triangles(v, t.to(torch.int16), tp),
+        lambda: mk.encode_triangles(v, t.float(), tp),
+        lambda: mk.encode_triangles(v.T.contiguous().T, t, tp),   # strides
+        lambda: mk.encode_triangles(v, t.T.contiguous().T, tp),
+        lambda: mk.encode_triangles(v, t.to(meta), tp),           # devices
+        lambda: mk.encode_triangles(v.to(meta), t.to(meta), tp),
+        lambda: mk.encode_triangles(
+            v, t, tp._replace(offset=tp.offset.to(meta))),
+        lambda: mk.encode_triangles(
+            v, t, tp._replace(multiplier=tp.multiplier.double())),
+        lambda: mk.encode_triangles(
+            v, t, tp._replace(size_multiplier=tp.size_multiplier[None])),
+        lambda: mk.encode_points(x, x, x[:5], None, tp),
+        lambda: mk.encode_points(x, x, x, x[:9], tp),
+        lambda: mk.encode_points(x, x.double(), x, None, tp),
+        lambda: mk.encode_points(x, x, x.to(torch.int32), None, tp),
+        lambda: mk.encode_points(x, x, x, torch.zeros(20)[::2], tp),
+        lambda: mk.encode_points(x.reshape(2, 5), x.reshape(2, 5),
+                                 x.reshape(2, 5), None, tp),
+        lambda: mk.encode_points(x, x, x.to(meta), None, tp),
+        lambda: mk.encode_points(x, x, x, None,
+                                 tp._replace(offset=tp.offset.to(meta))),
+    ]
+    for i, bad in enumerate(cases):
+        with pytest.raises(ValueError):
+            bad()

@@ -36,6 +36,8 @@ LAUNCHES = {
     "encode_quantized_lut": 0,
     "sort_chunks": 0,
     "block_rank_and_histogram_mxu": 0,
+    "encode_triangles": 0,
+    "encode_points": 0,
 }
 
 _lock = threading.Lock()
@@ -88,6 +90,12 @@ def library() -> ctypes.CDLL:
         lib.tq_empty_launch.restype = i
         lib.tq_morton_encode_lut.argtypes = [p, p, p, p, i64, i, p, p, i, p]
         lib.tq_morton_encode_lut.restype = i
+        lib.tq_morton_encode_triangles.argtypes = [p, p, i, i64, p, p, p, p,
+                                                   p, i, p]
+        lib.tq_morton_encode_triangles.restype = i
+        lib.tq_morton_encode_points.argtypes = [p, p, p, p, i64, p, p, p, p,
+                                                p, i, p]
+        lib.tq_morton_encode_points.restype = i
         lib.tq_sort_chunks.argtypes = [p, p, i, i64, i64, p, i, p]
         lib.tq_sort_chunks.restype = i
         lib.tq_sort_chunks_tile.argtypes = [i64, i, i]

@@ -3,17 +3,23 @@
 Per triangle: gather the 3 vertices, take the AABB, quantize the centroid
 to 20-bit cells and the AABB diagonal to a 12-bit size index, then build the
 64-bit extended-morton key, either by direct bit interleave (the default,
-as in the JAX main path; plain torch) or through the reference's LUTs (9
-groups x 256 bytes + the size bits), with the shipped kernel's i*3 byte
-shift when ``quirk_shift`` is set. For CUDA tensors the LUT path runs the
-B4 kernel (tpu_qe_torch.kernels.morton); for CPU tensors it is plain torch
-with the 4096-entry size LUT. Columnar points (``encode_points``) skip the
-vertex gathers.
+as in the JAX main path) or through the reference's LUTs (9 groups x 256
+bytes + the size bits), with the shipped kernel's i*3 byte shift when
+``quirk_shift`` is set. Columnar points (``encode_points``) skip the vertex
+gathers.
 
-Float order must round like the -ffp-contract=off C++ oracle. Eager
-PyTorch runs every op as its own kernel with its result stored in float32,
-so nothing is contracted into an FMA; keep this module eager (no
-torch.compile).
+The direct encode (``encode``, ``encode_points``) goes through
+tpu_qe_torch.kernels.morton.encode_triangles / encode_points, which alone
+choose the route: one fused kernel for CUDA tensors, and for CPU tensors
+its plain twin, ``quantize`` (or ``quantize_points``) + ``encode_quantized``
+of this module. The LUT path runs ``quantize`` and then the B4 kernel for
+CUDA tensors, plain torch with the 4096-entry size LUT for CPU tensors.
+
+Float order must round like the -ffp-contract=off C++ oracle. On the CPU,
+eager PyTorch runs every op as its own kernel with its result stored in
+float32, so nothing is contracted into an FMA: keep this module eager (no
+torch.compile). On the card the fused kernel keeps the same order with
+explicit round-to-nearest intrinsics.
 """
 
 from __future__ import annotations
@@ -179,11 +185,14 @@ def encode_quantized_lut(q: torch.Tensor, j: torch.Tensor,
 
 def encode(verts: torch.Tensor, tris: torch.Tensor, params: MortonParams,
            use_lut: bool = False, quirk_lut: bool = False) -> U64:
-    """Full morton encoding: gather + quantize + key construction."""
+    """Full morton encoding: gather + quantize + key construction. The
+    direct encode is tpu_qe_torch.kernels.morton.encode_triangles on every
+    device (the fused kernel on the card, its plain twin on the CPU)."""
+    if not (use_lut or quirk_lut):
+        return morton_kernel.encode_triangles(verts.contiguous(),
+                                              tris.contiguous(), params)
     q, j = quantize(verts, tris, params)
-    if use_lut or quirk_lut:
-        return encode_quantized_lut(q, j, params, quirk_shift=quirk_lut)
-    return encode_quantized(q, j)
+    return encode_quantized_lut(q, j, params, quirk_shift=quirk_lut)
 
 
 def quantize_points(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor,
@@ -212,6 +221,7 @@ def encode_points(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor,
                   params: MortonParams,
                   size: torch.Tensor | None = None) -> U64:
     """Extended-morton keys of columnar points (f32 columns) by direct bit
-    interleave."""
-    q, j = quantize_points(x, y, z, size, params)
-    return encode_quantized(q, j)
+    interleave: tpu_qe_torch.kernels.morton.encode_points on every device."""
+    return morton_kernel.encode_points(
+        x.contiguous(), y.contiguous(), z.contiguous(),
+        None if size is None else size.contiguous(), params)

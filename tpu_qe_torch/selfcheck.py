@@ -4,8 +4,9 @@ on the card and held against its C++ or numpy oracle.
     python -m tpu_qe_torch.selfcheck
 
 The CPU tests reach only the kernels' plain twins; this runs the kernels
-themselves. Seven checks: B1 against the C++ histogram, B3's rank against
+themselves. Eight checks: B1 against the C++ histogram, B3's rank against
 B6's, B2 against numpy, B5 against numpy's sort, B4 against the C++ direct
+encoder, the fused encode of triangles and of points against the C++
 encoder, the sort backends against the C++ LSD sort, and the flagship
 pipeline against the C++ pipeline oracle. Prints PASS or FAIL per check and
 SELFCHECK PASS or SELFCHECK FAIL; exits 1 if any check fails or there is no
@@ -106,6 +107,23 @@ def main() -> int:
             np.concatenate([q, j[:, None]], axis=1))
         np.testing.assert_array_equal(got.to_numpy(), want)
     ok &= _check("morton LUT kernel vs C++ direct encode", c_morton)
+
+    def c_fused():
+        verts, tris, smin, smax = native.scene_generate(2000, 6001, 5)
+        gen = native.MortonGen(smin, smax)
+        params = morton.MortonParams.from_native(gen, dev)
+        got = mk.encode_triangles(torch.from_numpy(verts).to(dev),
+                                  torch.from_numpy(tris.astype(np.int64)).to(
+                                      dev), params)
+        np.testing.assert_array_equal(got.to_numpy(), gen.encode(verts, tris))
+        # points are degenerate triangles to the C++ encoder
+        cols = [torch.from_numpy(verts[:, a].copy()).to(dev)
+                for a in range(3)]
+        got = mk.encode_points(*cols, None, params)
+        same = np.repeat(np.arange(2000, dtype=np.uint32)[:, None], 3, 1)
+        np.testing.assert_array_equal(got.to_numpy(), gen.encode(verts, same))
+    ok &= _check("fused morton encode (triangles, points) vs C++ encoder",
+                 c_fused)
 
     def c_backends():
         keys = rng.integers(0, 1 << 64, 200_000, dtype=np.uint64)
