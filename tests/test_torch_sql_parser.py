@@ -1,11 +1,12 @@
 """tpu_qe_torch.sql.parser against tpu_qe.sql.parser: the port's copy is
-byte-identical to the reference's, and `parse` gives equal trees, field
-by field, or the same SqlError, for every literal query that the SQL
-tests (tests/test_sql*.py) hand to `parse` or to `Database.sql`, and for
-malformed queries of each clause."""
+the reference's with lines added for the comma FROM, and `parse` gives
+equal trees, field by field, or the same SqlError, for every literal
+query that the SQL tests (tests/test_sql*.py) hand to `parse` or to
+`Database.sql`, and for malformed queries of each clause."""
 
 import ast
 import dataclasses
+import difflib
 import glob
 import os
 
@@ -72,11 +73,20 @@ def _parsed(mod, q):
 
 
 def test_parser_is_a_byte_identical_copy():
+    # the port's copy is the reference's byte for byte, with lines added
+    # and none changed or removed: the comma FROM (implicit joins), which
+    # the reference does not parse
     def read(*parts):
         with open(os.path.join(REPO, *parts), "rb") as f:
-            return f.read()
-    assert read("tpu_qe_torch", "sql", "parser.py") == read(
-        "tpu_qe", "sql", "parser.py")
+            return f.read().decode().splitlines(keepends=True)
+    ours = read("tpu_qe_torch", "sql", "parser.py")
+    theirs = read("tpu_qe", "sql", "parser.py")
+    ops = difflib.SequenceMatcher(None, theirs, ours,
+                                  autojunk=False).get_opcodes()
+    assert {op for op, *_ in ops} <= {"equal", "insert"}
+    added = "".join(line for op, _, _, j0, j1 in ops if op == "insert"
+                    for line in ours[j0:j1])
+    assert 'Join("cross"' in added and "MIXED_FROM" in added
 
 
 def test_the_sql_tests_give_enough_queries():

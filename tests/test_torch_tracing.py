@@ -161,13 +161,17 @@ def test_a_query_is_one_request_with_its_span_tree(tpch, name, query, how):
             assert parent == "sort.radix"
         if s["name"] == "sql.sync":
             assert parent in ("sql.query", "sql.from", "sql.finish",
-                              "ops.compact")
-        if s["name"] != "ops.compact":
+                              "ops.compact", "ops.join")
+        if s["name"] not in ("ops.compact", "ops.join"):
             assert s["counts"] == {}, s
         assert s["start_ns"] <= s["end_ns"] and s["device_ms"] is None
     (compact,) = [s["counts"] for s in spans if s["name"] == "ops.compact"]
     n = len(li["l_orderkey"])
     assert compact == {"rows_in": n, "rows_kept": _kept(li, name)}
+    joins = [s["counts"] for s in spans if s["name"] == "ops.join"]
+    if name == "q12":       # every line finds its order
+        assert joins == [{"rows_left": N_ORDERS, "rows_right": n,
+                          "rows_out": n}]
 
 
 def test_span_names_nest_in_the_chrome_trace(tpch, tmp_path):

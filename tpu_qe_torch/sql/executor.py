@@ -11,6 +11,9 @@ executes on the Database's device through the operator families:
     JOIN (inner/left/full)     ops/join.join_inner / join_outer with the
                                exact-count + overflow-retry budget
                                discipline (never silent truncation)
+    FROM a, b, ... (commas)    sql/planner.py: the same inner joins, in the
+                               order it picks from the WHERE's equalities
+                               and the tables' row counts
     GROUP BY / aggregates      ops/aggregate.group_aggregate_multi (one
                                shared key sort; EXACT u64/i64 integer
                                sums) + group_aggregate for
@@ -63,6 +66,7 @@ from tpu_qe_torch.bits import SIGN_BIT, U64, sortable_u32, widen
 from tpu_qe_torch.config import resolve_device
 from tpu_qe_torch.sort.driver import signed_key
 from tpu_qe_torch.sql import parser as P
+from tpu_qe_torch.sql.planner import has_implicit_joins, plan_query
 from tpu_qe_torch.table import DTYPES, Table, column_to_numpy, from_plane
 from tpu_qe_torch.utils.profiling import span
 
@@ -828,6 +832,29 @@ class Database:
                     break
         return vt
 
+    def _plan(self, q: P.Query):
+        """`q` with its comma-joined SELECTs planned into inner joins
+        (sql/planner.py), and each SELECT's plan (None if unplanned).
+        Traced as sql.plan where there is a comma join."""
+        if not has_implicit_joins(q):
+            return q, [None] * len(q.selects)
+        tables = {}
+        for s in q.selects:
+            for ref in [s.table] + [j.table for j in s.joins]:
+                nm = ref.name.lower()
+                if nm in self._tables:
+                    t = self._tables[nm]
+                    tables[nm] = (t.num_rows, t.column_names)
+                elif nm in self._virtual:
+                    vt = self._virtual[nm]
+                    tables[nm] = (vt.n, list(vt.columns))
+        with span("sql.plan") as traced:
+            q, plans = plan_query(q, tables)
+            planned = [p for p in plans if p is not None]
+            traced.count(joins=sum(p.joins for p in planned),
+                         start_rows=sum(p.start_rows for p in planned))
+        return q, plans
+
     def sql(self, query: str, mesh=None, run_size: int = 1 << 26,
             max_groups: int = 1 << 16, stats: dict | None = None) -> dict:
         """Run one SQL query; returns {column_name: numpy array}.
@@ -846,6 +873,7 @@ class Database:
         with span("sql.query"):
             with span("sql.parse"):
                 q = P.parse(query)
+            q, plans = self._plan(q)
             vt = self._virtual_of(q)
             if vt is not None:
                 if mesh is not None:
@@ -859,7 +887,8 @@ class Database:
                                   db=self)
             if mesh is not None:
                 return self._sql_distributed(q, mesh)
-            frames = [self._select(s) for s in q.selects]
+            frames = [self._select(s, p)
+                      for s, p in zip(q.selects, plans)]
             if len(frames) > 1:
                 frames = [_materialize(f) for f in frames]
             fr = frames[0]
@@ -873,7 +902,7 @@ class Database:
         WITHOUT executing anything. One line per plan step; the JAX
         package's text for its in-core, out-of-core and distributed
         tiers."""
-        q = P.parse(query)
+        q, plans = self._plan(P.parse(query))
         sel = q.selects[0]
         vt = None
         for s in q.selects:
@@ -883,7 +912,9 @@ class Database:
         has_aggs = self._has_aggs(sel) or sel.having is not None
         has_win = any(it.expr != "*" and _calls(it.expr, window=True)
                       for it in sel.items)
-        lines = []
+        lines = [f"join order: {' -> '.join(p.order)} (FROM's commas "
+                 "planned: most rows first, then the fewest connected)"
+                 for p in plans if p]
 
         def fin(tier, *steps):
             out = [f"tier: {tier}"]
@@ -1825,12 +1856,16 @@ class Database:
                      {out: tags[src] for out, src in sel_names})
 
     # -- FROM/JOIN ----------------------------------------------------------
-    def _bind_table(self, ref: P.TableRef):
+    def _bind_table(self, ref: P.TableRef, keep=None):
+        """The table's columns (those in `keep`, if given) as the
+        physical columns of `binding.column` and their bare names."""
         t = self._tables.get(ref.name.lower())
         if t is None:
             raise SqlError(f"unknown table {ref.name!r}")
         phys, names, tags = {}, {}, {}
         for c in t.column_names:
+            if keep is not None and c not in keep:
+                continue
             pname = f"{ref.binding}.{c}"
             phys[pname] = t[c]
             names[pname] = pname
@@ -1838,12 +1873,17 @@ class Database:
             tags[pname] = _tag_of(t[c])
         return Table(phys), names, tags
 
-    def _from_clause(self, sel: P.Select):
+    def _from_clause(self, sel: P.Select, keep=None):
+        """The joined rows of sel's FROM; `keep` (a plan's) names the
+        columns to carry of each binding."""
         from tpu_qe_torch.ops import join as J
-        table, names, tags = self._bind_table(sel.table)
+        keep = keep or {}
+        table, names, tags = self._bind_table(sel.table,
+                                              keep.get(sel.table.binding))
         ambiguous: set[str] = set()
         for j in sel.joins:
-            rt, rnames, rtags = self._bind_table(j.table)
+            rt, rnames, rtags = self._bind_table(j.table,
+                                                 keep.get(j.table.binding))
             # resolve keys: left from current env, right from the new one
             lenv = _RowEnv(table, names, tags, self.device)
             renv = _RowEnv(rt, rnames, rtags, self.device)
@@ -1859,22 +1899,28 @@ class Database:
             lt = table.with_column("__sqlkey", _lift_key(ltv.arr, ltv.tag))
             rt2 = rt.with_column("__sqlkey", _lift_key(rtv.arr, rtv.tag))
             budget = max(table.num_rows, rt.num_rows, 16)
-            while True:
-                # exact-count overflow-retry discipline: num_out is exact
-                # even past the budget, so one readback decides the rerun
-                if j.how == "inner":
-                    res = J.join_inner(lt, rt2, key="__sqlkey",
-                                       out_budget=budget)
-                    matched = None
-                else:
-                    res = J.join_outer(lt, rt2, key="__sqlkey",
-                                       how=j.how, out_budget=budget)
-                    matched = res.matched
-                num = _int(res.num_out)
-                if num <= budget:
-                    out, valid_n = res.table.drop("__sqlkey"), num
-                    break
-                budget = max(2 * budget, num)
+            # the executor reads the output count, so it holds the span
+            with span("ops.join", device=self.device,
+                      rows_left=table.num_rows,
+                      rows_right=rt.num_rows) as traced:
+                while True:
+                    # exact-count overflow-retry discipline: num_out is
+                    # exact even past the budget, so one readback decides
+                    # the rerun
+                    if j.how == "inner":
+                        res = J.join_inner(lt, rt2, key="__sqlkey",
+                                           out_budget=budget)
+                        matched = None
+                    else:
+                        res = J.join_outer(lt, rt2, key="__sqlkey",
+                                           how=j.how, out_budget=budget)
+                        matched = res.matched
+                    num = _int(res.num_out)
+                    if num <= budget:
+                        out, valid_n = res.table.drop("__sqlkey"), num
+                        break
+                    budget = max(2 * budget, num)
+                traced.count(rows_out=num)
             # merge environments; clashes become ambiguous bare names
             newnames = dict(names)
             for k, v in rnames.items():
@@ -1930,9 +1976,10 @@ class Database:
         return table, names, tags
 
     # -- SELECT core ----------------------------------------------------------
-    def _select(self, sel: P.Select) -> Frame:
+    def _select(self, sel: P.Select, plan=None) -> Frame:
         with span("sql.from"):
-            table, names, tags = self._from_clause(sel)
+            table, names, tags = self._from_clause(
+                sel, plan.keep if plan else None)
         env = _RowEnv(table, names, tags, self.device)
         n = table.num_rows
 

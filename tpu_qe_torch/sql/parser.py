@@ -8,6 +8,8 @@ subset maps 1:1 onto the implemented operator families:
 
     SELECT [DISTINCT] exprs            projection (device elementwise)
     FROM t [JOIN u ON a = b]           ops/join.py inner/outer joins
+    FROM t, u, ... WHERE a = b ...     the same inner joins, in the order
+                                       sql/planner.py picks
     WHERE expr                         ops/filter.py compact
     GROUP BY cols [HAVING expr]        ops/aggregate.py (exact u64 sums)
     f(x) OVER (PARTITION BY ...)       ops/window.py
@@ -20,6 +22,9 @@ Grammar (EBNF-ish; case-insensitive keywords):
                   [ORDER BY order_item ("," order_item)*] [LIMIT int]
     select     := SELECT [DISTINCT] item ("," item)*
                   FROM table_ref (join)* [WHERE expr]
+                  (or FROM table_ref ("," table_ref)* [WHERE expr]:
+                  implicit joins, cross joins in the tree; mixing the
+                  two forms in one SELECT raises SqlError)
                   [GROUP BY col ("," col)* [HAVING expr]]
     item       := "*" | expr [[AS] name]
     table_ref  := name [[AS] name]
@@ -46,6 +51,10 @@ import re
 
 class SqlError(ValueError):
     """Parse or planning error with position context."""
+
+
+MIXED_FROM = ("FROM mixes comma-separated tables with JOIN ... ON: write "
+              "every join of one SELECT in one form")
 
 
 # ---------------------------------------------------------------------------
@@ -201,6 +210,7 @@ class TableRef:
 @dataclasses.dataclass(frozen=True)
 class Join:
     how: str                   # "inner" | "left" | "full"
+                               # or "cross": FROM a, b (ON columns None)
     table: TableRef
     left_col: Col
     right_col: Col
@@ -353,6 +363,8 @@ class _Parser:
         self.expect_kw("from")
         table = self.table_ref()
         joins = []
+        while self.op(","):
+            joins.append(Join("cross", self.table_ref(), None, None))
         while True:
             how = None
             if self.kw("inner", "join") or self.kw("join"):
@@ -363,12 +375,16 @@ class _Parser:
                 how = "full"
             if how is None:
                 break
+            if joins and joins[0].how == "cross":
+                raise SqlError(MIXED_FROM)
             t = self.table_ref()
             self.expect_kw("on")
             a = self.colref()
             self.expect_op("=")
             b = self.colref()
             joins.append(Join(how, t, a, b))
+        if joins and joins[0].how != "cross" and self.op(","):
+            raise SqlError(MIXED_FROM)
         where = None
         if self.kw("where"):
             where = self.expr()
