@@ -117,7 +117,11 @@ Run from the root of the repository on a machine with a CUDA card. Phases:
    unique keys with half of the rows matched, against numpy; the family
    battery of tests/sql_battery.py on the card, integers bit-equal to the same
    battery on the CPU (floats within rtol 1e-5) and held to sqlite3; B1-B3
-   launched once per recorded pass in each;
+   launched once per recorded pass in each; then E2, GROUP BY's counts and
+   integer sums (kernels/groupsum.py), at Q1's shape (59 M rows, 6 u32
+   columns, 4 groups interleaved in row order) and at 2^24 rows in 2^20
+   groups: every output equal to its plain twin's, its time beside the
+   twin's, its bound by bytes and a model of the sectors its gathers fetch;
 16. the out-of-core SQL tier (virtual tables, sql/bigexec.py), again with
    torch.sort, argsort and unique made to raise: `bench-bigsql` for each
    of its ten verbs (groupby, orderby, head, distinct, countdistinct,
@@ -1878,12 +1882,86 @@ def main() -> int:
     log(f"      {len(cpu_battery)} SQL families on the card: integers "
         f"bit-equal to the CPU run's, floats within rtol 1e-5, sqlite3 "
         f"agrees; launches {counts} = recorded passes {planned}")
-    for name in ("block_histogram", "exclusive_scan", "rank_and_scatter"):
+    for name in ("block_histogram", "exclusive_scan", "rank_and_scatter",
+                 "group_sums"):
         launches[name] += path_launches[name]
+
+    from tpu_qe_torch.kernels import groupsum as gk
+    from tpu_qe_torch.ops import aggregate as tagg
+
+    def group_sums_row(n, group_of, k, seed):
+        """E2 at n rows of k u32 columns, grouped by group_of(n, gen):
+        every output equal to the plain twin's on the valid prefix, the
+        kernel's time and the twin's, the bound by bytes (the key words,
+        the permutation and the values read once, each group's results
+        written once) and a model of what the gathers fetch (each group's
+        rows of a column read as the 32-byte sectors they touch)."""
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        key = group_of(n, gen)
+        cols = [rand_u32(n, gen, dev) for _ in range(k)]
+        slo, shi, sinv, _, perm = tagg._sort_by_key(
+            U64(key, torch.zeros_like(key)), None, None, "radix")
+        args = (slo, shi, sinv, perm, cols, [False] * k, None)
+        kernels.reset_launches()
+        got = gk.segment_sums(*args)
+        torch.cuda.synchronize()
+        if kernels.LAUNCHES["group_sums"] != 1:
+            fail(f"segment_sums launched {kernels.LAUNCHES['group_sums']} "
+                 "times, not once")
+        want = gk.segment_sums_plain(*args)
+        ng = int(want.num_groups)
+        if int(got.num_groups) != ng:
+            fail(f"group_sums: {int(got.num_groups)} groups, its twin {ng}")
+        for g, w in zip(tensors([got.end, got.count, got.key, got.sums]),
+                        tensors([want.end, want.count, want.key,
+                                 want.sums])):
+            compare("group_sums", g[:ng], w[:ng])
+        del got, want
+        t_kernel = min(cuda_time(lambda: gk.segment_sums(*args), iters=10)
+                       for _ in range(2)) * 1e3
+        t_plain = cuda_time(lambda: gk.segment_sums_plain(*args), iters=3,
+                            warmup=1) * 1e3
+        stream = n * (8 + perm.element_size())
+        b_bytes = (stream + n * 4 * k + ng * (24 + 8 * k)) / hbm * 1e3
+        group = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
+                           torch.cumsum(((slo[1:] != slo[:-1]) | (
+                               shi[1:] != shi[:-1])).to(torch.int64), 0)])
+        sectors = int(torch.unique(group * (n // 8 + 1)
+                                   + perm.to(torch.int64) // 8).numel())
+        b_sector = (stream + 32 * sectors * k + ng * (24 + 8 * k)) / hbm * 1e3
+        del slo, shi, perm, cols, group, key
+        torch.cuda.empty_cache()
+        return {"n": n, "k": k, "groups": ng, "ms": t_kernel,
+                "plain_ms": t_plain, "bound_ms": b_bytes,
+                "sector_model_ms": b_sector,
+                "sectors_a_value_sector": sectors * 8 / n}
+
+    def q1_groups(n, gen):   # Q1's four (flag, status) groups and shares
+        u = torch.rand(n, generator=gen, device=dev)
+        return torch.bucketize(u, torch.tensor([0.25, 0.256, 0.75],
+                                               device=dev)).to(torch.int32)
+
+    def groups_2e20(n, gen):
+        return torch.randint(0, 1 << 20, (n,), generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    gs_rows = {"q1_shape": group_sums_row(59_000_000, q1_groups, 6, 22),
+               "groups_2e20": group_sums_row(1 << 24, groups_2e20, 6, 23)}
+    for label, r in gs_rows.items():
+        log(f"      group_sums {label}: {r['n']} rows, {r['k']} u32 "
+            f"columns, {r['groups']} groups: equal to its plain twin; "
+            f"kernel {r['ms']:.4f} ms, plain twin {r['plain_ms']:.4f} ms, "
+            f"bound {r['bound_ms']:.4f} ms by bytes, sector model "
+            f"{r['sector_model_ms']:.4f} ms "
+            f"({r['sectors_a_value_sector']:.3f} sectors a value sector)")
+    ms["group_sums"] = (gs_rows["q1_shape"]["ms"],
+                        gs_rows["q1_shape"]["plain_ms"])
+    bounds["group_sums"] = (gs_rows["q1_shape"]["bound_ms"], "bytes")
     log(f"[15/20] SQL tier: bench.sql at 2^27 rows and FK joins at 2^24 x "
         f"2^22 equal numpy's, {len(cpu_battery)} families equal the CPU "
         f"run's and sqlite3's, no torch.sort / argsort / unique, B1-B3 "
-        f"launched once per recorded pass; {time.perf_counter() - t0:.1f} s")
+        f"launched once per recorded pass; E2 equal to its twin at Q1's "
+        f"shape and 2^20 groups; {time.perf_counter() - t0:.1f} s")
 
     # -- 16. the out-of-core SQL tier over virtual tables: bench-bigsql's
     # ten verbs at the JAX CLI's defaults, groupby with --median and
@@ -3104,8 +3182,10 @@ def main() -> int:
         ("sort_chunks", src + "bitonic.cu", "tpu_qe/kernels/bitonic.py:86"),
         ("block_rank_and_histogram_mxu", src + "rank_mxu.cu",
          "tpu_qe/kernels/rank_mxu.py:106"),
-        # the port's own kernel: the JAX package's encode is plain jnp
+        # the port's own kernels: the JAX package's encode and GROUP BY
+        # sums are plain jnp
         ("encode_triangles", src + "morton.cu", None),
+        ("group_sums", src + "groupsum.cu", None),
     ]
     rows = [
         {"name": name, "route": "cuda", "source": source, "replaces": rep,
@@ -3128,7 +3208,12 @@ def main() -> int:
     rows[1]["launch_floor_ms"] = floor_ms    # under exclusive_scan's bound
     # the fused encode at 2^26 triangles (phase 6): its uniform random
     # access model beside the bound by bytes
-    rows[-1]["random_access_model_ms"] = sector_ms["encode_triangles"]
+    rows[-2]["random_access_model_ms"] = sector_ms["encode_triangles"]
+    # E2 at Q1's shape (phase 15): its launches there are the SQL tier's;
+    # its sector model, and the same at 2^24 rows in 2^20 groups
+    rows[-1]["launch_path"] = "the SQL tier (phase 15)"
+    rows[-1]["sector_model_ms"] = gs_rows["q1_shape"]["sector_model_ms"]
+    rows[-1]["groups_2e20"] = gs_rows["groups_2e20"]
     # B1 and B3's rank mode at 9..16-bit digits take other kernels: their
     # times and byte bounds at 11 and 16 bits, 2^24 keys
     for row in (rows[0], rows[2]):

@@ -21,6 +21,7 @@ from tpu_qe_torch import kernels, morton, native  # noqa: E402
 from tpu_qe_torch.__main__ import main  # noqa: E402
 from tpu_qe_torch.bits import U64  # noqa: E402
 from tpu_qe_torch.kernels import bitonic as bk  # noqa: E402
+from tpu_qe_torch.kernels import groupsum as gk  # noqa: E402
 from tpu_qe_torch.kernels import histogram as hk  # noqa: E402
 from tpu_qe_torch.kernels import morton as mk  # noqa: E402
 from tpu_qe_torch.kernels import rank_mxu as rk  # noqa: E402
@@ -29,7 +30,7 @@ from tpu_qe_torch.sort import sort_u64, sort_u64_numpy  # noqa: E402
 from tpu_qe_torch.ops import aggregate as tagg  # noqa: E402
 from tpu_qe_torch.ops import join as tjoin  # noqa: E402
 from tpu_qe_torch.sort import planes as sp  # noqa: E402
-from tpu_qe_torch.table import Table  # noqa: E402
+from tpu_qe_torch.table import Table, column_from_numpy  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -181,12 +182,16 @@ def test_each_wrapper_counts_its_launches(cuda):
     mk.encode_points(v[:, 0].contiguous(), v[:, 1].contiguous(),
                      v[:, 2].contiguous(), None, params)
     morton.encode_quantized(q, q[:, 0])                 # plain torch
+    perm = torch.arange(5000, device=cuda)
+    gk.segment_sums(k.lo, k.hi, None, perm, [k.lo], [False])
+    gk.segment_sums_plain(k.lo, k.hi, None, perm, [k.lo], [False])
     assert kernels.LAUNCHES == {"block_histogram": 1, "exclusive_scan": 1,
                                 "block_rank_and_histogram": 1,
                                 "rank_and_scatter": 1,
                                 "encode_quantized_lut": 1, "sort_chunks": 1,
                                 "block_rank_and_histogram_mxu": 1,
-                                "encode_triangles": 1, "encode_points": 1}
+                                "encode_triangles": 1, "encode_points": 1,
+                                "group_sums": 1}
 
 
 def test_kernel_limits_raise(cuda):
@@ -2043,3 +2048,184 @@ def test_sql_mesh_on_a_local_mesh_of_8_equals_in_core(cuda, monkeypatch,
         got = db.sql(f.sql, mesh=LocalMesh(8, cuda))
         assert _launches_match_passes()
     B.compare(want, got, rtol=f.rtol, ordered=f.ordered)
+
+
+# ------------------------------- E2: GROUP BY's counts and integer sums
+
+GS_TILE = 4096   # rows a tile of csrc/groupsum.cu
+
+
+def _gs_keys(rng, n, style):
+    if style == "one":
+        return np.full(n, 0x80000000FFFFFFFF, np.uint64)
+    if style == "each":
+        return rng.permutation(n).astype(np.uint64) * np.uint64(
+            0x9E3779B97F4A7C15)
+    if style == "edges":
+        # in sorted order, ends on both sides of the first two tile edges
+        ends = [GS_TILE - 2, GS_TILE - 1, GS_TILE, GS_TILE + 1,
+                2 * GS_TILE - 1, 2 * GS_TILE, n - 1]
+        keys = np.repeat(np.arange(len(ends), dtype=np.uint64) << np.uint64(
+            33), np.diff([-1] + ends))
+        return keys[rng.permutation(n)]
+    if style == "q1":        # four groups interleaved in row order
+        return rng.choice(np.array([0x41460000, 0x4E460000, 0x4E4F0000,
+                                    0x52460000], np.uint64), n,
+                          p=[0.25, 0.006, 0.494, 0.25])
+    if style == "groups_2e20":
+        return rng.integers(0, 1 << 20, n).astype(np.uint64) << np.uint64(12)
+    return rng.integers(0, 7, n).astype(np.uint64) * np.uint64(
+        0x9E3779B97F4A7C15)
+
+
+def _gs_column(rng, n, kind):
+    if kind == "u32":
+        return rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
+    if kind == "u32_bit31":
+        return (rng.integers(0, 1 << 31, n, dtype=np.uint64).astype(
+            np.uint32) | np.uint32(0x80000000))
+    if kind == "i32_negative":
+        return rng.integers(-(1 << 31), -(1 << 30), n).astype(np.int32)
+    return rng.integers(-(1 << 31), 1 << 31, n).astype(np.int32)
+
+
+GS_CASES = {   # name: (n, key style, columns, masked, max_groups)
+    "one_group": (20_000, "one", ("u32", "i32"), False, None),
+    "each_row_its_group": (20_000, "each", ("u32", "i32"), False, None),
+    "tile_edges": (3 * GS_TILE + 5, "edges", ("u32", "i32"), False, None),
+    "bit31_u32": (20_000, "few", ("u32_bit31", "i32"), False, None),
+    "negative_i32": (20_000, "few", ("u32", "i32_negative"), False, None),
+    "invalid_tail": (20_000, "few", ("u32", "i32"), True, None),
+    "max_groups_under": (20_000, "few", ("u32", "i32"), True, 3),
+    "max_groups_at": (20_000, "few", ("u32", "i32"), False, 7),
+    "max_groups_over": (3 * GS_TILE + 5, "edges", ("u32", "i32"), False,
+                        100),
+    "counts_only": (20_000, "few", (), True, None),
+    "k1": (20_000, "few", ("u32",), False, None),
+    "k_over_k_max": (20_000, "each", ("u32", "i32") * 5, True, None),
+    "n1": (1, "few", ("u32", "i32"), False, None),
+    "q1_shape_2e24": (1 << 24, "q1", ("u32",) * 6, False, None),
+    "groups_2e20_at_2e24": (1 << 24, "groups_2e20", ("u32", "i32") * 3,
+                            False, None),
+}
+
+
+@pytest.mark.parametrize("perm_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("case", list(GS_CASES))
+def test_group_sums_kernel_matches_its_twin(cuda, case, perm_dtype):
+    # bit for bit on the valid prefix; the sort is the port's own, whose
+    # permutation is int32, and an int64 copy of it
+    n, style, kinds, masked, max_groups = GS_CASES[case]
+    rng = np.random.default_rng(n + len(case))
+    keys = _gs_keys(rng, n, style)
+    cols = [_gs_column(rng, n, kind) for kind in kinds]
+    valid = (torch.from_numpy(rng.random(n) < 0.6).to(cuda) if masked
+             else None)
+    slo, shi, sinvalid, _, perm = tagg._sort_by_key(
+        U64.from_numpy(keys, cuda), valid, None, "radix")
+    args = (slo, shi, sinvalid, perm.to(perm_dtype),
+            [torch.from_numpy(c.view(np.int32)).to(cuda) for c in cols],
+            [c.dtype == np.int32 for c in cols], max_groups)
+    kernels.reset_launches()
+    got = gk.segment_sums(*args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["group_sums"] == max(1, -(-len(cols) //
+                                                     gk.K_MAX))
+    want = gk.segment_sums_plain(*args)
+    ng = int(want.num_groups)
+    assert int(got.num_groups) == ng
+    if style == "one":
+        assert ng == 1
+    if style == "each" and not masked:
+        assert ng == n
+    m = min(ng, max_groups or n)
+    for g, w in zip([got.end, got.count, got.key.lo, got.key.hi]
+                    + [p for s in got.sums for p in s],
+                    [want.end, want.count, want.key.lo, want.key.hi]
+                    + [p for s in want.sums for p in s]):
+        _same(g[:m], w[:m])
+
+
+@pytest.mark.parametrize("max_groups", [None, 2, 64])
+def test_group_aggregate_multi_on_the_card_matches_the_cpu(cuda, max_groups):
+    # every aggregate kind, so that min, max and float sums read the
+    # kernel's group ends
+    rng = np.random.default_rng(11)
+    n = 50_000
+    keys = _gs_keys(rng, n, "few")
+    # whole floats, whose running sums stay exact in float32 in any order
+    cols = {"u": _gs_column(rng, n, "u32"), "i": _gs_column(rng, n, "i32"),
+            "f": rng.integers(-100, 100, n).astype(np.float32)}
+    aggs = {"u": ("count", "sum", "min", "max"), "i": ("sum", "max"),
+            "f": ("sum", "min")}
+    valid = rng.random(n) < 0.7
+    res = {}
+    for dev in (torch.device("cpu"), cuda):
+        kernels.reset_launches()
+        res[dev.type] = tagg.group_aggregate_multi(
+            U64.from_numpy(keys, dev),
+            {k: column_from_numpy(v, dev) for k, v in cols.items()}, aggs,
+            valid=torch.from_numpy(valid).to(dev), max_groups=max_groups)
+    assert kernels.LAUNCHES["group_sums"] == 1
+    cpu, card = res["cpu"], res["cuda"]
+    ng = int(cpu.num_groups)
+    assert int(card.num_groups) == ng
+    m = min(ng, max_groups or ng)
+    if max_groups is not None:
+        assert int(card.overflow) == int(cpu.overflow)
+        m = max_groups      # the padding is defined under max_groups
+    _same(card.key.lo[:m], cpu.key.lo[:m])
+    _same(card.key.hi[:m], cpu.key.hi[:m])
+    for a, want in cpu.aggs.items():
+        got = card.aggs[a]
+        for g, w in (zip(got, want) if isinstance(want, U64)
+                     else [(got, want)]):
+            _same(g[:m], w[:m])
+
+
+def test_q1_shaped_sql_on_the_card_takes_the_group_sums_kernel(cuda):
+    from tpu_qe_torch.sql import Database
+    rng = np.random.default_rng(5)
+    n = 1 << 20
+    flags = np.array([ord("A"), ord("N"), ord("R")], np.uint32)
+    table = {"l_returnflag": flags[rng.integers(0, 3, n)],
+             "l_linestatus": np.where(rng.random(n) < 0.5, ord("F"),
+                                      ord("O")).astype(np.uint32),
+             "l_quantity": rng.integers(1, 51, n).astype(np.uint32),
+             "l_extendedprice": rng.integers(90_000, 10_500_000, n).astype(
+                 np.uint32),
+             "l_discount": rng.integers(0, 11, n).astype(np.uint32),
+             "l_tax": rng.integers(0, 9, n).astype(np.uint32),
+             "l_shipdate": rng.integers(8036, 10562, n).astype(np.uint32),
+             "l_delta": rng.integers(-(1 << 31), 1 << 31, n).astype(
+                 np.int32)}
+    q1 = ("SELECT l_returnflag, l_linestatus, SUM(l_quantity) AS sum_qty, "
+          "SUM(l_extendedprice) AS sum_base_price, SUM(l_extendedprice * "
+          "(100 - l_discount)) AS sum_disc_price, SUM((l_extendedprice / "
+          "1024) * (100 - l_discount) * (100 + l_tax)) AS sum_charge_hi, "
+          "SUM((l_extendedprice % 1024) * (100 - l_discount) * (100 + "
+          "l_tax)) AS sum_charge_lo, AVG(l_quantity) AS avg_qty, "
+          "AVG(l_extendedprice) AS avg_price, AVG(l_discount) AS avg_disc, "
+          "COUNT(*) AS count_order FROM lineitem WHERE l_shipdate <= 10471 "
+          "GROUP BY l_returnflag, l_linestatus ORDER BY l_returnflag, "
+          "l_linestatus")
+    # nine integer sums: two launches of at most K_MAX columns each
+    wide = ("SELECT l_returnflag, " + ", ".join(
+        f"SUM(l_quantity + {j}) AS s{j}" for j in range(8))
+        + ", SUM(l_delta) AS sd, COUNT(*) AS c FROM lineitem "
+        "GROUP BY l_returnflag ORDER BY l_returnflag")
+    for query, launches in ((q1, 1), (wide, 2)):
+        answers = {}
+        for dev in ("cpu", cuda):
+            db = Database(dev)
+            db.register("lineitem", table)
+            kernels.reset_launches()
+            answers[str(dev)] = db.sql(query)
+            torch.cuda.synchronize()
+            assert kernels.LAUNCHES["group_sums"] == (
+                0 if dev == "cpu" else launches)
+        cpu, card = answers["cpu"], answers[str(cuda)]
+        assert list(cpu) == list(card)
+        for name in cpu:
+            np.testing.assert_array_equal(card[name], cpu[name],
+                                          err_msg=name)

@@ -45,6 +45,7 @@ Q12 = ("SELECT l_shipmode, SUM(CASE WHEN o_orderpriority = 0 OR "
 # the spans of each query, without the radix passes' own: one sql.sync per
 # read of a device value (the kept count, the group count, each column of
 # the group frame: a u64 sum is two planes)
+SUM_COLS = {"q1": 7, "q6": 2, "q12": 3}
 SPANS = {
     "q1": {"sql.query": 1, "sql.parse": 1, "sql.from": 1, "sql.expr": 4,
            "ops.compact": 1, "ops.group": 1, "sort.radix": 1,
@@ -162,12 +163,16 @@ def test_a_query_is_one_request_with_its_span_tree(tpch, name, query, how):
         if s["name"] == "sql.sync":
             assert parent in ("sql.query", "sql.from", "sql.finish",
                               "ops.compact", "ops.join")
-        if s["name"] not in ("ops.compact", "ops.join"):
+        if s["name"] not in ("ops.compact", "ops.join", "ops.group"):
             assert s["counts"] == {}, s
         assert s["start_ns"] <= s["end_ns"] and s["device_ms"] is None
     (compact,) = [s["counts"] for s in spans if s["name"] == "ops.compact"]
     n = len(li["l_orderkey"])
     assert compact == {"rows_in": n, "rows_kept": _kept(li, name)}
+    # the count and integer-sum aggregates, each query's COUNT(*) among
+    # them; CPU tensors take the reduce-by-key kernel's plain twin
+    (group,) = [s["counts"] for s in spans if s["name"] == "ops.group"]
+    assert group == {"sum_cols": SUM_COLS[name], "sum_cols_kernel": 0}
     joins = [s["counts"] for s in spans if s["name"] == "ops.join"]
     if name == "q12":       # every line finds its order
         assert joins == [{"rows_left": N_ORDERS, "rows_right": n,

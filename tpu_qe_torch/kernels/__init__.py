@@ -38,6 +38,7 @@ LAUNCHES = {
     "block_rank_and_histogram_mxu": 0,
     "encode_triangles": 0,
     "encode_points": 0,
+    "group_sums": 0,
 }
 
 _lock = threading.Lock()
@@ -103,6 +104,11 @@ def library() -> ctypes.CDLL:
         lib.tq_block_rank_and_histogram_mxu.argtypes = [p, p, i64, i64, i, p,
                                                         p, i, p]
         lib.tq_block_rank_and_histogram_mxu.restype = i
+        lib.tq_group_sums_scratch.argtypes = [i64, i]
+        lib.tq_group_sums_scratch.restype = i64
+        lib.tq_group_sums.argtypes = [p, p, p, p, i, i64, p, ctypes.c_uint32,
+                                      i, i64, p, p, p, p, p, p, p, p, i, p]
+        lib.tq_group_sums.restype = i
         _lib = lib
         return lib
 

@@ -14,6 +14,9 @@ card), group boundaries are found, and each run is reduced:
 
 Group-end rows move to the front with a stable partition (the JAX
 package's packed-position compaction sort gives the same order).
+group_aggregate_multi takes its ends, keys, counts and integer sums from
+kernels/groupsum.segment_sums instead: on the card one reduce-by-key
+kernel, whose plain twin is this chain.
 
 Where the JAX package sorts by the value as well but the aggregates do not
 depend on the row order inside a group (count and integer sums), the port
@@ -33,6 +36,7 @@ import torch
 
 from tpu_qe_torch.bits import (U64, narrow, sortable_u32,
                                sortable_u32_inverse, widen)
+from tpu_qe_torch.kernels.groupsum import segment_sums
 from tpu_qe_torch.ops.filter import stable_partition
 from tpu_qe_torch.ops.segscan import (cummax_int64, cumsum_u64_pair,
                                       scan_assoc)
@@ -409,20 +413,24 @@ def group_aggregate_multi(key: U64, values: dict, aggs: dict,
     """Multi-column GROUP BY: one key sort shared by every aggregation.
 
     values: {column_name: u32/i32/f32 column}; aggs: {column_name: tuple of
-    "count"/"sum"/"min"/"max"}. Value columns ride the sort as payloads;
-    min/max come from segmented scans. Integer sums are exact U64: the u64
-    sum of u32 columns, the two's-complement signed sum of i32 columns.
+    "count"/"sum"/"min"/"max"}. The group ends, keys, counts and integer
+    sums come from one reduce-by-key over the sorted rows
+    (kernels/groupsum.segment_sums: a CUDA kernel on the card); min/max
+    from segmented scans. Integer sums are exact U64: the u64 sum of u32
+    columns, the two's-complement signed sum of i32 columns.
     Float sums difference a running cumsum, whose rounding depends on the
     row order inside a group (the JAX package's unstable sort leaves that
     order open; the port's sort keeps input order). Traced as ops.group,
-    as group_aggregate.
+    as group_aggregate, with counts sum_cols (the count and integer-sum
+    aggregates asked for) and sum_cols_kernel (those the kernel computed).
     """
-    with span("ops.group", device=key.lo.device):
+    with span("ops.group", device=key.lo.device) as sp:
         return _group_aggregate_multi(key, values, aggs, valid, max_groups,
-                                      backend)
+                                      backend, sp)
 
 
-def _group_aggregate_multi(key, values, aggs, valid, max_groups, backend):
+def _group_aggregate_multi(key, values, aggs, valid, max_groups, backend,
+                           sp):
     names = tuple(sorted(values))
     for nm in names:
         for a in aggs.get(nm, ()):
@@ -443,67 +451,77 @@ def _group_aggregate_multi(key, values, aggs, valid, max_groups, backend):
         return MultiGroupResult(e.key, out, e.num_groups, e.overflow)
 
     slo, shi, sinvalid, _, perm = _sort_by_key(key, valid, None, backend)
-    is_new, is_end = _boundaries(slo, shi, sinvalid)
+    # counts and integer sums: one reduce-by-key over the sorted rows, which
+    # gives the group ends, keys and counts too (kernels/groupsum.py)
+    int_sums = [nm for nm, col_aggs in spec
+                if "sum" in col_aggs and values[nm].dtype != torch.float32]
+    gs = segment_sums(slo, shi, sinvalid, perm,
+                      [plane(values[nm]) for nm in int_sums],
+                      [values[nm].dtype == torch.int32 for nm in int_sums],
+                      max_groups)
+    sums = dict(zip(int_sums, gs.sums))
+    reduced = sum(a == "count" or (a == "sum" and nm in sums)
+                  for nm, col_aggs in spec for a in col_aggs)
+    sp.count(sum_cols=reduced,
+             sum_cols_kernel=reduced if dev.type == "cuda" else 0)
 
-    # (out name, agg, dtype, planes): integer sums carry the (lo, hi) pair
-    # prefix, counts nothing, the others one running plane
-    reduced = []
+    # min, max and float sums: a running plane over the gathered values,
+    # read at the group ends
+    running, is_new = {}, None
     for nm, col_aggs in spec:
-        v = take_column(values[nm], perm)
+        v = None
         for a in col_aggs:
-            name = f"{nm}_{a}"
-            if a == "count":
-                reduced.append((name, a, v.dtype, []))
-            elif a == "sum" and v.dtype == torch.float32:
-                reduced.append((name, a, v.dtype, [torch.cumsum(v, 0)]))
-            elif a == "sum" and v.dtype == torch.int32:
-                # sign extension into the hi plane: the exact signed sum
-                reduced.append((name, a, v.dtype, list(cumsum_u64_pair(
-                    v, torch.where(v < 0, -1, 0).to(torch.int32)))))
-            elif a == "sum":
-                reduced.append((name, a, v.dtype,
-                                list(cumsum_u64_pair(plane(v)))))
+            if a == "count" or (a == "sum" and nm in sums):
+                continue
+            if v is None:
+                v = take_column(values[nm], perm)
+            if a == "sum":
+                running[(nm, a)] = torch.cumsum(v, 0)
             else:
-                reduced.append((name, a, v.dtype,
-                                [segmented_reduce(v, is_new, a)]))
+                if is_new is None:
+                    is_new = _boundaries(slo, shi, sinvalid)[0]
+                running[(nm, a)] = segmented_reduce(v, is_new, a)
 
     if max_groups is not None:
         assert max_groups >= 1
-        num_groups, overflow, posc, valid_g, pos_end = _extract(is_end,
-                                                                max_groups)
-        klo = torch.where(valid_g, slo[posc], -1)
-        khi = torch.where(valid_g, shi[posc], -1)
-        prev_pos = _shift_right_one(pos_end, 0)
+        num_groups = gs.num_groups
+        overflow = (num_groups > max_groups).to(torch.int64)
+        valid_g = torch.arange(max_groups, device=dev) < num_groups
+        posc = torch.where(valid_g, gs.end, n - 1)
         out = {}
-        for name, a, dt, ps in reduced:
-            if a == "count":
-                out[name] = torch.where(valid_g, pos_end - prev_pos, 0)
-            elif a == "sum" and dt != torch.float32:
-                s = _diff_u64(torch.where(valid_g, ps[0][posc], 0),
-                              torch.where(valid_g, ps[1][posc], 0))
-                out[name] = U64(torch.where(valid_g, s.lo, 0),
-                                torch.where(valid_g, s.hi, 0))
-            elif a == "sum":
-                ce = torch.where(valid_g, ps[0][posc], 0.0)
-                out[name] = torch.where(
-                    valid_g, ce - _shift_right_one(ce, 0.0), 0.0)
-            else:
-                out[name] = _fill(take_column(ps[0], posc), valid_g, 0)
-        return MultiGroupResult(U64(klo, khi), out, num_groups, overflow)
+        for nm, col_aggs in spec:
+            for a in col_aggs:
+                name = f"{nm}_{a}"
+                if a == "count":
+                    out[name] = torch.where(valid_g, gs.count, 0)
+                elif a == "sum" and nm in sums:
+                    out[name] = U64(torch.where(valid_g, sums[nm].lo, 0),
+                                    torch.where(valid_g, sums[nm].hi, 0))
+                elif a == "sum":
+                    ce = torch.where(valid_g, running[(nm, a)][posc], 0.0)
+                    out[name] = torch.where(
+                        valid_g, ce - _shift_right_one(ce, 0.0), 0.0)
+                else:
+                    out[name] = _fill(take_column(running[(nm, a)], posc),
+                                      valid_g, 0)
+        key = U64(torch.where(valid_g, gs.key.lo, -1),
+                  torch.where(valid_g, gs.key.hi, -1))
+        return MultiGroupResult(key, out, num_groups, overflow)
 
-    order = stable_partition(is_end)
-    pos_end = order + 1
-    prev_pos = _shift_right_one(pos_end, 0)
-    num_groups = is_end.sum(dtype=torch.int64)
+    if running:   # ends past the groups are undefined: gather in range
+        order = torch.where(torch.arange(n, device=dev) < gs.num_groups,
+                            gs.end, 0)
     out = {}
-    for name, a, dt, ps in reduced:
-        if a == "count":
-            out[name] = pos_end - prev_pos
-        elif a == "sum" and dt != torch.float32:
-            out[name] = _diff_u64(ps[0][order], ps[1][order])
-        elif a == "sum":
-            rv = ps[0][order]
-            out[name] = rv - _shift_right_one(rv, 0.0)
-        else:
-            out[name] = take_column(ps[0], order)
-    return MultiGroupResult(U64(slo[order], shi[order]), out, num_groups)
+    for nm, col_aggs in spec:
+        for a in col_aggs:
+            name = f"{nm}_{a}"
+            if a == "count":
+                out[name] = gs.count
+            elif a == "sum" and nm in sums:
+                out[name] = sums[nm]
+            elif a == "sum":
+                rv = running[(nm, a)][order]
+                out[name] = rv - _shift_right_one(rv, 0.0)
+            else:
+                out[name] = take_column(running[(nm, a)], order)
+    return MultiGroupResult(gs.key, out, gs.num_groups)

@@ -4,11 +4,12 @@ on the card and held against its C++ or numpy oracle.
     python -m tpu_qe_torch.selfcheck
 
 The CPU tests reach only the kernels' plain twins; this runs the kernels
-themselves. Eight checks: B1 against the C++ histogram, B3's rank against
+themselves. Nine checks: B1 against the C++ histogram, B3's rank against
 B6's, B2 against numpy, B5 against numpy's sort, B4 against the C++ direct
 encoder, the fused encode of triangles and of points against the C++
-encoder, the sort backends against the C++ LSD sort, and the flagship
-pipeline against the C++ pipeline oracle. Prints PASS or FAIL per check and
+encoder, E2's GROUP BY counts and exact sums against numpy, the sort
+backends against the C++ LSD sort, and the flagship pipeline against the
+C++ pipeline oracle. Prints PASS or FAIL per check and
 SELFCHECK PASS or SELFCHECK FAIL; exits 1 if any check fails or there is no
 CUDA card.
 """
@@ -54,8 +55,10 @@ def main() -> int:
                                                 block_rank_and_histogram)
     from tpu_qe_torch.kernels.rank_mxu import block_rank_and_histogram_mxu
     from tpu_qe_torch.kernels.scan import exclusive_scan
+    from tpu_qe_torch.ops.aggregate import group_aggregate_multi
     from tpu_qe_torch.pipeline import build_scene_index
     from tpu_qe_torch.sort import sort_u64_numpy
+    from tpu_qe_torch.table import column_from_numpy
 
     dev = resolve_device("cuda")   # raises without a CUDA card
     print(f"device: {torch.cuda.get_device_name(dev)}")
@@ -124,6 +127,31 @@ def main() -> int:
         np.testing.assert_array_equal(got.to_numpy(), gen.encode(verts, same))
     ok &= _check("fused morton encode (triangles, points) vs C++ encoder",
                  c_fused)
+
+    def c_groupsum():
+        n = 3 * 4096 + 5
+        keys = rng.integers(0, 50, n).astype(np.uint64) << np.uint64(31)
+        u = rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
+        i = rng.integers(-(1 << 31), 1 << 31, n).astype(np.int32)
+        valid = rng.random(n) < 0.8
+        res = group_aggregate_multi(
+            U64.from_numpy(keys, dev), {"u": column_from_numpy(u, dev),
+                                        "i": column_from_numpy(i, dev)},
+            {"u": ("count", "sum"), "i": ("sum",)},
+            valid=torch.from_numpy(valid).to(dev))
+        uk, inv = np.unique(keys[valid], return_inverse=True)
+        g = len(uk)
+        usum, isum = np.zeros(g, np.uint64), np.zeros(g, np.int64)
+        np.add.at(usum, inv, u[valid].astype(np.uint64))
+        np.add.at(isum, inv, i[valid].astype(np.int64))
+        assert int(res.num_groups) == g
+        np.testing.assert_array_equal(res.key.to_numpy()[:g], uk)
+        np.testing.assert_array_equal(res.aggs["u_count"][:g].cpu().numpy(),
+                                      np.bincount(inv, minlength=g))
+        np.testing.assert_array_equal(res.aggs["u_sum"].to_numpy()[:g], usum)
+        np.testing.assert_array_equal(
+            res.aggs["i_sum"].to_numpy()[:g].astype(np.int64), isum)
+    ok &= _check("GROUP BY counts and exact sums (E2) vs numpy", c_groupsum)
 
     def c_backends():
         keys = rng.integers(0, 1 << 64, 200_000, dtype=np.uint64)
