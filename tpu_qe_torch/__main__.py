@@ -50,7 +50,7 @@ def _cmd_verify(args) -> int:
                                      resolve_device)
     from tpu_qe_torch.pipeline import scene_tensors
     from tpu_qe_torch.sort import sort_u64
-    from tpu_qe_torch.utils.profiling import marker, trace_session
+    from tpu_qe_torch.utils.profiling import span, trace_session
 
     dev = resolve_device(args.device)
     cfg = EngineConfig(
@@ -69,10 +69,10 @@ def _cmd_verify(args) -> int:
     verts_t, tris_t, params = scene_tensors(sc, dev)
 
     with trace_session(cfg.trace_dir):
-        with marker("compute morton code"):
+        with span("compute morton code"):
             code = morton.encode(verts_t, tris_t, params)
         idx = torch.arange(sc.num_triangles, dtype=torch.int32, device=dev)
-        with marker("radix sort"):
+        with span("radix sort"):
             skey, (sidx,) = sort_u64(code, idx, backend=cfg.sort.backend,
                                      key_bits=cfg.sort.key_bits,
                                      bits_per_pass=cfg.sort.bits_per_pass,

@@ -67,7 +67,6 @@ from tpu_qe_torch.config import resolve_device
 from tpu_qe_torch.sort import driver
 from tpu_qe_torch.table import Table, from_plane, plane
 
-NOT_PORTED = ()
 DEFAULT_ROWS = {"pipeline": 1 << 26, "filter_agg": 1 << 28,
                 "join": 100_000_000, "join_agg": 100_000_000,
                 "orderby": 1 << 27, "count_distinct": 1 << 27,
@@ -659,9 +658,6 @@ def run(configs, scale: float = 1.0, device: str = "cuda",
     shards on the device (default: exchange.make_mesh())."""
     dev = resolve_device(device)
     for c in configs:
-        if c in NOT_PORTED:
-            raise SystemExit(f"bench-matrix: config {c!r} is not ported yet "
-                             "(ROADMAP Queue A)")
         if c not in BUILDERS:
             raise SystemExit(f"bench-matrix: unknown config {c!r}")
     card = None

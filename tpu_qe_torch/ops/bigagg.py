@@ -49,7 +49,7 @@ from tpu_qe_torch.ops.filter import stable_partition
 from tpu_qe_torch.ops.segscan import cumsum_u64_pair
 from tpu_qe_torch.sort.bigsort import _build_seconds, _fence
 from tpu_qe_torch.sort.planes import sort_planes
-from tpu_qe_torch.utils.profiling import marker
+from tpu_qe_torch.utils.profiling import span
 
 _GSALT = 0x9E3779B9
 _ONES = -1                  # all-ones u32 as an int32 plane value
@@ -302,14 +302,14 @@ def aggregate_big_multi(n: int, n_groups: int = 1 << 20,
     compile_s = _build_seconds(dev)
 
     t0 = _fence(dev)
-    with marker("bigagg phase A: partial runs"):
+    with span("bigagg phase A: partial runs"):
         parts = [_partial_run_multi(r, run_size, n_groups, seed,
                                     partial_cap, value_cols, dev)
                  for r in range(n_runs)]
     t_a = _fence(dev) - t0
 
     t1 = _fence(dev)
-    with marker("bigagg phase B: combine"):
+    with span("bigagg phase B: combine"):
         scal, planes = _combine(tuple(parts), collect, False, value_cols)
     t_b = _fence(dev) - t1
     ng, total_cnt, ks = scal[0], scal[1], scal[-2]
@@ -394,7 +394,7 @@ def aggregate_big(n: int, n_groups: int = 1 << 20, run_size: int = 1 << 26,
 
     t0 = _fence(dev)
     parts, resumed = [], 0
-    with marker("bigagg phase A: partial runs"):
+    with span("bigagg phase A: partial runs"):
         for r in range(n_runs):
             part = (None if checkpoint_dir is None
                     else _run_ck_load(checkpoint_dir, r, meta, dev))
@@ -412,7 +412,7 @@ def aggregate_big(n: int, n_groups: int = 1 << 20, run_size: int = 1 << 26,
     t_a = _fence(dev) - t0
 
     t1 = _fence(dev)
-    with marker("bigagg phase B: combine"):
+    with span("bigagg phase B: combine"):
         scal, planes = _combine(tuple(parts), collect, minmax)
     t_b = _fence(dev) - t1
     ng, total_cnt, tlo, thi, ks, mm = scal

@@ -36,7 +36,7 @@ from tpu_qe_torch.ops.bigagg import _ONES, _cut, _u32
 from tpu_qe_torch.ops.filter import stable_partition
 from tpu_qe_torch.sort.bigsort import _build_seconds, _fence
 from tpu_qe_torch.sort.planes import sort_planes
-from tpu_qe_torch.utils.profiling import marker
+from tpu_qe_torch.utils.profiling import span
 
 
 def _bits(bound: int) -> int:
@@ -172,7 +172,7 @@ def count_distinct_big(n: int, n_groups: int = 1 << 20,
 
     t0 = _fence(dev)
     parts, m_counts = [], []
-    with marker("bigdistinct phase A: run dedup"):
+    with span("bigdistinct phase A: run dedup"):
         for rr in range(n_runs):
             klo, v, occ, m = _dedup_run(rr, run_size, n_groups, n_values,
                                         partial_cap, dev)
@@ -181,7 +181,7 @@ def count_distinct_big(n: int, n_groups: int = 1 << 20,
         m_host = np.array(torch.stack(m_counts).tolist())   # fence A
     overflow = bool((m_host > partial_cap).any())
     t1 = _fence(dev)
-    with marker("bigdistinct phase B: combine"):
+    with span("bigdistinct phase B: combine"):
         klo, v, occ = (torch.cat([p[i] for p in parts]) for i in range(3))
         del parts
         checks, planes = _combine(klo, v, occ, n, n_groups, n_values,

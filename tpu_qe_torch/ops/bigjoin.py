@@ -48,7 +48,7 @@ from tpu_qe_torch.sort.bigsort import CHUNK, _build_seconds, _fence
 from tpu_qe_torch.sort.planes import sort_planes
 from tpu_qe_torch.table import Table
 from tpu_qe_torch.utils.checkpoint import RunState as _RunState
-from tpu_qe_torch.utils.profiling import marker
+from tpu_qe_torch.utils.profiling import span
 
 _VAL_C = _const(0xABCD1234)
 
@@ -248,7 +248,7 @@ def join_big(n_l: int, n_r: int, n_buckets: int | None = None,
     compile_s = _build_seconds(dev)
 
     t0 = _fence(dev)
-    with marker("bigjoin phase A: side sorts"):
+    with span("bigjoin phase A: side sorts"):
         llo, lhi, lidx = _make_sorted_side(n_l, n_r, seed, "left", dev)
         rlo, rhi = _make_sorted_side(n_r, n_r, seed, "right", dev)
     t_a = _fence(dev) - t0
@@ -281,7 +281,7 @@ def join_big(n_l: int, n_r: int, n_buckets: int | None = None,
     matched = expected = rows_l = rows_r = 0
     m_ok = v_ok = True
     collected = []
-    with marker("bigjoin phase C: bucket joins"):
+    with span("bigjoin phase C: bucket joins"):
         for b in range(n_buckets):
             if b in skip:
                 vals = [int(v) for v in state.scalars[b]]

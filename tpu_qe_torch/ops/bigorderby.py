@@ -62,7 +62,7 @@ from tpu_qe_torch.ops.bigwindow import _mix, _searchsorted_multi, _u64_bits
 from tpu_qe_torch.sort.bigsort import _build_seconds, _fence
 from tpu_qe_torch.sort.driver import signed_key
 from tpu_qe_torch.sort.planes import sort_planes
-from tpu_qe_torch.utils.profiling import marker
+from tpu_qe_torch.utils.profiling import span
 
 _A_SALT = 0x0A0A0A0A
 _B_SALT = 0x1B1B1B1B
@@ -195,13 +195,13 @@ def order_by_big(n: int, a_card: int | None = None,
     compile_s = _build_seconds(dev)
 
     t0 = _fence(dev)
-    with marker("bigorderby phase A: sorted runs"):
+    with span("bigorderby phase A: sorted runs"):
         runs = [_make_run(r, run_size, a_card, seed, dev)
                 for r in range(n_runs)]
     t_a = _fence(dev) - t0
 
     t0 = _fence(dev)
-    with marker("bigorderby phase B: plan"):
+    with span("bigorderby phase B: plan"):
         bounds = _plan(runs, n_buckets, samples_per_run).cpu().numpy()
     t_b = _fence(dev) - t0
     starts = np.concatenate([np.zeros((n_runs, 1), np.int64), bounds],
@@ -216,7 +216,7 @@ def order_by_big(n: int, a_card: int | None = None,
     # left out on the host below (it has no predecessor)
     carry = torch.zeros(N_CARRY, dtype=torch.int64, device=dev)
     outs, collected = [], []
-    with marker("bigorderby phase C: buckets"):
+    with span("bigorderby phase C: buckets"):
         for b in range(n_buckets):
             cols = [torch.cat([run[c][starts[r, b]:ends[r, b]]
                                for r, run in enumerate(runs)])

@@ -46,7 +46,7 @@ from tpu_qe_torch.ops.join import join_outer_padded
 from tpu_qe_torch.sort.bigsort import _build_seconds, _fence
 from tpu_qe_torch.table import Table
 from tpu_qe_torch.utils.checkpoint import RunState as _RunState
-from tpu_qe_torch.utils.profiling import marker
+from tpu_qe_torch.utils.profiling import span
 
 _VAL_C = 0x07E12B5  # outer-join value salt
 
@@ -239,7 +239,7 @@ def join_big_outer(n_l: int, n_r: int, how: str = "full",
     compile_s = _build_seconds(dev)
 
     t0 = _fence(dev)
-    with marker("bigouter phase A: side sorts"):
+    with span("bigouter phase A: side sorts"):
         llo, lhi, lidx = _make_sorted_side(n_l, n_r, seed, "left", dev)
         rlo, rhi, ridx = _make_sorted_side(n_r, n_r, seed, "right", dev)
     t_a = _fence(dev) - t0
@@ -271,7 +271,7 @@ def join_big_outer(n_l: int, n_r: int, how: str = "full",
     collected = []
     matched = num_out = n_ro = rows_l = rows_r = expected = ovf = 0
     m_ok = v_ok = ro_ok = True
-    with marker("bigouter phase C: bucket joins"):
+    with span("bigouter phase C: bucket joins"):
         for b in range(n_buckets):
             if b in skip:
                 vals = [int(v) for v in state.scalars[b]]

@@ -31,7 +31,7 @@ from tpu_qe_torch.ops.bigagg import _combine, _const, _cut, _host_table, \
     _ONES
 from tpu_qe_torch.ops.bigjoin import join_big
 from tpu_qe_torch.sort.bigsort import _fence
-from tpu_qe_torch.utils.profiling import marker
+from tpu_qe_torch.utils.profiling import span
 
 _GSALT = 0x7F4A7C15
 
@@ -106,7 +106,7 @@ def join_aggregate_big(n_l: int, n_r: int, n_groups: int = 1 << 16,
                     verbose=verbose, consume=consume, device=device)
     dev = partials[0][0].device
     t1 = _fence(dev)
-    with marker("bigpipe combine"):
+    with span("bigpipe combine"):
         scal, planes = _combine(tuple(partials), collect, minmax=False)
     t_combine = _fence(dev) - t1
     ng, total_cnt, _, _, ks, _ = scal

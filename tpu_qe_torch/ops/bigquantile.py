@@ -50,7 +50,7 @@ from tpu_qe_torch.ops.quantile import canon_qs, cont_rank, disc_rank
 from tpu_qe_torch.sort.bigsort import _build_seconds, _fence
 from tpu_qe_torch.sort.driver import signed_key
 from tpu_qe_torch.sort.planes import sort_planes
-from tpu_qe_torch.utils.profiling import marker
+from tpu_qe_torch.utils.profiling import span
 
 _INT64_MIN = torch.iinfo(torch.int64).min     # bit 63; also the sign flip
 
@@ -132,14 +132,14 @@ def quantile_big(n: int, qs, run_size: int = 1 << 26, seed: int = 7,
 
     t0 = _fence(dev)
     runs = torch.empty((n_runs, run_size), dtype=torch.int64, device=dev)
-    with marker("bigquantile phase A: sorted runs"):
+    with span("bigquantile phase A: sorted runs"):
         for r in range(n_runs):
             slo, shi = _make_sorted_run_keys(r, run_size, seed, key_bits,
                                              dev)
             runs[r] = signed_key(slo, shi)
             del slo, shi
     t1 = _fence(dev)
-    with marker("bigquantile phase S: bit rounds"):
+    with span("bigquantile phase S: bit rounds"):
         p, cert, cnt_lt, cnt_le = _select_from_runs(runs, ranks)
         out = torch.cat([p, cnt_lt, cnt_le, cert.view(1).to(torch.int64)]
                         ).cpu().numpy()

@@ -38,7 +38,7 @@ from tpu_qe_torch.ops.filter import stable_partition
 from tpu_qe_torch.ops.setops import _OPS, _qualifies
 from tpu_qe_torch.sort.bigsort import _build_seconds, _fence
 from tpu_qe_torch.sort.planes import sort_planes
-from tpu_qe_torch.utils.profiling import marker
+from tpu_qe_torch.utils.profiling import span
 
 
 def keys_of_index(idx: torch.Tensor, n_groups: int, offset: int):
@@ -181,7 +181,7 @@ def set_op_big(op: str, n_a: int, n_b: int, g_a: int = 1 << 20,
 
     t0 = _fence(dev)
     parts, sides, m_counts, cap_of = [], [], [], []
-    with marker("bigsetops phase A: run dedup"):
+    with span("bigsetops phase A: run dedup"):
         for s, runs, g, off in ((0, runs_a, g_a, 0),
                                 (1, runs_b, g_b, offset)):
             for rr in range(runs):
@@ -195,7 +195,7 @@ def set_op_big(op: str, n_a: int, n_b: int, g_a: int = 1 << 20,
         m_host = np.array(torch.stack(m_counts).tolist())   # fence A
     overflow = bool((m_host > np.array(cap_of)).any())
     t1 = _fence(dev)
-    with marker("bigsetops phase B: combine"):
+    with span("bigsetops phase B: combine"):
         klo = torch.cat([p[0] for p in parts])
         side = torch.cat(sides)
         occ = torch.cat([p[1] for p in parts])

@@ -29,7 +29,7 @@ from tpu_qe_torch.config import resolve_device
 from tpu_qe_torch.hashing import keygen_hash
 from tpu_qe_torch.sort.bigsort import _build_seconds, _fence
 from tpu_qe_torch.sort.planes import sort_planes
-from tpu_qe_torch.utils.profiling import marker
+from tpu_qe_torch.utils.profiling import span
 
 
 def _run_topk(r: int, run_size: int, k: int, seed: int, largest: bool,
@@ -114,13 +114,13 @@ def top_k_big(n: int, k: int, run_size: int = 1 << 26, seed: int = 7,
     compile_s = _build_seconds(dev)
 
     t0 = _fence(dev)
-    with marker("bigtopk phase A: run selection"):
+    with span("bigtopk phase A: run selection"):
         parts = [_run_topk(r, run_size, k, seed, largest, dev)
                  for r in range(n_runs)]
     t_a = _fence(dev) - t0
 
     t1 = _fence(dev)
-    with marker("bigtopk phase B: combine"):
+    with span("bigtopk phase B: combine"):
         out = _combine_topk(parts, k, seed, largest)
         h_ok, o_ok, d_ok = torch.stack(out[3:]).tolist()
     t_b = _fence(dev) - t1

@@ -69,7 +69,7 @@ from tpu_qe_torch.sort.driver import signed_key
 from tpu_qe_torch.sort.planes import sort_planes
 from tpu_qe_torch.table import from_plane
 from tpu_qe_torch.utils.checkpoint import RunState
-from tpu_qe_torch.utils.profiling import marker
+from tpu_qe_torch.utils.profiling import span
 
 _O_SALT = 0x6F726472
 _V_SALT = 0x76616C75
@@ -332,7 +332,7 @@ def window_big(n: int, partitions: int | None = None,
     compile_s = _build_seconds(dev)
 
     t0 = _fence(dev)
-    with marker("bigwindow phase A: sorted runs"):
+    with span("bigwindow phase A: sorted runs"):
         runs = [_make_run(r, run_size, partitions, seed, dev)
                 for r in range(n_runs)]
     t_a = _fence(dev) - t0
@@ -342,7 +342,7 @@ def window_big(n: int, partitions: int | None = None,
         t_b = 0.0
     else:
         t0 = _fence(dev)
-        with marker("bigwindow phase B: plan"):
+        with span("bigwindow phase B: plan"):
             bounds = _plan(runs, n_buckets, samples_per_run)[2].cpu(
             ).numpy().astype(np.int32)
         t_b = _fence(dev) - t0
@@ -374,7 +374,7 @@ def window_big(n: int, partitions: int | None = None,
                 print(f"bigwindow: resuming — {start_b}/{n_buckets} "
                       "buckets replayed from checkpoint")
     pending = {}
-    with marker("bigwindow phase C: buckets"):
+    with span("bigwindow phase C: buckets"):
         for b in range(start_b, n_buckets):
             lo, hi, o, idx, v = (torch.cat([
                 run[c][starts[r, b]:ends[r, b]]

@@ -42,7 +42,7 @@ from tpu_qe_torch.ops.bigagg import (_ONES, BigAggResult, _aggregate_rows,
                                      _verify_and_emit)
 from tpu_qe_torch.sort.bigsort import _build_seconds, _fence
 from tpu_qe_torch.sort.dbigsort import run_index
-from tpu_qe_torch.utils.profiling import marker
+from tpu_qe_torch.utils.profiling import span
 
 # the merged planes' identities: key all ones, count and sums 0, min all
 # ones, max 0 (klo, khi, cnt, slo, shi[, min, max])
@@ -134,7 +134,7 @@ def aggregate_big_distributed(n: int, mesh, n_groups: int = 1 << 20,
 
     t0 = _fence(dev)
     parts, resumed = [], 0
-    with marker("dbigagg phase A: partial runs"):
+    with span("dbigagg phase A: partial runs"):
         if checkpoint_dir is None:
             parts = [_runs(mesh, n_local, r, run_size, n_groups, seed,
                            partial_cap, minmax) for r in range(n_runs)]
@@ -164,7 +164,7 @@ def aggregate_big_distributed(n: int, mesh, n_groups: int = 1 << 20,
     t_a = _fence(dev) - t0
 
     t1 = _fence(dev)
-    with marker("dbigagg phase B: combine"):
+    with span("dbigagg phase B: combine"):
         tables = [[tuple(c[i] for c in p) for p in parts]
                   for i in range(len(ranks))]
         del parts

@@ -47,7 +47,7 @@ from tpu_qe_torch.ops.filter import stable_partition
 from tpu_qe_torch.sort.bigsort import _build_seconds, _fence
 from tpu_qe_torch.sort.dbigsort import run_index
 from tpu_qe_torch.sort.planes import sort_planes
-from tpu_qe_torch.utils.profiling import marker
+from tpu_qe_torch.utils.profiling import span
 
 
 def cap128(x: int, hard: int) -> int:
@@ -236,14 +236,14 @@ def count_distinct_big_distributed(n: int, mesh, n_groups: int = 1 << 16,
     _build_seconds(dev)             # the kernels' build stays untimed
 
     t0 = _fence(dev)
-    with marker("dbigdistinct phase A: run dedup"):
+    with span("dbigdistinct phase A: run dedup"):
         parts = [_dedup_runs(mesh, n_local, rr, run_size, n_groups,
                              n_values, partial_cap) for rr in range(n_runs)]
         m_run = torch.stack([p[3] for p in parts])
         m_run_host = mesh.collect(m_run.T.contiguous()).cpu().numpy()
     ovf_run = bool((m_run_host > partial_cap).any())
     t1 = _fence(dev)
-    with marker("dbigdistinct phase L: local merge"):
+    with span("dbigdistinct phase L: local merge"):
         cols = [torch.cat([p[c] for p in parts], 1) for c in range(3)]
         del parts
         loc = [_local_combine(cols[0][i], cols[1][i], cols[2][i], local_cap,
@@ -254,7 +254,7 @@ def count_distinct_big_distributed(n: int, mesh, n_groups: int = 1 << 16,
         m_loc_host = mesh.collect(m_loc).cpu().numpy()
     ovf_l = bool((m_loc_host > local_cap).any())
     t2 = _fence(dev)
-    with marker("dbigdistinct phase R: route + count"):
+    with span("dbigdistinct phase R: route + count"):
         checks, g_total, ovf_x, pairs, tables = _route_count(
             mesh, dk, dv, do, m_loc, samples_per_dev=samples_per_dev,
             capacity=capacity, n=n, n_groups=n_groups, n_values=n_values,

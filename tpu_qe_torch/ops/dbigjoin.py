@@ -59,7 +59,7 @@ from tpu_qe_torch.sort.dbigsort import (bucket_cols, exchange_runs,
                                         quantize, run_index, segment_plan,
                                         sort_shards)
 from tpu_qe_torch.sort.planes import sort_planes
-from tpu_qe_torch.utils.profiling import marker
+from tpu_qe_torch.utils.profiling import span
 
 _PART_FILLS = (_ONES, _ONES, 0, 0, 0)   # a bigagg partial table's pads
 
@@ -202,7 +202,7 @@ def join_big_distributed(n_l: int, n_r: int, mesh,
     compile_s = _build_seconds(dev)
 
     t0 = _fence(dev)
-    with marker("dbigjoin phase A: side runs"):
+    with span("dbigjoin phase A: side runs"):
         lruns = _side_runs(mesh, nl_local, n_runs_l, run_size, n_r, seed,
                            "left")
         rruns = _side_runs(mesh, nr_local, n_runs_r, run_size, n_r, seed,
@@ -219,7 +219,7 @@ def join_big_distributed(n_l: int, n_r: int, mesh,
         bounds = state.bounds.reshape(n_dev, n_runs_l + n_runs_r, S - 1)
     else:
         t0 = _fence(dev)
-        with marker("dbigjoin phase B: plan"):
+        with span("dbigjoin phase B: plan"):
             bounds = _plan(mesh, lruns + rruns, S, per_run)
         t_b = _fence(dev) - t0
         if checkpoint_dir is not None and writer:
@@ -244,7 +244,7 @@ def join_big_distributed(n_l: int, n_r: int, mesh,
               f"cap_blk_r={sides[1][4]} cap_seg_r={cs_r}")
 
     t0 = _fence(dev)
-    with marker("dbigjoin phase X: segment exchange"):
+    with span("dbigjoin phase X: segment exchange"):
         lblocks = exchange_runs(mesh, lruns, *sides[0][1:3], *sides[0][4:6],
                                 (ONES, ONES, 0))
         rblocks = exchange_runs(mesh, rruns, *sides[1][1:3], *sides[1][4:6],
@@ -268,7 +268,7 @@ def join_big_distributed(n_l: int, n_r: int, mesh,
                   "already joined")
     pending, tables = {}, []
     (pos_l, bs_l, _, seg_l), (pos_r, bs_r, _, seg_r) = (s[:4] for s in sides)
-    with marker("dbigjoin phase C: bucket joins"):
+    with span("dbigjoin phase C: bucket joins"):
         for b in range(n_b):
             if b in skip:
                 continue

@@ -47,7 +47,7 @@ from tpu_qe_torch.sort.dbigsort import (bucket_cols, exchange_runs,
                                         sort_shards)
 from tpu_qe_torch.sort.driver import signed_key
 from tpu_qe_torch.sort.planes import sort_planes
-from tpu_qe_torch.utils.profiling import marker
+from tpu_qe_torch.utils.profiling import span
 
 # scalars per shard and bucket round: s_ok, h_ok, cnt, isum_lo, isum_hi,
 # first (t1, t2, t3), last (t1, t2, t3)
@@ -152,12 +152,12 @@ def order_by_big_distributed(n: int, mesh, a_card: int | None = None,
     compile_s = _build_seconds(dev)
 
     t0 = _fence(dev)
-    with marker("dbigorderby phase A: sorted runs"):
+    with span("dbigorderby phase A: sorted runs"):
         runs = _runs(mesh, n_local, n_runs, run_size, a_card, seed)
     t_a = _fence(dev) - t0
 
     t0 = _fence(dev)
-    with marker("dbigorderby phase B: plan"):
+    with span("dbigorderby phase B: plan"):
         bounds = _plan(mesh, runs, S, per_run)
     t_b = _fence(dev) - t0
     pos, blk_start, blk_size, seg_size, cap_blk, cap_off = segment_plan(
@@ -168,7 +168,7 @@ def order_by_big_distributed(n: int, mesh, a_card: int | None = None,
               f"largest segment {int(seg_size.max())}")
 
     t0 = _fence(dev)
-    with marker("dbigorderby phase X: segment exchange"):
+    with span("dbigorderby phase X: segment exchange"):
         blocks = exchange_runs(mesh, runs, blk_start, blk_size, cap_blk,
                                cap_off, _FILLS)
     del runs
@@ -176,7 +176,7 @@ def order_by_big_distributed(n: int, mesh, a_card: int | None = None,
 
     t0 = _fence(dev)
     pending, collected = [], {}
-    with marker("dbigorderby phase C: bucket rounds"):
+    with span("dbigorderby phase C: bucket rounds"):
         for b in range(n_b):
             outs = []
             for i, t in enumerate(ranks):

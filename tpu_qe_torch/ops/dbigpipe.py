@@ -26,7 +26,7 @@ from tpu_qe_torch.ops.bigagg import _host_table
 from tpu_qe_torch.ops.dbigagg import combine_tables
 from tpu_qe_torch.ops.dbigjoin import join_big_distributed
 from tpu_qe_torch.sort.bigsort import _fence
-from tpu_qe_torch.utils.profiling import marker
+from tpu_qe_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,7 +78,7 @@ def join_aggregate_big_distributed(n_l: int, n_r: int, mesh,
     n_b = len(partials)
     local_cap = min(n_groups, n_b * partials[0][0].shape[1])
     t1 = _fence(dev)
-    with marker("dbigpipe phase D: combine"):
+    with span("dbigpipe phase D: combine"):
         tables = [[tuple(c[i] for c in p) for p in partials]
                   for i in range(partials[0][0].shape[0])]
         del partials

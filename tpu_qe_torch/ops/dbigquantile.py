@@ -35,7 +35,7 @@ from tpu_qe_torch.ops.bigquantile import (_INT64_MIN,
 from tpu_qe_torch.ops.quantile import canon_qs, disc_rank
 from tpu_qe_torch.sort.bigsort import _build_seconds, _fence
 from tpu_qe_torch.sort.driver import signed_key
-from tpu_qe_torch.utils.profiling import marker
+from tpu_qe_torch.utils.profiling import span
 
 
 def _counts(mesh, runs: torch.Tensor, cand: torch.Tensor, side: str):
@@ -107,7 +107,7 @@ def quantile_big_distributed(n: int, qs, mesh, run_size: int = 1 << 26,
     t0 = _fence(dev)
     runs = torch.empty((len(my), runs_per_dev, run_size), dtype=torch.int64,
                        device=dev)
-    with marker("dbigquantile phase A: sorted runs"):
+    with span("dbigquantile phase A: sorted runs"):
         for rr in range(runs_per_dev):
             for i, d in enumerate(my):
                 # shard d's run rr is global run d * runs_per_dev + rr
@@ -117,7 +117,7 @@ def quantile_big_distributed(n: int, qs, mesh, run_size: int = 1 << 26,
                 runs[i, rr] = signed_key(slo, shi)
                 del slo, shi
     t1 = _fence(dev)
-    with marker("dbigquantile phase S: bit rounds"):
+    with span("dbigquantile phase S: bit rounds"):
         p, cert = _select(mesh, runs, ranks)
         out = mesh.collect(torch.cat([p, cert[:, None].to(torch.int64)],
                                      1)).cpu().numpy()

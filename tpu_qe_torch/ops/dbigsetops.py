@@ -54,7 +54,7 @@ from tpu_qe_torch.ops.setops import _OPS, _qualifies
 from tpu_qe_torch.sort.bigsort import _build_seconds, _fence
 from tpu_qe_torch.sort.dbigsort import run_index
 from tpu_qe_torch.sort.planes import sort_planes
-from tpu_qe_torch.utils.profiling import marker
+from tpu_qe_torch.utils.profiling import span
 
 
 def _dedup_runs(mesh, n_local, rr, run_size, n_groups, offset, partial_cap):
@@ -213,7 +213,7 @@ def set_op_big_distributed(op: str, n_a: int, n_b: int, mesh,
 
     t0 = _fence(dev)
     parts, m_runs, caps_of = [], [], []
-    with marker("dbigsetops phase A: run dedup"):
+    with span("dbigsetops phase A: run dedup"):
         for s, n_loc, runs, g, off, cap in ((0, nla, runs_a, g_a, 0, cap_a),
                                             (1, nlb, runs_b, g_b, offset,
                                              cap_b)):
@@ -226,7 +226,7 @@ def set_op_big_distributed(op: str, n_a: int, n_b: int, mesh,
         m_run_host = mesh.collect(torch.stack(m_runs, 1)).cpu().numpy()
     ovf_run = bool((m_run_host.max(axis=0) > np.array(caps_of)).any())
     t1 = _fence(dev)
-    with marker("dbigsetops phase L: local merge"):
+    with span("dbigsetops phase L: local merge"):
         cols = [torch.cat([p[c] for p in parts], 1) for c in range(3)]
         del parts
         loc = []
@@ -240,7 +240,7 @@ def set_op_big_distributed(op: str, n_a: int, n_b: int, mesh,
         del loc
         ovf_l = bool((mesh.collect(m_loc).cpu().numpy() > local_cap).any())
     t2 = _fence(dev)
-    with marker("dbigsetops phase R: route + qualify"):
+    with span("dbigsetops phase R: route + qualify"):
         checks, num_tot, ovf_x, pairs, tables = _route_qualify(
             mesh, dk, dsd, do, m_loc, op=op, samples_per_dev=samples_per_dev,
             capacity=capacity, n_a=n_a, g_a=g_a, n_b=n_b, g_b=g_b,

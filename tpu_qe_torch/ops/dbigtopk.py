@@ -35,7 +35,7 @@ from tpu_qe_torch.ops.bigtopk import (BigTopKResult, _sorted_head,
                                       _verify_winners)
 from tpu_qe_torch.sort.bigsort import _build_seconds, _fence
 from tpu_qe_torch.sort.dbigsort import run_index
-from tpu_qe_torch.utils.profiling import marker
+from tpu_qe_torch.utils.profiling import span
 
 
 def _run_heads(mesh, n_local, r, run_size, k, seed, largest):
@@ -82,13 +82,13 @@ def top_k_big_distributed(n: int, k: int, mesh, run_size: int = 1 << 26,
     compile_s = _build_seconds(dev)
 
     t0 = _fence(dev)
-    with marker("dbigtopk phase A: run selection"):
+    with span("dbigtopk phase A: run selection"):
         parts = [_run_heads(mesh, n_local, r, run_size, k, seed, largest)
                  for r in range(n_runs)]
     t_a = _fence(dev) - t0
 
     t1 = _fence(dev)
-    with marker("dbigtopk phase B: combine"):
+    with span("dbigtopk phase B: combine"):
         lo, hi, pay = (torch.cat([p[c] for p in parts], 1) for c in range(3))
         del parts
         local = [_sorted_head(lo[i], hi[i], pay[i], k)

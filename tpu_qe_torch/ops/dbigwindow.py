@@ -55,7 +55,7 @@ from tpu_qe_torch.sort.dbigsort import (bucket_cols, exchange_runs,
                                         sort_shards)
 from tpu_qe_torch.sort.driver import signed_key
 from tpu_qe_torch.sort.planes import sort_planes
-from tpu_qe_torch.utils.profiling import marker
+from tpu_qe_torch.utils.profiling import span
 
 _FILLS = (ONES,) * 4 + (0,)
 _I64_MIN, _I64_MAX = torch.iinfo(torch.int64).min, torch.iinfo(
@@ -231,12 +231,12 @@ def window_big_distributed(n: int, mesh, partitions: int | None = None,
     compile_s = _build_seconds(dev)
 
     t0 = _fence(dev)
-    with marker("dbigwindow phase A: sorted runs"):
+    with span("dbigwindow phase A: sorted runs"):
         runs = _runs(mesh, n_local, n_runs, run_size, partitions, seed)
     t_a = _fence(dev) - t0
 
     t0 = _fence(dev)
-    with marker("dbigwindow phase B: plan"):
+    with span("dbigwindow phase B: plan"):
         bounds = _plan(mesh, runs, S, per_run)
     t_b = _fence(dev) - t0
     pos, blk_start, blk_size, seg_size, cap_blk, cap_off = segment_plan(
@@ -247,14 +247,14 @@ def window_big_distributed(n: int, mesh, partitions: int | None = None,
               f"largest segment {int(seg_size.max())}")
 
     t0 = _fence(dev)
-    with marker("dbigwindow phase X: segment exchange"):
+    with span("dbigwindow phase X: segment exchange"):
         blocks = exchange_runs(mesh, runs, blk_start, blk_size, cap_blk,
                                cap_off, _FILLS)
     del runs
     t_x = _fence(dev) - t0
 
     t0 = _fence(dev)
-    with marker("dbigwindow phase P: shard carries"):
+    with span("dbigwindow phase P: shard carries"):
         # sizes[i, r, s]: rows local shard i received from shard s's run r
         sizes = torch.from_numpy(np.ascontiguousarray(
             blk_size[:, :, ranks].transpose(2, 1, 0))).to(dev)
@@ -267,7 +267,7 @@ def window_big_distributed(n: int, mesh, partitions: int | None = None,
 
     t0 = _fence(dev)
     pending, collected = [], {}
-    with marker("dbigwindow phase C: bucket rounds"):
+    with span("dbigwindow phase C: bucket rounds"):
         for b in range(n_b):
             outs = []
             for i, t in enumerate(ranks):

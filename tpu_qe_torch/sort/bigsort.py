@@ -58,7 +58,7 @@ from tpu_qe_torch.hashing import keygen_hash, murmur_fmix32, \
 from tpu_qe_torch.ops.join import searchsorted_u64
 from tpu_qe_torch.sort.planes import sort_planes
 from tpu_qe_torch.utils.checkpoint import RunState
-from tpu_qe_torch.utils.profiling import marker
+from tpu_qe_torch.utils.profiling import span
 
 # rows generated or certified per step: bounds the int64 temporaries of the
 # hash arithmetic (8 B a row each)
@@ -322,7 +322,7 @@ def sort_big(n: int, run_size: int = 1 << 26, n_buckets: int | None = None,
         t_b = _fence(dev) - t0
     t0 = _fence(dev)
     runs, bound_devs = [], []
-    with marker("bigsort phase A: run formation"):
+    with span("bigsort phase A: run formation"):
         for r in range(n_runs):
             if strategy == "partition":
                 run, bounds = _bucketed_run(r, sp, run_size, seed,
@@ -378,7 +378,7 @@ def sort_big(n: int, run_size: int = 1 << 26, n_buckets: int | None = None,
     # each bucket's scalars are read back (and checkpointed) as soon as it
     # is merged, so a run killed at any point keeps every finished bucket
     collected = []
-    with marker("bigsort phase C: bucket merges"):
+    with span("bigsort phase C: bucket merges"):
         for b in range(n_buckets):
             if b in skip:
                 continue

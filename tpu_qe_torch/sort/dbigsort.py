@@ -54,7 +54,7 @@ from tpu_qe_torch.sort.bigsort import (BigSortResult, _build_seconds,
                                        _certify, _fence, _rows, _want_sums)
 from tpu_qe_torch.sort.planes import sort_planes
 from tpu_qe_torch.utils.checkpoint import RunState
-from tpu_qe_torch.utils.profiling import marker
+from tpu_qe_torch.utils.profiling import span
 
 N_SCALARS = RunState.N_SCALARS
 
@@ -333,7 +333,7 @@ def sort_big_distributed(n: int, mesh, run_size: int = 1 << 26,
     compile_s = _build_seconds(dev)
 
     t0 = _fence(dev)
-    with marker("dbigsort phase A: runs"):
+    with span("dbigsort phase A: runs"):
         runs = _form_runs(mesh, n_local, n_runs, run_size, seed, key_bits,
                           payload_cols, dev)
     t_a = _fence(dev) - t0
@@ -345,7 +345,7 @@ def sort_big_distributed(n: int, mesh, run_size: int = 1 << 26,
         bounds = state.bounds.reshape(n_dev, n_runs, S - 1)
     else:
         t0 = _fence(dev)
-        with marker("dbigsort phase B: plan"):
+        with span("dbigsort phase B: plan"):
             bounds = _plan(mesh, runs, S, per_run)
         t_b = _fence(dev) - t0
         if checkpoint_dir is not None and writer:
@@ -360,7 +360,7 @@ def sort_big_distributed(n: int, mesh, run_size: int = 1 << 26,
 
     t0 = _fence(dev)
     ranks = mesh.ranks().tolist()
-    with marker("dbigsort phase X: segment exchange"):
+    with span("dbigsort phase X: segment exchange"):
         blocks = exchange_runs(mesh, runs, blk_start, blk_size, cap_blk,
                                cap_off, (ONES, ONES) + (0,) * payload_cols)
     del runs
@@ -378,7 +378,7 @@ def sort_big_distributed(n: int, mesh, run_size: int = 1 << 26,
             print(f"dbigsort: resuming — {len(skip)}/{n_b} bucket rounds "
                   "already merged")
     collected = {}
-    with marker("dbigsort phase C: bucket merges"):
+    with span("dbigsort phase C: bucket merges"):
         for b in range(n_b):
             if b in skip:
                 continue

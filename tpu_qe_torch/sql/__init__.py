@@ -1,7 +1,8 @@
 """SQL front end of the port: the parser (parser.py, a byte-identical
 copy of tpu_qe/sql/parser.py, so both packages keep one grammar) and the
 in-core executor over the device operators (executor.py) and the
-out-of-core executor over virtual tables (bigexec.py).
+out-of-core executor over virtual tables (bigexec.py); the tiers share
+what a grouped answer means on the host (grouped.py).
 
     from tpu_qe_torch.sql import Database
     db = Database()                      # the card; Database("cpu") too

@@ -78,13 +78,15 @@ from tpu_qe_torch.sort.driver import signed_key
 from tpu_qe_torch.sort.planes import sort_planes
 from tpu_qe_torch.sql import parser as P
 from tpu_qe_torch.sql.executor import (TV, Database, Frame, SqlError,
-                                       _RowEnv, _calls, _column, _eval,
+                                       _RowEnv, _column, _eval,
                                        _frame_order_limit, _head_np,
                                        _lag_args, _lift64_np, _lift_key,
-                                       _materialize, _np_binop, _plane,
-                                       _sortable, _tag_of, _u32_flag,
-                                       _unlift64_np, _unlift_key,
-                                       _window_kind, _AGG_FUNCS, _PCT_FUNCS)
+                                       _materialize, _plane, _sortable,
+                                       _tag_of, _u32_flag, _unlift64_np,
+                                       _unlift_key, _window_kind)
+from tpu_qe_torch.sql.grouped import (GroupFrame, _AGG_FUNCS, _auto_name,
+                                      _calls, aggregate_calls,
+                                      expr_aliases, plan_aggregates)
 from tpu_qe_torch.table import Table, column_to_numpy, from_plane
 
 _COLUMN_DTYPES = (torch.uint32, torch.int32, torch.float32)
@@ -650,9 +652,7 @@ def _group_key_exprs(vt: VirtualTable, sel: P.Select,
     sqlite-style) to (exprs, output names, tags). 0 entries = global
     aggregation (one group); 2 entries pack into one U64 (hi = the first
     column's sortable bits) like the in-core executor."""
-    aliases = {it.alias: it.expr for it in sel.items
-               if it.expr != "*" and it.alias
-               and not _calls(it.expr, window=False)}
+    aliases = expr_aliases(sel)
     penv = _probe_rowenv(vt, prep)
     exprs, names, tags = [], [], []
     for c in sel.group_by:
@@ -890,88 +890,24 @@ def _agg_big(vt: VirtualTable, q: P.Query, run_size: int,
     prep, every run joins its generated fact rows before grouping (the
     fused join -> GROUP BY of ops/bigpipe: the joined stream never
     materializes)."""
-    from tpu_qe_torch.ops.quantile import canon_qs
     sel = q.selects[0]
     gexprs, gnames, gtags = _group_key_exprs(vt, sel, prep)
-    penv = _probe_rowenv(vt, prep)
-
-    # collect aggregate calls (select items + HAVING)
-    aggcalls = []
-    for it in sel.items:
-        if it.expr == "*":
-            raise SqlError("SELECT * needs LIMIT over a big table "
-                           "(row-scale readback) — aggregate queries "
-                           "must name their outputs")
-        aggcalls += _calls(it.expr, window=False)
-    if sel.having is not None:
-        aggcalls += _calls(sel.having, window=False)
-
-    value_exprs: dict[str, object] = {}
-    expr_names: dict[str, str] = {}
-    pct_specs: dict[tuple, list] = {}     # (vname, kind) -> [(num, sh)]
-    pct_of: dict[int, tuple] = {}
-    cd_specs: list[str] = []              # COUNT(DISTINCT) value names
-    cd_of: dict[int, str] = {}
-
-    def _value_of(arg) -> str:
-        if isinstance(arg, P.Col):
-            return penv.resolve(arg)    # fact or joined dim column
-        rep = repr(arg)
-        if rep in expr_names:
-            return expr_names[rep]
-        if _calls(arg, window=False) or _calls(arg, window=True):
-            raise SqlError("nested calls inside aggregate arguments")
-        nm = f"__e{len(expr_names)}"
-        expr_names[rep] = nm
-        value_exprs[nm] = arg
-        return nm
-
-    aggspec: dict[str, tuple] = {}
-    for c in aggcalls:
-        if c.func in _PCT_FUNCS:
-            if c.func == "median":
-                if len(c.args) != 1 or c.within_order is not None:
-                    raise SqlError("MEDIAN takes one column or "
-                                   "expression")
-                vn, kind, qq = _value_of(c.args[0]), "disc", (1, 1)
-            else:
-                if c.within_order is None:
-                    raise SqlError(f"{c.func} needs WITHIN GROUP "
-                                   "(ORDER BY col)")
-                kind = ("disc" if c.func == "percentile_disc"
-                        else "cont")
-                vn = _value_of(c.within_order)
-                (qq,) = canon_qs([float(c.args[0].value)])
-            qlist = pct_specs.setdefault((vn, kind), [])
-            if qq not in qlist:
-                qlist.append(qq)
-            pct_of[id(c)] = (vn, kind, qlist.index(qq))
+    if any(it.expr == "*" for it in sel.items):
+        raise SqlError("SELECT * needs LIMIT over a big table "
+                       "(row-scale readback) — aggregate queries "
+                       "must name their outputs")
+    calls = aggregate_calls(sel)
+    for c in calls:
+        if c.func not in _AGG_FUNCS or c.func == "count" and not c.distinct:
             continue
-        if c.func not in _AGG_FUNCS or c.window is not None:
-            raise SqlError(f"unknown aggregate {c.func}")
-        if c.distinct:
-            if c.func != "count":
-                raise SqlError(f"{c.func}(DISTINCT) is not supported "
-                               "(only COUNT)")
-            vn = _value_of(c.args[0])
-            if vn not in cd_specs:
-                cd_specs.append(vn)
-            cd_of[id(c)] = vn
-            continue
-        if c.func == "count":
-            continue
-        if len(c.args) != 1:
+        if c.distinct and c.func != "count":
+            raise SqlError(f"{c.func}(DISTINCT) is not supported "
+                           "(only COUNT)")
+        if not c.distinct and len(c.args) != 1:
             raise SqlError(f"{c.func} takes one argument")
-        vn = _value_of(c.args[0])
-        want = {"avg": ("sum",)}.get(c.func, (c.func,))
-        aggspec[vn] = tuple(sorted(set(aggspec.get(vn, ())) | set(want)))
-    for vn in aggspec:
-        # physical names round-trip through the env (names[phys]=phys)
-        value_exprs.setdefault(vn, P.Col(vn))
-    # count always rides (COUNT(*), AVG denominators, HAVING)
-    if aggspec:
-        first = sorted(aggspec)[0]
-        aggspec[first] = tuple(sorted(set(aggspec[first]) | {"count"}))
+    values = _ValueExprs(_probe_rowenv(vt, prep))
+    plan = plan_aggregates(calls, values)
+    aggspec = plan.aggspec
 
     n_runs = (vt.n + run_size - 1) // run_size
     if n_runs * run_size >= (1 << 32):
@@ -983,12 +919,12 @@ def _agg_big(vt: VirtualTable, q: P.Query, run_size: int,
     cap = min(max_groups, run_size)
     # only columns with an aggregate spec enter the run partials; the
     # percentile phase generates its own values
-    run_values = {vn: value_exprs[vn] for vn in aggspec}
+    run_values = {vn: values.expr(vn) for vn in aggspec}
     # static signedness of integer-sum columns, probed once
-    sum_signed = {vn: _expr_tag(vt, value_exprs[vn], prep) == "i32"
+    sum_signed = {vn: _expr_tag(vt, run_values[vn], prep) == "i32"
                   for vn in aggspec}
     if isinstance(prep, _VVPrep):
-        if pct_specs or cd_specs:
+        if plan.pct_specs or plan.distinct:
             raise SqlError(
                 "MEDIAN/PERCENTILE/COUNT(DISTINCT) over a virtual x "
                 "virtual JOIN is not supported (the bisection and "
@@ -1005,15 +941,15 @@ def _agg_big(vt: VirtualTable, q: P.Query, run_size: int,
     # percentiles: bigquantile-shaped bit rounds over resident runs
     tp = time.perf_counter()
     pct_host: dict[tuple, np.ndarray] = {}
-    for (vn, kind), qlist in pct_specs.items():
+    for (vn, kind), qlist in plan.pct_specs.items():
         pct_host.update(_big_group_quantiles(
-            vt, sel.where, gexprs, value_exprs.get(vn, P.Col(vn)),
-            vn, kind, qlist, uk, run_size, prep))
+            vt, sel.where, gexprs, values.expr(vn), vn, kind, qlist, uk,
+            run_size, prep))
     cd_host: dict[str, np.ndarray] = {}
-    for vn in cd_specs:
+    for vn in plan.distinct:
         cd_host[vn] = _big_count_distinct(
-            vt, sel.where, gexprs, value_exprs.get(vn, P.Col(vn)),
-            uk, run_size, cap, prep)
+            vt, sel.where, gexprs, values.expr(vn), uk, run_size, cap,
+            prep)
     if stats is not None:
         stats.update(runs_s=runs_s, combine_s=combine_s,
                      pct_s=time.perf_counter() - tp,
@@ -1021,62 +957,44 @@ def _agg_big(vt: VirtualTable, q: P.Query, run_size: int,
 
     # host frame: select items / HAVING over the G-bounded arrays
     gvals = _unpack_group_cols(uk, gnames, gtags)
-    if aggspec:
-        first = sorted(aggspec)[0]
-        cnt = agg_host[f"{first}_count"].astype(np.int64)
-    else:
-        cnt = agg_host["count"].astype(np.int64)
-
-    gexpr_vals = {repr(ge): gvals[gn] for ge, gn in zip(gexprs, gnames)}
-
-    def eval_g(e) -> np.ndarray:
-        # a select item may repeat an aliased group expression verbatim
-        # (SELECT v % 5 AS m ... GROUP BY m — incl. a plain column
-        # aliased into the GROUP BY, e.g. d__matched AS m)
-        if not isinstance(e, P.Lit) and repr(e) in gexpr_vals:
-            return gexpr_vals[repr(e)]
-        if isinstance(e, P.Call):
-            if e.func in _PCT_FUNCS:
-                return pct_host[pct_of[id(e)]]
-            if e.distinct:
-                return cd_host[cd_of[id(e)]]
-            if e.func == "count":
-                return cnt
-            vn = _value_of(e.args[0])
-            if e.func == "avg":
-                s = agg_host[f"{vn}_sum"].astype(np.float64)
-                return s / np.maximum(cnt.astype(np.float64), 1)
-            return agg_host[f"{vn}_{e.func}"]
-        if isinstance(e, P.Col):
-            if e.key in gvals:
-                return gvals[e.key]
-            if e.name in gvals:
-                return gvals[e.name]
-            raise SqlError(f"column {e.key!r} is not in GROUP BY")
-        if isinstance(e, P.Lit):
-            return np.asarray(e.value)
-        if isinstance(e, P.Unary):
-            v = eval_g(e.operand)
-            return ~v.astype(bool) if e.op == "not" else -v
-        if isinstance(e, P.Binary):
-            return _np_binop(e.op, eval_g(e.left), eval_g(e.right))
-        raise SqlError(f"unsupported grouped expression "
-                       f"{type(e).__name__}")
-
-    keep = np.ones(g, bool)
-    if sel.having is not None:
-        keep = np.broadcast_to(eval_g(sel.having).astype(bool), (g,))
-    cols, tags = {}, {}
-    for i, it in enumerate(sel.items):
-        # the in-core executor's auto-naming (duplicate functions get
-        # positional suffixes instead of silently colliding)
-        name = it.alias or Database._auto_name(it.expr, i)
-        v = np.broadcast_to(eval_g(it.expr), (g,))
-        cols[name] = np.asarray(v)[keep]
-        tags[name] = str(cols[name].dtype)
-    fr = _frame_order_limit(Frame(cols, tags), q.order_by, q.limit,
+    cnt = agg_host[f"{plan.count_col}_count" if aggspec
+                   else "count"].astype(np.int64)
+    frame = GroupFrame(plan, g, [(c, e, gvals[gn]) for c, e, gn
+                                 in zip(sel.group_by, gexprs, gnames)],
+                       cnt, agg_host, cd_host, pct_host)
+    fr = _frame_order_limit(Frame(*frame.select(sel)), q.order_by, q.limit,
                             q.offset)
     return dict(_materialize(fr).cols)
+
+
+class _ValueExprs:
+    """The out-of-core resolver of aggregate arguments (sql/grouped.py's
+    value_of): a plain column (fact or joined dimension) resolves through
+    the probe environment; an expression is named once and generated
+    with each run."""
+
+    def __init__(self, penv: _RowEnv):
+        self.penv = penv
+        self.names: dict[str, str] = {}      # repr(expr) -> name
+        self.exprs: dict[str, object] = {}   # name -> expression
+
+    def __call__(self, arg) -> str:
+        if isinstance(arg, P.Col):
+            return self.penv.resolve(arg)
+        rep = repr(arg)
+        if rep in self.names:
+            return self.names[rep]
+        if _calls(arg, window=False) or _calls(arg, window=True):
+            raise SqlError("nested calls inside aggregate arguments")
+        nm = f"__e{len(self.names)}"
+        self.names[rep] = nm
+        self.exprs[nm] = arg
+        return nm
+
+    def expr(self, name: str):
+        """A value column's expression; physical names round-trip
+        through the env (names[phys] = phys)."""
+        return self.exprs.get(name, P.Col(name))
 
 
 def _expr_tag(vt: VirtualTable, expr, prep: _JoinPrep | None = None
@@ -1299,7 +1217,7 @@ def _select_items(vt: VirtualTable, sel: P.Select,
                         continue
                     out.append((ref, P.Col(ref)))
         else:
-            out.append((it.alias or Database._auto_name(it.expr, i),
+            out.append((it.alias or _auto_name(it.expr, i),
                         it.expr))
     return out
 
@@ -1387,9 +1305,7 @@ def _order_exprs(vt: VirtualTable, sel: P.Select, order_by,
                  prep: _JoinPrep | None = None) -> list:
     """Resolve ORDER BY entries (columns — fact or joined dimension
     side — or select aliases) to (expr, desc) pairs."""
-    aliases = {it.alias: it.expr for it in sel.items
-               if it.expr != "*" and it.alias
-               and not _calls(it.expr, window=False)}
+    aliases = expr_aliases(sel)
     penv = _probe_rowenv(vt, prep)
     out = []
     for oi in order_by:
@@ -1616,7 +1532,7 @@ def _setop_big(vt, q: P.Query, run_size: int, max_groups: int,
             dt = np.asarray(col).dtype
         if out_name is None:
             it = sel.items[0]
-            out_name = it.alias or Database._auto_name(it.expr, 0)
+            out_name = it.alias or _auto_name(it.expr, 0)
         sides.append((uk, cnt, dt))
 
     uk, cnt, dt = sides[0]
@@ -2080,7 +1996,7 @@ def _window_big(vt: VirtualTable, q: P.Query, run_size: int,
     # emission: the first k rows of the composite order
     out = {}
     for i, it in enumerate(sel.items):
-        name = it.alias or Database._auto_name(it.expr, i)
+        name = it.alias or _auto_name(it.expr, i)
         cs = _calls(it.expr, window=True)
         if cs:
             c = cs[0]

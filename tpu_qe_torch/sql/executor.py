@@ -66,16 +66,15 @@ from tpu_qe_torch.bits import SIGN_BIT, U64, sortable_u32, widen
 from tpu_qe_torch.config import resolve_device
 from tpu_qe_torch.sort.driver import signed_key
 from tpu_qe_torch.sql import parser as P
+from tpu_qe_torch.sql.grouped import (GroupFrame, _AGG_FUNCS, _PCT_FUNCS,
+                                      _auto_name, _calls, aggregate_calls,
+                                      expr_aliases, plan_aggregates)
 from tpu_qe_torch.sql.planner import has_implicit_joins, plan_query
 from tpu_qe_torch.table import DTYPES, Table, column_to_numpy, from_plane
 from tpu_qe_torch.utils.profiling import span
 
 SqlError = P.SqlError
 
-_AGG_FUNCS = frozenset(["count", "sum", "min", "max", "avg"])
-# ordered-set aggregates: PERCENTILE_DISC/CONT(q) WITHIN GROUP
-# (ORDER BY col) + MEDIAN(col) sugar — ops/quantile.py at group scale
-_PCT_FUNCS = frozenset(["percentile_disc", "percentile_cont", "median"])
 _WINDOW_FUNCS = {
     "row_number": "row_number", "rank": "rank", "dense_rank": "dense_rank",
     "sum": "running_sum", "min": "running_min", "max": "running_max",
@@ -587,40 +586,45 @@ def _eval_binary(e: P.Binary, env: _RowEnv, n: int) -> TV:
     raise SqlError(f"unsupported operator {op!r}")
 
 
-# ---------------------------------------------------------------------------
-# AST analysis helpers
-# ---------------------------------------------------------------------------
+class _AggArgs:
+    """The in-core resolver of aggregate arguments (sql/grouped.py's
+    value_of): a plain column resolves through the row environment; an
+    expression (SUM(a*b), COUNT(DISTINCT x % 5)) evaluates once to a
+    synthetic device column."""
 
-def _walk(e):
-    yield e
-    if isinstance(e, P.Unary):
-        yield from _walk(e.operand)
-    elif isinstance(e, P.Binary):
-        yield from _walk(e.left)
-        yield from _walk(e.right)
-    elif isinstance(e, P.Between):
-        yield from _walk(e.operand)
-        yield from _walk(e.lo)
-        yield from _walk(e.hi)
-    elif isinstance(e, P.InList):
-        yield from _walk(e.operand)
-        for it in e.items:
-            yield from _walk(it)
-    elif isinstance(e, P.Case):
-        for c, v in e.whens:
-            yield from _walk(c)
-            yield from _walk(v)
-        if e.default is not None:
-            yield from _walk(e.default)
-    elif isinstance(e, P.Call):
-        for a in e.args:
-            if a != "*":
-                yield from _walk(a)
+    def __init__(self, env: _RowEnv, n: int):
+        self.env, self.n = env, n
+        self.names: dict[str, str] = {}       # repr(expr) -> name
+        self.cols: dict[str, object] = {}     # synthetic name -> column
 
+    def __call__(self, arg) -> str:
+        if isinstance(arg, P.Col):
+            return self.env.resolve(arg)
+        rep = repr(arg)
+        if rep in self.names:
+            return self.names[rep]
+        if _calls(arg, window=False) or _calls(arg, window=True):
+            raise SqlError("nested calls inside aggregate "
+                           "arguments are not supported")
+        tv = _eval_traced(arg, self.env, self.n)
+        arr = tv.arr
+        tag = tv.tag
+        if tag == "bigint":
+            raise SqlError("a u64 literal is only valid in a "
+                           "comparison against a u64 column")
+        if tag == "bool":
+            arr, tag = arr.to(torch.int32), "u32"
+        if not isinstance(arr, U64) and arr.dim() == 0:
+            arr = arr.expand(self.n)
+        nm = f"__aggexpr{len(self.names)}"
+        self.names[rep] = nm
+        self.cols[nm] = _column(arr, tag)
+        self.env.tags[nm] = tag
+        return nm
 
-def _calls(e, *, window: bool):
-    return [c for c in _walk(e)
-            if isinstance(c, P.Call) and (c.window is not None) == window]
+    def column(self, name: str):
+        return self.cols[name] if name in self.cols \
+            else self.env.table[name]
 
 
 # ---------------------------------------------------------------------------
@@ -1251,11 +1255,11 @@ class Database:
         if not sel.group_by:
             raise SqlError("distributed aggregates need GROUP BY")
         gnames = [g.name for g in sel.group_by]
-        aliases = {it.alias: it.expr for it in sel.items
-                   if it.expr != "*" and it.alias
-                   and not _calls(it.expr, window=False)}
-        for gname in gnames:
+        aliases = expr_aliases(sel)
+        gexprs = []         # the expression each group column stands for
+        for g, gname in zip(sel.group_by, gnames):
             if gname in cols:
+                gexprs.append(g)
                 continue
             if gname in aliases:
                 # aliased group expression (GROUP BY v % 5 AS m,
@@ -1267,6 +1271,7 @@ class Database:
                 tv = _eval(aliases[gname], env, table.num_rows)
                 cols[gname] = _host_value(tv, table.num_rows)
                 tags[gname] = tv.tag
+                gexprs.append(aliases[gname])
                 continue
             raise SqlError(f"unknown column {gname!r}")
         PADKEY = int(np.uint64(0xFFFFFFFFFFFFFFFF))
@@ -1302,82 +1307,43 @@ class Database:
             cols = {k: np.concatenate([v, np.zeros(n_pad, v.dtype)])
                     for k, v in cols.items()}
         calls = self._agg_calls_of(sel)
-        # plan one distributed_aggregate per value column; COUNT(*)
-        # rides any of them (or a dedicated count when none)
-        per_col: dict[str, set] = {}
-        distinct_cols = []
         for c in calls:
-            if c.func in _PCT_FUNCS:
-                continue        # collected into pct_specs below
-            if c.func not in _AGG_FUNCS:
-                raise SqlError(f"unknown aggregate {c.func}")
-            if c.distinct:
-                if c.func != "count":
-                    raise SqlError("DISTINCT only inside COUNT()")
-                distinct_cols.append(self._plain_col(c.args[0]))
-                continue
-            if c.func == "count":
-                continue
-            vn = self._plain_col(c.args[0])
+            if c.func in _AGG_FUNCS and c.distinct and c.func != "count":
+                raise SqlError("DISTINCT only inside COUNT()")
+        plan = plan_aggregates(calls, self._plain_col)
+        for vn, aggs in plan.aggspec.items():
             if tags[vn] == "u64":
                 raise SqlError("aggregates over u64 columns are not "
                                "supported")
-            want = {"avg": {"sum", "count"}}.get(c.func, {c.func})
-            per_col.setdefault(vn, set()).update(want)
-            if tags[vn] == "i32" and (per_col[vn] & {"sum", "min", "max"}
-                                      ) and (cols[vn] < 0).any():
+            if tags[vn] == "i32" and {"sum", "min", "max"} & set(aggs) \
+                    and (cols[vn] < 0).any():
                 raise SqlError(
                     "distributed SUM/MIN/MAX over int32 with negatives "
                     "is not supported (u32 bit-pattern combine); use "
                     "the local path or bias-map the column")
-        # ordered-set aggregates ride the zero-row-movement bisection
-        # (exchange/dquantile) — collect specs like the local path
-        pct_specs: dict[tuple, list] = {}
-        pct_of: dict[int, tuple] = {}
-        from tpu_qe_torch.ops.quantile import canon_qs
-        for c in calls:
-            if c.func not in _PCT_FUNCS:
-                continue
-            if c.func == "median":
-                vn, kind, q = self._plain_col(c.args[0]), "disc", (1, 1)
-            else:
-                if c.within_order is None:
-                    raise SqlError(f"{c.func} needs WITHIN GROUP "
-                                   "(ORDER BY col)")
-                kind = "disc" if c.func == "percentile_disc" else "cont"
-                vn = c.within_order.name
-                (q,) = canon_qs([float(c.args[0].value)])
-            if tags[vn] == "u64":
-                raise SqlError("percentiles over u64 columns are not "
-                               "supported distributed")
-            qlist = pct_specs.setdefault((vn, kind), [])
-            if q not in qlist:
-                qlist.append(q)
-            pct_of[id(c)] = (vn, kind, qlist.index(q))
+        if any(tags[vn] == "u64" for vn, _kind in plan.pct_specs):
+            raise SqlError("percentiles over u64 columns are not "
+                           "supported distributed")
 
+        # one distributed_aggregate per value column; the count rides
+        # the plan's count column (or a dedicated count when none)
         results: dict[int, dict] = {}
-        need_count = True
-        for vn, aggs in per_col.items():
-            aggs = set(aggs)
-            if need_count:
-                aggs.add("count")
-                need_count = False
+        for vn, aggs in plan.aggspec.items():
             res = distributed_aggregate_numpy(
-                gkey, cols[vn], mesh, aggs=tuple(sorted(aggs)),
-                capacity_factor="auto")
+                gkey, cols[vn], mesh, aggs=aggs, capacity_factor="auto")
             for k, row in res.items():
                 dst = results.setdefault(k, {})
                 for a, v in row.items():
                     dst[f"{vn}_{a}"] = v
-                    if a == "count":
-                        dst["__count"] = v
-        if need_count:
+        count_key = f"{plan.count_col}_count"
+        if not plan.aggspec:
+            count_key = "count"
             res = distributed_aggregate_numpy(
                 gkey, np.zeros(len(gkey), np.uint32), mesh,
                 aggs=("count",), capacity_factor="auto")
             for k, row in res.items():
-                results.setdefault(k, {})["__count"] = row["count"]
-        for vn in distinct_cols:
+                results.setdefault(k, {})["count"] = row["count"]
+        for vn in plan.distinct:
             if tags[vn] == "u64":
                 # dictionary-rank the u64 values to dense u32 on the
                 # host (this layer already holds host columns):
@@ -1395,11 +1361,11 @@ class Database:
                 gkey, bits, mesh, capacity_factor="auto")
             for k, v in res.items():
                 results.setdefault(k, {})[f"{vn}_count_distinct"] = v
-        if pct_specs:
+        if plan.pct_specs:
             from tpu_qe_torch.exchange.dquantile import (
                 QuantileOverflow, distributed_group_quantile_cont_numpy,
                 distributed_group_quantile_numpy)
-            for (vn, kind), qlist in pct_specs.items():
+            for (vn, kind), qlist in plan.pct_specs.items():
                 fn = (distributed_group_quantile_numpy if kind == "disc"
                       else distributed_group_quantile_cont_numpy)
                 # the exact group count is already known from the
@@ -1428,71 +1394,54 @@ class Database:
         g = len(gvals)
         gcols_out = unpack_groups(gvals)
 
-        def col_of(c: P.Call) -> np.ndarray:
-            if c.func in _PCT_FUNCS:
-                vn, kind, qi = pct_of[id(c)]
-                vals = np.array([results[k][f"{vn}_{kind}_{qi}"]
-                                 for k in gvals])
-                return (vals if kind == "cont"
-                        else vals.astype(cols[vn].dtype))
-            if c.func == "count" and not c.distinct:
-                return np.array([results[k]["__count"] for k in gvals],
-                                np.int64)
-            vn = self._plain_col(c.args[0])
-            if c.distinct:
-                return np.array(
-                    [results[k][f"{vn}_count_distinct"] for k in gvals],
-                    np.int64)
-            if c.func == "avg":
-                s = np.array([results[k][f"{vn}_sum"] for k in gvals],
-                             np.float64)
-                n = np.array([results[k]["__count"] for k in gvals],
-                             np.float64)
-                return s / np.maximum(n, 1)
-            v = np.array([results[k][f"{vn}_{c.func}"] for k in gvals])
-            if c.func in ("min", "max") and tags[vn] != "u32":
-                v = _unlift64_np(v.astype(np.uint64), cols[vn].dtype) \
-                    if tags[vn] == "u64" else v.astype(cols[vn].dtype) \
-                    if tags[vn] == "f32" else v
-            return v
-
-        out, otags = {}, {}
-        for i, it in enumerate(sel.items):
-            name = it.alias or self._auto_name(it.expr, i)
-            if isinstance(it.expr, P.Col) and it.expr.name in gnames:
-                out[name] = gcols_out[it.expr.name]
-            elif it.alias is not None and it.alias in gnames:
-                out[name] = gcols_out[it.alias]   # aliased group expr
-            elif isinstance(it.expr, P.Call):
-                out[name] = col_of(it.expr)
-            else:
+        # the G-bounded group frame, replicated on the host
+        rows = [results[k] for k in gvals]
+        aggs = {}
+        for vn, specs in plan.aggspec.items():
+            for a in specs:
+                v = np.array([r[f"{vn}_{a}"] for r in rows])
+                aggs[f"{vn}_{a}"] = (v.astype(cols[vn].dtype)
+                                     if a in ("min", "max")
+                                     and tags[vn] == "f32" else v)
+        distinct = {vn: np.array([r[f"{vn}_count_distinct"] for r in rows],
+                                 np.int64) for vn in plan.distinct}
+        pct = {}
+        for (vn, kind), qlist in plan.pct_specs.items():
+            for qi in range(len(qlist)):
+                v = np.array([r[f"{vn}_{kind}_{qi}"] for r in rows])
+                pct[(vn, kind, qi)] = (v if kind == "cont"
+                                       else v.astype(cols[vn].dtype))
+        for it in sel.items:
+            if not (isinstance(it.expr, P.Call) or it.alias in gnames
+                    or isinstance(it.expr, P.Col)
+                    and it.expr.name in gnames):
                 raise SqlError("distributed aggregate items are the "
                                "group column or aggregate calls")
-            otags[name] = str(out[name].dtype)
         if sel.having is not None:
-            # HAVING on the replicated G-bounded group frame (host)
-            def eval_h(e):
-                if isinstance(e, P.Call):
-                    return col_of(e)
-                if isinstance(e, P.Col):
-                    if e.name in gnames:
-                        return gcols_out[e.name]
-                    raise SqlError(f"HAVING column {e.key!r} is not "
-                                   "a group column")
-                if isinstance(e, P.Lit):
-                    return np.asarray(e.value)
-                if isinstance(e, P.Unary):
-                    v = eval_h(e.operand)
-                    return ~v.astype(bool) if e.op == "not" else -v
-                if isinstance(e, P.Binary):
-                    return _np_binop(e.op, eval_h(e.left),
-                                     eval_h(e.right))
-                raise SqlError("unsupported HAVING expression "
-                               f"{type(e).__name__}")
-            keep = np.broadcast_to(eval_h(sel.having).astype(bool),
-                                   (g,))
-            out = {k: v[keep] for k, v in out.items()}
-        return Frame(out, otags)
+            self._check_dist_having(sel.having, gnames)
+        frame = GroupFrame(
+            plan, g, [(c, e, gcols_out[c.name]) for c, e
+                      in zip(sel.group_by, gexprs)],
+            np.array([r[count_key] for r in rows], np.int64), aggs,
+            distinct, pct)
+        return Frame(*frame.select(sel))
+
+    @staticmethod
+    def _check_dist_having(e, gnames: list) -> None:
+        """The HAVING shapes the mesh= tier evaluates on its group frame:
+        aggregate calls, group columns, literals and NOT, negation and
+        binary operators over them."""
+        if isinstance(e, P.Col) and e.name not in gnames:
+            raise SqlError(f"HAVING column {e.key!r} is not "
+                           "a group column")
+        if isinstance(e, P.Unary):
+            Database._check_dist_having(e.operand, gnames)
+        elif isinstance(e, P.Binary):
+            Database._check_dist_having(e.left, gnames)
+            Database._check_dist_having(e.right, gnames)
+        elif not isinstance(e, (P.Call, P.Col, P.Lit)):
+            raise SqlError("unsupported HAVING expression "
+                           f"{type(e).__name__}")
 
     def _dist_distinct(self, sel: P.Select, mesh) -> Frame:
         """SELECT DISTINCT col[, col...] [WHERE ...]: the GROUP BY
@@ -1658,7 +1607,7 @@ class Database:
 
         out, otags = {}, {}
         for i, it in enumerate(sel.items):
-            name = it.alias or self._auto_name(it.expr, i)
+            name = it.alias or _auto_name(it.expr, i)
             if isinstance(it.expr, P.Col):
                 out[name] = _unlift64_np(gvals, lcols[lkn].dtype)
             elif isinstance(it.expr, P.Call):
@@ -1686,7 +1635,7 @@ class Database:
         for i, it in enumerate(sel.items):
             if it.expr == "*":
                 raise SqlError("SELECT * with distributed windows")
-            name = it.alias or self._auto_name(it.expr, i)
+            name = it.alias or _auto_name(it.expr, i)
             if isinstance(it.expr, P.Col):
                 plain.append((name, it.expr.name))
                 continue
@@ -1778,7 +1727,7 @@ class Database:
             values=values, capacity_factor="auto")
         out, otags = {}, {}
         for i, it in enumerate(sel.items):
-            name = it.alias or self._auto_name(it.expr, i)
+            name = it.alias or _auto_name(it.expr, i)
             if isinstance(it.expr, P.Col):
                 out[name] = cols[it.expr.name]
             else:
@@ -2038,7 +1987,7 @@ class Database:
                     cols[ref] = env.table[phys]
                     tags[ref] = env.tags[phys]
                 continue
-            name = it.alias or self._auto_name(it.expr, i)
+            name = it.alias or _auto_name(it.expr, i)
             if id(it.expr) in wcols:
                 cols[name], tags[name] = wcols[id(it.expr)]
                 continue
@@ -2170,30 +2119,19 @@ class Database:
                     out[id(c)] = (v, tagof[wname])
         return out
 
-    @staticmethod
-    def _auto_name(e, i: int) -> str:
-        if isinstance(e, P.Col):
-            return e.name
-        if isinstance(e, P.Call):
-            return f"{e.func}_{i}" if i else e.func
-        return f"col_{i}"
-
     # -- GROUP BY / aggregates --------------------------------------------
     def _grouped(self, sel: P.Select, env: _RowEnv, n: int) -> Frame:
         from tpu_qe_torch.ops.aggregate import (group_aggregate,
                                                 group_aggregate_multi)
-        from tpu_qe_torch.ops.quantile import (canon_qs, group_quantile,
+        from tpu_qe_torch.ops.quantile import (group_quantile,
                                                group_quantile_cont)
         dev = self.device
         gcols = list(sel.group_by)
         # GROUP BY may name a select-item alias of a row expression
         # (GROUP BY v % 5 AS m) — evaluate the aliased expression as the
         # group column, sqlite-style
-        aliases = {it.alias: it.expr for it in sel.items
-                   if it.expr != "*" and it.alias
-                   and not _calls(it.expr, window=False)}
-        gtvs = []
-        alias_gcols: set[str] = set()
+        aliases = expr_aliases(sel)
+        gtvs, gexprs = [], []
         for c in gcols:
             if c.table is None and c.name not in env.names \
                     and c.name in aliases:
@@ -2201,9 +2139,10 @@ class Database:
                 if not isinstance(tv.arr, U64) and tv.arr.dim() == 0:
                     tv = TV(tv.arr.expand(n), tv.tag, tv.lit_value)
                 gtvs.append(tv)
-                alias_gcols.add(c.name)
+                gexprs.append(aliases[c.name])
             else:
                 gtvs.append(env.col(c))
+                gexprs.append(c)
         # composite group key
         gid_side = None     # dense-id side planes (3+ columns)
         if not gcols:
@@ -2228,126 +2167,38 @@ class Database:
             gid, gid_side, _ng = _dense_group_ids(tuple(planes))
             gkey = U64(gid, torch.zeros_like(gid))
 
-        # collect aggregate calls from items + HAVING
-        aggcalls: list[P.Call] = []
-        for it in sel.items:
-            if it.expr != "*":
-                aggcalls += _calls(it.expr, window=False)
-        if sel.having is not None:
-            aggcalls += _calls(sel.having, window=False)
-        for c in aggcalls:
-            if (c.func not in _AGG_FUNCS and c.func not in _PCT_FUNCS) \
-                    or c.window is not None:
-                raise SqlError(f"unknown aggregate {c.func}")
-
-        # aggregate arguments: plain columns resolve directly;
-        # expressions (SUM(a*b), COUNT(DISTINCT x % 5)) evaluate to a
-        # synthetic device column once per distinct expression
-        extra_cols: dict[str, object] = {}     # synthetic name -> column
-        expr_names: dict[str, str] = {}        # repr(expr) -> name
-
-        def _value_of(arg) -> str:
-            if isinstance(arg, P.Col):
-                return env.resolve(arg)
-            rep = repr(arg)
-            if rep in expr_names:
-                return expr_names[rep]
-            if _calls(arg, window=False) or _calls(arg, window=True):
-                raise SqlError("nested calls inside aggregate "
-                               "arguments are not supported")
-            tv = _eval_traced(arg, env, n)
-            arr = tv.arr
-            tag = tv.tag
-            if tag == "bigint":
-                raise SqlError("a u64 literal is only valid in a "
-                               "comparison against a u64 column")
-            if tag == "bool":
-                arr, tag = arr.to(torch.int32), "u32"
-            if not isinstance(arr, U64) and arr.dim() == 0:
-                arr = arr.expand(n)
-            nm = f"__aggexpr{len(expr_names)}"
-            expr_names[rep] = nm
-            extra_cols[nm] = _column(arr, tag)
-            env.tags[nm] = tag
-            return nm
-
-        def _col_arr(phys: str):
-            return extra_cols[phys] if phys in extra_cols \
-                else env.table[phys]
-
-        # ordered-set aggregates: collect (value col, disc|cont, q)
-        # specs per call — executed below via ops/quantile group_*
-        pct_specs: dict[tuple, list] = {}   # (phys, kind) -> [(num,shift)]
-        pct_of: dict[int, tuple] = {}       # id(call) -> (phys, kind, qi)
-        for c in aggcalls:
-            if c.func not in _PCT_FUNCS:
-                if c.within_order is not None:
-                    raise SqlError(f"{c.func} does not take WITHIN GROUP")
+        calls = aggregate_calls(sel)
+        for c in calls:
+            if c.func not in _AGG_FUNCS:
                 continue
-            if c.func == "median":
-                if len(c.args) != 1 or c.within_order is not None:
-                    raise SqlError("MEDIAN takes one column or "
-                                   "expression")
-                phys, kind, q = _value_of(c.args[0]), "disc", (1, 1)
-            else:
-                if c.within_order is None:
-                    raise SqlError(f"{c.func} needs WITHIN GROUP "
-                                   "(ORDER BY col)")
-                if len(c.args) != 1 or not isinstance(c.args[0], P.Lit):
-                    raise SqlError(f"{c.func} takes one numeric literal")
-                kind = "disc" if c.func == "percentile_disc" else "cont"
-                phys = env.resolve(c.within_order)
-                (q,) = canon_qs([float(c.args[0].value)])
-            if env.tags[phys] == "u64":
-                raise SqlError("percentiles over u64 columns are not "
-                               "supported in SQL (use Table.quantile)")
-            qlist = pct_specs.setdefault((phys, kind), [])
-            if q not in qlist:
-                qlist.append(q)
-            pct_of[id(c)] = (phys, kind, qlist.index(q))
+            if c.within_order is not None:
+                raise SqlError(f"{c.func} does not take WITHIN GROUP")
+            if c.distinct and c.func != "count":
+                raise SqlError("DISTINCT is only supported inside "
+                               "COUNT()")
+            if c.func != "count" and len(c.args) != 1:
+                raise SqlError(f"{c.func}(...) takes one argument")
+        args = _AggArgs(env, n)
+        plan = plan_aggregates(calls, args)
+        if any(env.tags[col] == "u64" for col, _kind in plan.pct_specs):
+            raise SqlError("percentiles over u64 columns are not "
+                           "supported in SQL (use Table.quantile)")
+        if any(env.tags[col] == "u64" for col in plan.aggspec):
+            raise SqlError("aggregates over u64 columns are not "
+                           "supported")
 
         # run the multi-aggregate: values keyed by source column
-        values, aggspec = {}, {}
-        distinct_cols = []
-        for c in aggcalls:
-            if c.func in _PCT_FUNCS:
-                continue        # handled via pct_specs below
-            if c.func == "count" and (c.args == ("*",) or not c.distinct):
-                continue        # derived from the count agg below
-            if c.distinct:
-                if c.func != "count":
-                    raise SqlError("DISTINCT is only supported inside "
-                                   "COUNT()")
-                distinct_cols.append(_value_of(c.args[0]))
-                continue
-            if len(c.args) != 1:
-                raise SqlError(f"{c.func}(...) takes one argument")
-            phys = _value_of(c.args[0])
-            if env.tags[phys] == "u64":
-                raise SqlError("aggregates over u64 columns are not "
-                               "supported")
-            values[phys] = _col_arr(phys)
-            want = {"avg": ("sum",), "count": ()}.get(c.func, (c.func,))
-            aggspec[phys] = tuple(sorted(set(aggspec.get(phys, ()))
-                                         | set(want)))
-        # always compute count (COUNT(*), AVG denominators, HAVING)
-        if values:
-            first = sorted(values)[0]
-            aggspec[first] = tuple(sorted(set(aggspec[first])
-                                          | {"count"}))
-        mres = (group_aggregate_multi(gkey, values, aggspec)
+        values = {col: args.column(col) for col in plan.aggspec}
+        mres = (group_aggregate_multi(gkey, values, plan.aggspec)
                 if values else group_aggregate(gkey, aggs=("count",)))
         g = _int(mres.num_groups)
 
         # per-group frame of aggregate results (numpy, G-bounded: every
         # n-row device output is head-sliced ON THE DEVICE before the
         # readback)
+        cnt = _head_np(mres.aggs[f"{plan.count_col}_count"] if values
+                       else mres.aggs["count"], g)
         agg_np: dict[str, np.ndarray] = {}
-        if values:
-            first = sorted(values)[0]
-            cnt = _head_np(mres.aggs[f"{first}_count"], g)
-        else:
-            cnt = _head_np(mres.aggs["count"], g)
         for name, arr in (mres.aggs or {}).items():
             if isinstance(arr, U64):
                 raw = _head_np(arr, g)
@@ -2355,10 +2206,13 @@ class Database:
                 agg_np[name] = (raw.view(np.int64)
                                 if env.tags.get(src) == "i32" else raw)
             else:
-                agg_np[name] = _head_np(arr, g)
-        for phys in distinct_cols:
-            tv = _col_arr(phys)
-            if env.tags[phys] == "u64":
+                v = _head_np(arr, g)
+                agg_np[name] = (v.astype(np.float64) if name.endswith("_sum")
+                                and v.dtype == np.float32 else v)
+        distinct_np: dict[str, np.ndarray] = {}
+        for col in plan.distinct:
+            tv = args.column(col)
+            if env.tags[col] == "u64":
                 # the count_distinct agg dedups ONE u32 plane riding
                 # the (key, value) sort; dropping the hi plane would
                 # undercount pairs sharing low bits. Dense-rank the
@@ -2367,22 +2221,22 @@ class Database:
                 # exactly and fit u32 (n < 2^32)
                 bits, _s, _n2 = _dense_group_ids((tv.hi, tv.lo))
             else:
-                bits = _sortable(tv, env.tags[phys])
+                bits = _sortable(tv, env.tags[col])
             dres = group_aggregate(gkey, from_plane(bits, torch.uint32),
                                    aggs=("count_distinct",))
             dg = _int(dres.num_groups)
             assert dg == g, (dg, g)
-            agg_np[f"{phys}_count_distinct"] = _head_np(
-                dres.aggs["count_distinct"], g)
+            distinct_np[col] = _head_np(dres.aggs["count_distinct"],
+                                        g).astype(np.int64)
         # ordered-set aggregates: one group_quantile[_cont] per
         # (value column, kind) computes every requested q in one sorted
         # layout; readbacks are g-bounded device head slices
         pct_np: dict[tuple, np.ndarray] = {}
-        for (phys, kind), qlist in pct_specs.items():
-            val = _col_arr(phys)
+        for (col, kind), qlist in plan.pct_specs.items():
+            val = args.column(col)
             if n == 0:      # no group: the operators take no empty input
                 for qi in range(len(qlist)):
-                    pct_np[(phys, kind, qi)] = (
+                    pct_np[(col, kind, qi)] = (
                         _head_np(val, 0) if kind == "disc"
                         else np.zeros(0, np.float32))
                 continue
@@ -2395,7 +2249,7 @@ class Database:
             qg = _int(qr.num_groups)
             assert qg == g, (qg, g)
             for qi in range(len(qlist)):
-                pct_np[(phys, kind, qi)] = _head_np(rows[qi], g)
+                pct_np[(col, kind, qi)] = _head_np(rows[qi], g)
 
         # group-key output values
         gvals: dict[str, np.ndarray] = {}
@@ -2432,87 +2286,12 @@ class Database:
             gvals[gcols[0].key] = _unlift_key(khi, gtvs[0].tag)
             gvals[gcols[1].key] = _unlift_key(klo, gtvs[1].tag)
 
-        def agg_value(c: P.Call) -> np.ndarray:
-            if c.func in _PCT_FUNCS:
-                return pct_np[pct_of[id(c)]]
-            if c.func == "count":
-                if c.distinct:
-                    phys = _value_of(c.args[0])
-                    return agg_np[f"{phys}_count_distinct"].astype(
-                        np.int64)
-                return cnt.astype(np.int64)
-            phys = _value_of(c.args[0])
-            if c.func == "avg":
-                s = agg_np[f"{phys}_sum"].astype(np.float64)
-                return (s / np.maximum(cnt, 1)).astype(np.float64)
-            v = agg_np[f"{phys}_{c.func}"]
-            if c.func == "sum":
-                return (v.astype(np.float64) if v.dtype == np.float32
-                        else v)   # i64 stays i64, u64 stays u64
-            return v
-
-        # evaluate items / HAVING on the numpy group frame
-        def eval_grouped(e) -> np.ndarray:
-            if isinstance(e, P.Call):
-                return agg_value(e)
-            if isinstance(e, P.Col):
-                k = e.key
-                for c2, tv in zip(gcols, gtvs):
-                    if (c2.key == k or c2.name == e.name
-                            and (e.table is None)):
-                        return gvals[c2.key]
-                raise SqlError(f"column {k!r} is not in GROUP BY")
-            if isinstance(e, P.Lit):
-                return np.asarray(e.value)
-            if isinstance(e, P.Unary):
-                v = eval_grouped(e.operand)
-                return ~v.astype(bool) if e.op == "not" else -v
-            if isinstance(e, P.Binary):
-                a, b = eval_grouped(e.left), eval_grouped(e.right)
-                return _np_binop(e.op, a, b)
-            if isinstance(e, P.Case):
-                out = (eval_grouped(e.default)
-                       if e.default is not None else np.int64(0))
-                out = np.broadcast_to(out, (g,)).copy()
-                for cond, val in list(e.whens)[::-1]:
-                    m = eval_grouped(cond).astype(bool)
-                    out = np.where(m, np.broadcast_to(
-                        eval_grouped(val), (g,)), out)
-                return out
-            raise SqlError(f"unsupported grouped expression "
-                           f"{type(e).__name__}")
-
+        frame = GroupFrame(
+            plan, g, [(c, e, gvals[c.key]) for c, e in zip(gcols, gexprs)],
+            cnt.astype(np.int64), agg_np, distinct_np, pct_np)
         # the numpy group frame: HAVING and the select items
         with span("sql.finish"):
-            keep = np.ones(g, bool)
-            if sel.having is not None:
-                keep = np.broadcast_to(
-                    eval_grouped(sel.having).astype(bool), (g,))
-            cols, tags = {}, {}
-            for i, it in enumerate(sel.items):
-                if it.expr == "*":
-                    raise SqlError("SELECT * with GROUP BY is not supported")
-                name = it.alias or self._auto_name(it.expr, i)
-                # the group-key shortcut applies only when the item IS a
-                # group key: a direct column reference matching a GROUP BY
-                # column, or exactly the aliased expression the GROUP BY
-                # named. Anything else sharing the name (an aggregate
-                # aliased to the group column, an expression OVER the key)
-                # evaluates through eval_grouped.
-                is_gkey = name in gvals and (
-                    (isinstance(it.expr, P.Col) and any(
-                        c2.key == it.expr.key
-                        or (it.expr.table is None and c2.name == it.expr.name)
-                        for c2 in gcols))
-                    or (name in alias_gcols
-                        and aliases.get(name) is it.expr))
-                if is_gkey:
-                    v = gvals[name]
-                else:
-                    v = np.broadcast_to(eval_grouped(it.expr), (g,))
-                cols[name] = np.asarray(v)[keep]
-                tags[name] = str(cols[name].dtype)
-        return Frame(cols, tags)
+            return Frame(*frame.select(sel))
 
     # -- DISTINCT / set ops -------------------------------------------------
     @staticmethod
@@ -2663,30 +2442,3 @@ def _unlift64_np(v: np.ndarray, dtype) -> np.ndarray:
         return np.where(was_pos, v ^ np.uint64(1 << 63), ~v).view(
             np.float64)
     raise SqlError(f"set-op over unsupported dtype {dtype}")
-
-
-def _np_binop(op: str, a, b):
-    if op == "and":
-        return a.astype(bool) & b.astype(bool)
-    if op == "or":
-        return a.astype(bool) | b.astype(bool)
-    if op in ("=", "<>", "<", "<=", ">", ">="):
-        f = {"=": np.equal, "<>": np.not_equal, "<": np.less,
-             "<=": np.less_equal, ">": np.greater,
-             ">=": np.greater_equal}[op]
-        return f(a, b)
-    if op == "+":
-        return a + b
-    if op == "-":
-        return a - b
-    if op == "*":
-        return a * b
-    if op == "/":
-        if np.asarray(a).dtype.kind == "f" or np.asarray(b).dtype.kind \
-                == "f":
-            return a / b
-        return np.trunc(np.asarray(a, np.float64)
-                        / np.asarray(b, np.float64)).astype(np.int64)
-    if op == "%":
-        return np.fmod(np.asarray(a, np.int64), np.asarray(b, np.int64))
-    raise SqlError(f"unsupported operator {op!r}")

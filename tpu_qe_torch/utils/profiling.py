@@ -2,7 +2,7 @@
 
 ``span(name, device=None, **counts)`` names a stretch of the program's
 work, ``<layer>.<what>`` (``sql.query``, ``ops.compact``, ``sort.radix``,
-...). ``marker`` is its older name, kept for the out-of-core phases.
+...).
 
 - **Off by default.** A span then costs one check of a flag: no
   ``record_function``, no NVTX range, no record.
@@ -178,9 +178,6 @@ def span(name: str, device: torch.device | None = None, **counts):
     if not (_autograd_profiler._is_profiler_enabled or _TRACER.forced):
         return _OFF
     return Span(name, device, counts)
-
-
-marker = span
 
 
 @contextlib.contextmanager
