@@ -122,6 +122,11 @@ Run from the root of the repository on a machine with a CUDA card. Phases:
    columns, 4 groups interleaved in row order) and at 2^24 rows in 2^20
    groups: every output equal to its plain twin's, its time beside the
    twin's, its bound by bytes and a model of the sectors its gathers fetch;
+   then E3, the inner join's index (kernels/join.py), at SSB Q4.1's four
+   probes (120 M fact keys into 2,557, 40 k, 600 k and 1 M keys) and
+   Q12's (15 M orders into 60 M lines, with its emit): every output equal
+   to its plain twin's, its time beside the twin's, its bound by bytes
+   and, as a yardstick, the two torch.searchsorted calls it replaced;
 16. the out-of-core SQL tier (virtual tables, sql/bigexec.py), again with
    torch.sort, argsort and unique made to raise: `bench-bigsql` for each
    of its ten verbs (groupby, orderby, head, distinct, countdistinct,
@@ -257,6 +262,118 @@ def nvidia_smi_line() -> str:
     if out.returncode != 0:
         fail(f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip()
+
+
+# E3's shapes: (left rows, right keys, right key kind, emit). SSB Q4.1 at
+# SF 20 probes its ~120 M fact rows into each dimension; TPC-H Q12 at SF 10
+# probes 15 M orders into 60 M lineitem keys, 1 to 7 a key, and emits.
+E3_SHAPES = {
+    "ssb_date": (120_000_000, 2557, "dates", False),
+    "ssb_supplier": (120_000_000, 40_000, "dense", False),
+    "ssb_customer": (120_000_000, 600_000, "dense", False),
+    "ssb_part": (120_000_000, 1_000_000, "dense", False),
+    "q12": (15_000_000, 60_000_000, "orders", True),
+}
+
+
+def join_index_rows(dev, hbm: float, compare) -> dict:
+    """E3 at E3_SHAPES (the SSB fact keys drawn uniformly from the
+    dimension's, Q12's left every order once in key order): the probe
+    (and at q12 the emit) equal to its plain twin; the kernel's time, the
+    twin's, the bound by bytes (the probe: the left key read and
+    start and count written, 16 B a left row, and the right key read; the
+    emit: start and count read, 8 B a left row, and 8 B a slot written)
+    and, as a yardstick only, the two torch.searchsorted calls over int64
+    keys that the probe replaces (library_ms)."""
+    import numpy as np
+    import torch
+
+    from tpu_qe_torch import kernels
+    from tpu_qe_torch.bits import U64
+    from tpu_qe_torch.kernels import join as jk
+    from tpu_qe_torch.sort.driver import signed_key
+    from tpu_qe_torch.utils.timing import cuda_time
+
+    def right_keys(m, kind, gen):
+        if kind == "dates":          # yyyymmdd of the days from 1992-01-01
+            days = np.datetime64("1992-01-01") + np.arange(m)
+            ymd = days.astype(object)
+            return torch.tensor([d.year * 10000 + d.month * 100 + d.day
+                                 for d in ymd], dtype=torch.int32,
+                                device=dev), None
+        if kind == "dense":
+            return torch.arange(1, m + 1, dtype=torch.int32, device=dev), None
+        # TPC-H orderkeys (8 of each 32 used), 1 to 7 lines an order
+        orders = m // 4
+        ok = torch.arange(orders, device=dev)
+        ok = ((ok // 8) * 32 + ok % 8 + 1).to(torch.int32)
+        lines = torch.randint(1, 8, (orders,), generator=gen, device=dev)
+        keys = torch.repeat_interleave(ok, lines)[:m]
+        return keys, ok
+
+    rows = {}
+    for label, (n, m, kind, emit) in E3_SHAPES.items():
+        gen = torch.Generator(device=dev).manual_seed(24 + n + m)
+        rlo, orders = right_keys(m, kind, gen)
+        m = rlo.shape[0]
+        if orders is None:           # fact rows: uniform foreign keys
+            llo = rlo[torch.randint(0, m, (n,), generator=gen, device=dev)]
+        else:                        # every order once, in key order
+            llo = orders[:n]
+        q = U64(llo, torch.zeros_like(llo))
+        r = U64(rlo, torch.zeros_like(rlo))
+        kernels.reset_launches()
+        got = jk.join_index(q, r)
+        torch.cuda.synchronize()
+        if kernels.LAUNCHES["join_probe"] != 1:
+            fail(f"join_index launched {kernels.LAUNCHES['join_probe']} "
+                 "times, not once")
+        want = jk.join_index_plain(q, r)
+        for g, w in zip(got, want):
+            compare("join_probe", g, w)
+        total, nonunit = (int(v) for v in want.totals.tolist())
+        del got, want
+        row = {"n": n, "m": m, "num_out": total, "not_once": nonunit}
+        row["ms"] = min(cuda_time(lambda: jk.join_index(q, r), iters=10)
+                        for _ in range(2)) * 1e3
+        row["plain_ms"] = cuda_time(lambda: jk.join_index_plain(q, r),
+                                    iters=3, warmup=1) * 1e3
+        row["bound_ms"] = (16 * n + 8 * m) / hbm * 1e3
+        sr, sq = signed_key(r.lo, r.hi), signed_key(q.lo, q.hi)
+        row["library_ms"] = cuda_time(lambda: (
+            torch.searchsorted(sr, sq, side="left"),
+            torch.searchsorted(sr, sq, side="right")), iters=5) * 1e3
+        del sr, sq
+        if emit:
+            idx = jk.join_index(q, r)
+            want_idx = jk.join_index_plain(q, r)
+            li, ri = jk.join_emit(idx, total)
+            wli, wri = jk.join_emit_plain(want_idx, total)
+            compare("join_emit", li.to(torch.int64), wli)
+            compare("join_emit", ri.to(torch.int64), wri)
+            del li, ri, wli, wri
+            row["emit"] = {
+                "ms": min(cuda_time(lambda: jk.join_emit(idx, total),
+                                    iters=10) for _ in range(2)) * 1e3,
+                "plain_ms": cuda_time(
+                    lambda: jk.join_emit_plain(want_idx, total), iters=3,
+                    warmup=1) * 1e3,
+                "bound_ms": (8 * n + 8 * total) / hbm * 1e3}
+            del idx, want_idx
+        rows[label] = row
+        line = (f"      join_probe {label}: {n} left rows into {m} keys, "
+                f"{total} out, {nonunit} not matched once: equal to its "
+                f"plain twin; kernel {row['ms']:.4f} ms, plain twin "
+                f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+                f"by bytes, two torch.searchsorted {row['library_ms']:.4f} ms")
+        if emit:
+            line += (f"; emit {row['emit']['ms']:.4f} ms, plain twin "
+                     f"{row['emit']['plain_ms']:.4f} ms, bound "
+                     f"{row['emit']['bound_ms']:.4f} ms")
+        log(line)
+        del q, r, llo, rlo, orders
+        torch.cuda.empty_cache()
+    return rows
 
 
 def main() -> int:
@@ -1883,7 +2000,7 @@ def main() -> int:
         f"bit-equal to the CPU run's, floats within rtol 1e-5, sqlite3 "
         f"agrees; launches {counts} = recorded passes {planned}")
     for name in ("block_histogram", "exclusive_scan", "rank_and_scatter",
-                 "group_sums"):
+                 "group_sums", "join_probe", "join_emit"):
         launches[name] += path_launches[name]
 
     from tpu_qe_torch.kernels import groupsum as gk
@@ -1957,11 +2074,19 @@ def main() -> int:
     ms["group_sums"] = (gs_rows["q1_shape"]["ms"],
                         gs_rows["q1_shape"]["plain_ms"])
     bounds["group_sums"] = (gs_rows["q1_shape"]["bound_ms"], "bytes")
+    # E3, the inner join's index: an SSB Q4.1 query's four probes summed
+    e3_rows = join_index_rows(dev, hbm, compare)
+    ssb = [r for label, r in e3_rows.items() if label.startswith("ssb")]
+    ms["join_probe"] = (sum(r["ms"] for r in ssb),
+                        sum(r["plain_ms"] for r in ssb))
+    bounds["join_probe"] = (sum(r["bound_ms"] for r in ssb), "bytes")
+    lib_ms["join_probe"] = sum(r["library_ms"] for r in ssb)
     log(f"[15/20] SQL tier: bench.sql at 2^27 rows and FK joins at 2^24 x "
         f"2^22 equal numpy's, {len(cpu_battery)} families equal the CPU "
         f"run's and sqlite3's, no torch.sort / argsort / unique, B1-B3 "
         f"launched once per recorded pass; E2 equal to its twin at Q1's "
-        f"shape and 2^20 groups; {time.perf_counter() - t0:.1f} s")
+        f"shape and 2^20 groups; E3 equal to its twin at SSB's and Q12's "
+        f"shapes; {time.perf_counter() - t0:.1f} s")
 
     # -- 16. the out-of-core SQL tier over virtual tables: bench-bigsql's
     # ten verbs at the JAX CLI's defaults, groupby with --median and
@@ -3186,6 +3311,8 @@ def main() -> int:
         # sums are plain jnp
         ("encode_triangles", src + "morton.cu", None),
         ("group_sums", src + "groupsum.cu", None),
+        # and the join's index: the JAX package's join is plain jnp
+        ("join_probe", src + "join.cu", None),
     ]
     rows = [
         {"name": name, "route": "cuda", "source": source, "replaces": rep,
@@ -3208,12 +3335,18 @@ def main() -> int:
     rows[1]["launch_floor_ms"] = floor_ms    # under exclusive_scan's bound
     # the fused encode at 2^26 triangles (phase 6): its uniform random
     # access model beside the bound by bytes
-    rows[-2]["random_access_model_ms"] = sector_ms["encode_triangles"]
+    rows[-3]["random_access_model_ms"] = sector_ms["encode_triangles"]
     # E2 at Q1's shape (phase 15): its launches there are the SQL tier's;
     # its sector model, and the same at 2^24 rows in 2^20 groups
+    rows[-2]["launch_path"] = "the SQL tier (phase 15)"
+    rows[-2]["sector_model_ms"] = gs_rows["q1_shape"]["sector_model_ms"]
+    rows[-2]["groups_2e20"] = gs_rows["groups_2e20"]
+    # E3 (phase 15): ms, plain_ms, bound_ms and library_ms are an SSB
+    # Q4.1 query's four probes; each shape's, and q12's emit, beside them
     rows[-1]["launch_path"] = "the SQL tier (phase 15)"
-    rows[-1]["sector_model_ms"] = gs_rows["q1_shape"]["sector_model_ms"]
-    rows[-1]["groups_2e20"] = gs_rows["groups_2e20"]
+    rows[-1]["emit_launches"] = launches["join_emit"]
+    rows[-1]["max_abs_err_emit"] = err["join_emit"]
+    rows[-1]["shapes"] = e3_rows
     # B1 and B3's rank mode at 9..16-bit digits take other kernels: their
     # times and byte bounds at 11 and 16 bits, 2^24 keys
     for row in (rows[0], rows[2]):

@@ -23,6 +23,7 @@ from tpu_qe_torch.bits import U64  # noqa: E402
 from tpu_qe_torch.kernels import bitonic as bk  # noqa: E402
 from tpu_qe_torch.kernels import groupsum as gk  # noqa: E402
 from tpu_qe_torch.kernels import histogram as hk  # noqa: E402
+from tpu_qe_torch.kernels import join as jk  # noqa: E402
 from tpu_qe_torch.kernels import morton as mk  # noqa: E402
 from tpu_qe_torch.kernels import rank_mxu as rk  # noqa: E402
 from tpu_qe_torch.kernels import scan as sk  # noqa: E402
@@ -185,13 +186,17 @@ def test_each_wrapper_counts_its_launches(cuda):
     perm = torch.arange(5000, device=cuda)
     gk.segment_sums(k.lo, k.hi, None, perm, [k.lo], [False])
     gk.segment_sums_plain(k.lo, k.hi, None, perm, [k.lo], [False])
+    idx = jk.join_index(k, k)
+    jk.join_emit(idx, 5000)     # B2's scan of the counts is the emit's
+    jk.join_index_plain(k, k)
     assert kernels.LAUNCHES == {"block_histogram": 1, "exclusive_scan": 1,
                                 "block_rank_and_histogram": 1,
                                 "rank_and_scatter": 1,
                                 "encode_quantized_lut": 1, "sort_chunks": 1,
                                 "block_rank_and_histogram_mxu": 1,
                                 "encode_triangles": 1, "encode_points": 1,
-                                "group_sums": 1}
+                                "group_sums": 1, "join_probe": 1,
+                                "join_emit": 1}
 
 
 def test_kernel_limits_raise(cuda):
@@ -2224,6 +2229,152 @@ def test_q1_shaped_sql_on_the_card_takes_the_group_sums_kernel(cuda):
             torch.cuda.synchronize()
             assert kernels.LAUNCHES["group_sums"] == (
                 0 if dev == "cpu" else launches)
+        cpu, card = answers["cpu"], answers[str(cuda)]
+        assert list(cpu) == list(card)
+        for name in cpu:
+            np.testing.assert_array_equal(card[name], cpu[name],
+                                          err_msg=name)
+
+
+# E3, the inner join's index (csrc/join.cu): the probe and the emit
+# against their plain twins on the card, bit for bit
+E3_FENCE = 8192     # right keys the probe's shared-memory fence holds
+
+
+def _e3_keys(rng, kind, m):
+    """m right keys of a kind, unsorted."""
+    if kind == "dense":          # interpolation exact
+        return rng.permutation(m).astype(np.uint64) + np.uint64(1)
+    if kind == "dates":          # yyyymmdd-like, gaps between months
+        return np.array([y * 10000 + mo * 100 + d for y in range(1992, 2000)
+                         for mo in range(1, 13) for d in range(1, 32)],
+                        np.uint64)[:m]
+    if kind == "wide":           # every word of the u64 matters
+        return rng.integers(0, 1 << 64, m, dtype=np.uint64)
+    if kind == "runs":           # runs of 1 to ~200 keys, longer than a warp
+        base = rng.integers(0, 1 << 40, max(m // 50, 1), dtype=np.uint64)
+        return np.repeat(base, rng.integers(1, 200, len(base)))[:m]
+    return (rng.integers(0, 1 << 20, m).astype(np.uint64)  # clustered
+            << np.uint64(24)) | np.uint64(7)
+
+
+E3_CASES = {   # name: (left rows, right keys, kind)
+    "n1_fence": (1, 100, "dense"),
+    "odd_fence_dense": (4097, 2557, "dense"),
+    "dates_fence": (100_003, 2557, "dates"),
+    "fence_full": (65_537, E3_FENCE, "dense"),
+    "fence_plus_one": (65_537, E3_FENCE + 1, "dense"),
+    "supplier_dense": (1_000_003, 40_000, "dense"),
+    "part_dense": (1_000_003, 1_000_003, "dense"),
+    "wide_keys": (300_001, 123_457, "wide"),
+    "clustered": (300_001, 500_000, "clustered"),
+    "runs_past_a_warp": (200_003, 300_000, "runs"),
+    "runs_in_the_fence": (50_001, 5000, "runs"),
+    "empty_right": (1001, 0, "dense"),
+    "empty_left": (0, 1000, "dense"),
+}
+
+
+@pytest.mark.parametrize("case", list(E3_CASES))
+def test_join_probe_and_emit_match_their_twins(cuda, case):
+    n, m, kind = E3_CASES[case]
+    rng = np.random.default_rng(n + m)
+    rkeys = np.sort(_e3_keys(rng, kind, m))
+    lkeys = (rkeys[rng.integers(0, m, n)] if m
+             else rng.integers(0, 100, n).astype(np.uint64))
+    miss = rng.random(n) < 0.1           # and keys that match nothing
+    lkeys[miss] = rng.integers(0, 1 << 64, int(miss.sum()), dtype=np.uint64)
+    lkeys[:2] = [0, 0xFFFFFFFFFFFFFFFF][:n]
+    r = U64.from_numpy(rkeys, cuda)
+    # the left planes at offset 1 of a larger tensor: no 16-byte loads
+    for q in (U64.from_numpy(lkeys, cuda), U64(
+            *(torch.cat([p[:1], p])[1:] for p in U64.from_numpy(lkeys,
+                                                                cuda)))):
+        kernels.reset_launches()
+        got = jk.join_index(q, r)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["join_probe"] == 1
+        want = jk.join_index_plain(q, r)
+        for g, w in zip(got, want):
+            _same(g, w)
+        total = int(want.totals[0])
+        for budget in (max(total, 1), max(total // 3, 1)):
+            li, ri = jk.join_emit(got, budget)
+            wli, wri = jk.join_emit_plain(want, budget)
+            torch.cuda.synchronize()
+            k = min(total, budget)
+            _same(li[:k].to(torch.int64), wli[:k])
+            _same(ri[:k].to(torch.int64), wri[:k])
+    if kind == "runs":
+        assert int(want.count.max()) > 32
+
+
+def test_join_kernel_arguments_raise(cuda):
+    k = U64.from_numpy(np.arange(100, dtype=np.uint64), cuda)
+    kc = U64.from_numpy(np.arange(100, dtype=np.uint64), "cpu")
+    with pytest.raises(ValueError):
+        jk.join_index(k, kc)             # two devices
+    with pytest.raises(ValueError):
+        jk.join_index(U64(k.lo[::2], k.hi[::2]), k)
+    idx = jk.join_index(k, k)
+    with pytest.raises(ValueError):
+        jk.join_emit(idx, 0)
+    with pytest.raises(ValueError):
+        jk.join_emit(idx, 1 << 31)
+    with pytest.raises(ValueError):
+        jk.join_emit(idx._replace(start=idx.start.to(torch.int64)), 10)
+    kernels.reset_launches()
+    jk.join_emit(jk.join_index(kc, kc), 10)
+    assert kernels.LAUNCHES["join_probe"] == kernels.LAUNCHES["join_emit"] \
+        == 0
+
+
+def test_star_and_fanout_joins_through_sql_on_the_card(cuda):
+    # a star join whose every fact row matches one row of each dimension
+    # passes the fact columns through (one probe a join, no emit); a join
+    # with 1 to 7 right rows a left row, and unmatched rows, emits
+    from tpu_qe_torch.sql import Database
+    from tpu_qe_torch.utils import profiling
+    rng = np.random.default_rng(17)
+    n = 300_001
+    tables = {
+        "fact": {"fk1": rng.integers(1, 2558, n).astype(np.uint32),
+                 "fk2": rng.integers(1, 40_001, n).astype(np.uint32),
+                 "v": rng.integers(0, 1000, n).astype(np.uint32)},
+        "d1": {"k1": np.arange(1, 2558, dtype=np.uint32),
+               "a1": rng.integers(0, 7, 2557).astype(np.uint32)},
+        "d2": {"k2": rng.permutation(np.arange(1, 40_001, dtype=np.uint32)),
+               "a2": rng.integers(0, 5, 40_000).astype(np.uint32)},
+        "orders": {"ok": np.arange(0, 3 * 50_000, 3, dtype=np.uint32),
+                   "op": rng.integers(0, 5, 50_000).astype(np.uint32)},
+    }
+    lines = np.repeat(tables["orders"]["ok"], rng.integers(1, 8, 50_000))
+    lines = np.concatenate([lines, np.full(10, 1, np.uint32)])  # no order
+    tables["lines"] = {"lk": lines[rng.permutation(len(lines))],
+                       "q": rng.integers(1, 51, len(lines)).astype(np.uint32)}
+    star = ("SELECT a1, a2, SUM(v) AS s, COUNT(*) AS c FROM d1, d2, fact "
+            "WHERE fk1 = k1 AND fk2 = k2 AND a2 < 3 GROUP BY a1, a2 "
+            "ORDER BY a1, a2")
+    fanout = ("SELECT op, SUM(q) AS s, COUNT(*) AS c FROM orders JOIN lines "
+              "ON ok = lk GROUP BY op ORDER BY op")
+    for query, passthrough in ((star, [1, 1]), (fanout, [0])):
+        answers = {}
+        for dev in ("cpu", cuda):
+            db = Database(dev)
+            for name, cols in tables.items():
+                db.register(name, cols)
+            kernels.reset_launches()
+            with profiling.tracing():
+                answers[str(dev)] = db.sql(query)
+            torch.cuda.synchronize()
+            (rec,) = profiling.records()
+            spans = [sp["counts"] for sp in rec["spans"]
+                     if sp["name"] == "ops.join"]
+            assert [c["passthrough"] for c in spans] == passthrough
+            on_card = dev != "cpu"
+            assert kernels.LAUNCHES["join_probe"] == on_card * len(spans)
+            assert kernels.LAUNCHES["join_emit"] == on_card * (
+                len(spans) - sum(passthrough))
         cpu, card = answers["cpu"], answers[str(cuda)]
         assert list(cpu) == list(card)
         for name in cpu:

@@ -328,3 +328,126 @@ def test_joins_with_an_empty_side_follow_sql(how, empty):
               lambda a, b: jjoin.join_outer(a, b, how=how))
         with pytest.raises(IndexError):
             fn(jlt, jrt)
+
+
+# E3's plain twins (kernels/join.py) and join_inner's two steps: the index
+# and the emit against join_sorted + expand_ranges and the JAX join_inner
+
+def _e3_case(kind):
+    """(left keys, right keys, out_budget) of a small case."""
+    rng = np.random.default_rng(len(kind))
+    if kind == "empty_left":
+        return np.zeros(0, np.uint64), np.arange(50, dtype=np.uint64), 16
+    if kind == "empty_right":
+        return np.arange(40, dtype=np.uint64), np.zeros(0, np.uint64), 80
+    base = rng.permutation(300).astype(np.uint64) * np.uint64(3) + BIT31
+    if kind == "hi_keys":              # every word matters: hi != 0
+        base = rng.integers(0, 1 << 64, 300, dtype=np.uint64) | BIT31
+    if kind in ("dup", "overflow"):    # runs of up to ~8 right rows a key
+        base = base[rng.integers(0, 60, 300)]
+    lkeys = base[rng.integers(0, 300, 400)]
+    if kind != "unique":               # and left keys matching nothing
+        lkeys[::7] = rng.integers(0, 1 << 64, len(lkeys[::7]),
+                                  dtype=np.uint64) | np.uint64(1)
+    return lkeys, base, 100 if kind == "overflow" else 4000
+
+
+E3_CASES = ["unique", "dup", "unmatched", "hi_keys", "empty_left",
+            "empty_right", "overflow"]
+
+
+@pytest.mark.parametrize("kind", E3_CASES)
+def test_join_index_and_emit_match_join_sorted_and_jax(kind):
+    from tpu_qe_torch.kernels import join as jk
+    lkeys, rkeys, budget = _e3_case(kind)
+    rsorted = np.sort(rkeys)
+    q, r = U64.from_numpy(lkeys, "cpu"), U64.from_numpy(rsorted, "cpu")
+    idx = jk.join_index(q, r)
+    ranges = tjoin.join_sorted(q, r)
+    c = _np(ranges.end) - _np(ranges.start)
+    assert idx.start.dtype == idx.count.dtype == torch.int32
+    _eq(idx.start, ranges.start)
+    _eq(idx.count, c)
+    assert idx.totals.tolist() == [int(c.sum()), int((c != 1).sum())]
+    assert int(idx.num_out) == int(c.sum())
+    li, ri = jk.join_emit(idx, budget)
+    wli, wri, total, _ = tjoin.expand_ranges(ranges, budget)
+    m = min(int(total), budget)
+    _eq(li, wli, m)
+    _eq(ri, wri, m)
+
+    left = {"key": lkeys, "a": np.arange(len(lkeys), dtype=np.uint32)}
+    right = {"key": rkeys, "b": (np.arange(len(rkeys)) * 7).astype(np.int32)}
+    (lt, jlt), (rt, jrt) = _both(left), _both(right)
+    got = tjoin.join_inner(lt, rt, out_budget=budget)
+    if kind.startswith("empty"):     # the JAX join raises on an empty side
+        assert int(got.num_out) == 0 == int(got.overflow)
+        return
+    want = jjoin.join_inner(jlt, jrt, out_budget=budget)
+    assert int(got.num_out) == int(want.num_out) == int(c.sum())
+    assert int(got.overflow) == int(want.overflow) == int(c.sum() > budget)
+    _same_tables(got.table, want.table, m)
+    _eq(got.left_index, want.left_index, m)
+    _eq(got.right_index, want.right_index, m)
+    if kind == "overflow":
+        assert int(got.num_out) > budget and int(got.overflow) == 1
+
+
+@pytest.mark.parametrize("kind,passes", [
+    ("every_row_once", True),
+    ("same_count_but_0_and_2", False),   # one row 0 matches, another 2
+    ("one_row_unmatched", False),
+    ("duplicate_matches", False),
+])
+def test_join_inner_rows_passes_the_left_through_only_if_each_matched_once(
+        kind, passes):
+    rng = np.random.default_rng(9)
+    rkeys = rng.permutation(64).astype(np.uint64) << np.uint64(33)
+    lkeys = rkeys[rng.permutation(64)[:60]]          # distinct
+    if kind == "same_count_but_0_and_2":
+        rkeys = np.concatenate([rkeys, lkeys[:1]])   # row 0 matches twice
+        lkeys[1] = np.uint64(5)                      # row 1 not at all
+    elif kind == "one_row_unmatched":
+        lkeys[3] = np.uint64(5)
+    elif kind == "duplicate_matches":
+        rkeys = np.concatenate([rkeys, rkeys])
+    left = Table.from_numpy({"key": lkeys, "a": np.arange(60, dtype=np.uint32),
+                             "f": rng.standard_normal(60).astype(np.float32)},
+                            device="cpu")
+    right = Table.from_numpy({"key": rkeys,
+                              "b": np.arange(len(rkeys), dtype=np.uint32)},
+                             device="cpu")
+    probe = tjoin.join_inner_index(left, right)
+    num, nonunit = probe.index.totals.tolist()
+    assert (num == 60) == (kind in ("every_row_once",
+                                    "same_count_but_0_and_2"))
+    out, passed = tjoin.join_inner_rows(left, probe, num, nonunit)
+    assert passed == passes
+    want = tjoin.join_inner(left, right, out_budget=max(num, 1))
+    assert out.num_rows == num == int(want.num_out)
+    _same_tables(out, want.table, num)
+    for nm in ("a", "f"):     # the left table's own tensors, or copies
+        assert (out[nm].data_ptr() == left[nm].data_ptr()) == passes
+
+
+def test_join_index_and_emit_check_their_arguments_and_launch_nothing_on_cpu():
+    from tpu_qe_torch.kernels import LAUNCHES
+    from tpu_qe_torch.kernels import join as jk
+    before = dict(LAUNCHES)
+    k = U64.from_numpy(np.arange(10, dtype=np.uint64), "cpu")
+    idx = jk.join_index(k, k)
+    jk.join_emit(idx, 16)
+    assert LAUNCHES == before
+    bad = [U64(k.lo.to(torch.int64), k.hi), U64(k.lo[::2], k.hi[::2]),
+           U64(k.lo, k.hi[:5]), U64(k.lo.reshape(2, 5), k.hi.reshape(2, 5))]
+    for b in bad:
+        with pytest.raises(ValueError):
+            jk.join_index(b, k)
+        with pytest.raises(ValueError):
+            jk.join_index(k, b)
+    with pytest.raises(ValueError):
+        jk.join_emit(idx._replace(count=idx.count.to(torch.int64)), 16)
+    with pytest.raises(ValueError):
+        jk.join_emit(idx._replace(totals=idx.totals[:1]), 16)
+    with pytest.raises(ValueError):
+        jk.join_emit(idx, 0)

@@ -220,9 +220,32 @@ def test_plan_and_join_spans(dbs):
     assert plan["counts"] == {"joins": 2, "start_rows": 2000}
     t_then_s, then_r = (sp["counts"] for sp in spans["ops.join"])
     assert t_then_s == {"rows_left": 2000, "rows_right": 5,
-                        "rows_out": 2000}
+                        "rows_out": 2000, "passthrough": 1}
     assert then_r["rows_left"] == 2000 and then_r["rows_right"] == 500
     assert then_r["rows_out"] == int(got["c"].sum())
+    assert then_r["passthrough"] == 0       # r's keys repeat
+
+
+def test_star_join_passes_the_fact_columns_through_unchanged(dbs):
+    # t.g matches one s row each: the join passes t's columns through
+    from tpu_qe_torch.utils import profiling
+    db, con = dbs
+    before = {(nm, c): db._tables[nm][c].clone()
+              for nm in ("t", "s") for c in db._tables[nm].column_names}
+    q = ("SELECT t.id, t.v, z FROM t, s WHERE t.g = sg AND z > 3 "
+         "ORDER BY t.id")
+    with profiling.tracing():
+        got = db.sql(q)
+    (rec,) = profiling.records()
+    (join,) = [sp for sp in rec["spans"] if sp["name"] == "ops.join"]
+    assert join["counts"]["passthrough"] == 1
+    assert agrees(got, sqlite_rows(con, q), True) is None
+    want = db.sql("SELECT t.id, t.v, z FROM t JOIN s ON t.g = sg "
+                  "WHERE z > 3 ORDER BY t.id")
+    for c in want:
+        np.testing.assert_array_equal(got[c], want[c])
+    for (nm, c), col in before.items():
+        assert np.array_equal(db._tables[nm][c].numpy(), col.numpy()), c
 
 
 # SSB Q4.1 through the benchmark's kind at a tiny scale

@@ -174,9 +174,9 @@ def test_a_query_is_one_request_with_its_span_tree(tpch, name, query, how):
     (group,) = [s["counts"] for s in spans if s["name"] == "ops.group"]
     assert group == {"sum_cols": SUM_COLS[name], "sum_cols_kernel": 0}
     joins = [s["counts"] for s in spans if s["name"] == "ops.join"]
-    if name == "q12":       # every line finds its order
+    if name == "q12":       # every line finds its order, 1-7 to an order
         assert joins == [{"rows_left": N_ORDERS, "rows_right": n,
-                          "rows_out": n}]
+                          "rows_out": n, "passthrough": 0}]
 
 
 def test_span_names_nest_in_the_chrome_trace(tpch, tmp_path):

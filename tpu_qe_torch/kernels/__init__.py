@@ -39,6 +39,8 @@ LAUNCHES = {
     "encode_triangles": 0,
     "encode_points": 0,
     "group_sums": 0,
+    "join_probe": 0,
+    "join_emit": 0,
 }
 
 _lock = threading.Lock()
@@ -109,6 +111,10 @@ def library() -> ctypes.CDLL:
         lib.tq_group_sums.argtypes = [p, p, p, p, i, i64, p, ctypes.c_uint32,
                                       i, i64, p, p, p, p, p, p, p, p, i, p]
         lib.tq_group_sums.restype = i
+        lib.tq_join_probe.argtypes = [p, p, i64, p, p, i64, p, p, p, i, p]
+        lib.tq_join_probe.restype = i
+        lib.tq_join_emit.argtypes = [p, p, p, i64, p, i64, p, p, i, p]
+        lib.tq_join_emit.restype = i
         _lib = lib
         return lib
 

@@ -4,7 +4,9 @@ Sort + search formulations, as in the JAX package: the data sorts run
 through ``sort_planes`` (the radix kernels on the card), probes are
 ``torch.searchsorted`` over an order-preserving int64 form of the key, and
 the packed-position compaction sorts of the JAX package become stable
-partitions or scatters that give the same rows.
+partitions or scatters that give the same rows. The inner join's index
+(each left row's first match and match count) and its output slots come
+from E3 (kernels/join.py) instead, on the card.
 
 Conventions of the port: positions, counts and indices are int64 tensors
 (num_out, overflow 0-d); value columns keep their dtype.
@@ -17,6 +19,7 @@ from typing import NamedTuple
 import torch
 
 from tpu_qe_torch.bits import U64
+from tpu_qe_torch.kernels.join import JoinIndex, join_emit, join_index
 from tpu_qe_torch.ops.filter import stable_partition
 from tpu_qe_torch.ops.segscan import cummax_int64
 from tpu_qe_torch.sort.driver import signed_key
@@ -255,21 +258,58 @@ def _slots(left: Table, right_s: Table, li, ri, num_out):
     return li, ri, _merge(_take(left, li), _take(right_s, ri))
 
 
+class InnerJoinProbe(NamedTuple):
+    """join_inner's index step: the right rows sorted by key (the key
+    dropped) and the join index of every left row into them."""
+
+    right: Table
+    index: JoinIndex
+
+
+def join_inner_index(left: Table, right: Table, key: str = "key",
+                     backend: str = "radix") -> InnerJoinProbe:
+    """Sort the right side by key and probe it with every left key; the
+    exact output rows and the left rows that did not match exactly once
+    are index.totals, on the device."""
+    if not isinstance(right[key], U64):
+        raise TypeError("join key must be u64")
+    right_sorted = right.sort_by(key, backend=backend)
+    lkey = left[key]
+    return InnerJoinProbe(right_sorted.drop(key), join_index(
+        U64(lkey.lo.contiguous(), lkey.hi.contiguous()), right_sorted[key]))
+
+
+def join_inner_rows(left: Table, probe: InnerJoinProbe, num_out: int,
+                    num_nonunit: int, key: str = "key") -> tuple[Table, bool]:
+    """join_inner's materialise step for a caller that has read the
+    probe's totals: exactly num_out rows, and whether the left columns
+    passed through. Where every left row matched once the left columns
+    are the left table's own tensors (not copies: write none of them in
+    place) and the right rows are gathered by start; otherwise the slots
+    are emitted and both sides gathered. Each index is widened to int64
+    once: torch's gather would widen an int32 index again per column."""
+    lcols = left.drop(key)
+    if num_out == left.num_rows and num_nonunit == 0:
+        return Table(_merge(lcols, _take(
+            probe.right, probe.index.start.to(torch.int64)))), True
+    li, ri = (t[:num_out].to(torch.int64)
+              for t in join_emit(probe.index, max(num_out, 1)))
+    return Table(_merge(_take(lcols, li), _take(probe.right, ri))), False
+
+
 def join_inner(left: Table, right: Table, key: str = "key",
                out_budget: int | None = None,
                backend: str = "radix") -> InnerJoinResult:
     """One-to-many inner equi-join (duplicate right keys allowed) into a
     padded output of `out_budget` slots (default 2 * n_left), with the
     exact match count and an overflow flag."""
-    if not isinstance(right[key], U64):
-        raise TypeError("join key must be u64")
     if out_budget is None:
         out_budget = max(2 * left.num_rows, 16)
-    right_sorted = right.sort_by(key, backend=backend)
-    ranges = join_sorted(left[key], right_sorted[key])
-    li, ri, num_out, overflow = expand_ranges(ranges, out_budget)
-    li, ri, cols = _slots(left.drop(key), right_sorted.drop(key), li, ri,
-                          num_out)
+    probe = join_inner_index(left, right, key, backend)
+    li, ri = (t.to(torch.int64) for t in join_emit(probe.index, out_budget))
+    num_out = probe.index.num_out
+    overflow = (num_out > out_budget).to(torch.int64)
+    li, ri, cols = _slots(left.drop(key), probe.right, li, ri, num_out)
     return InnerJoinResult(Table(cols), li, ri, num_out, overflow)
 
 

@@ -4,14 +4,14 @@ on the card and held against its C++ or numpy oracle.
     python -m tpu_qe_torch.selfcheck
 
 The CPU tests reach only the kernels' plain twins; this runs the kernels
-themselves. Nine checks: B1 against the C++ histogram, B3's rank against
+themselves. Ten checks: B1 against the C++ histogram, B3's rank against
 B6's, B2 against numpy, B5 against numpy's sort, B4 against the C++ direct
 encoder, the fused encode of triangles and of points against the C++
-encoder, E2's GROUP BY counts and exact sums against numpy, the sort
-backends against the C++ LSD sort, and the flagship pipeline against the
-C++ pipeline oracle. Prints PASS or FAIL per check and
-SELFCHECK PASS or SELFCHECK FAIL; exits 1 if any check fails or there is no
-CUDA card.
+encoder, E2's GROUP BY counts and exact sums against numpy, E3's inner
+join index and slots against numpy, the sort backends against the C++ LSD
+sort, and the flagship pipeline against the C++ pipeline oracle. Prints
+PASS or FAIL per check and SELFCHECK PASS or SELFCHECK FAIL; exits 1 if
+any check fails or there is no CUDA card.
 """
 
 from __future__ import annotations
@@ -56,9 +56,10 @@ def main() -> int:
     from tpu_qe_torch.kernels.rank_mxu import block_rank_and_histogram_mxu
     from tpu_qe_torch.kernels.scan import exclusive_scan
     from tpu_qe_torch.ops.aggregate import group_aggregate_multi
+    from tpu_qe_torch.ops.join import join_inner
     from tpu_qe_torch.pipeline import build_scene_index
     from tpu_qe_torch.sort import sort_u64_numpy
-    from tpu_qe_torch.table import column_from_numpy
+    from tpu_qe_torch.table import Table, column_from_numpy
 
     dev = resolve_device("cuda")   # raises without a CUDA card
     print(f"device: {torch.cuda.get_device_name(dev)}")
@@ -152,6 +153,27 @@ def main() -> int:
         np.testing.assert_array_equal(
             res.aggs["i_sum"].to_numpy()[:g].astype(np.int64), isum)
     ok &= _check("GROUP BY counts and exact sums (E2) vs numpy", c_groupsum)
+
+    def c_join():
+        # duplicate right keys past the shared-memory fence, unmatched left
+        # keys: every slot in left order, then sorted right order
+        rkeys = rng.integers(0, 5000, 20_000).astype(np.uint64) << 20
+        lkeys = rng.integers(0, 6000, 30_001).astype(np.uint64) << 20
+        order = np.argsort(rkeys, kind="stable")
+        lo = np.searchsorted(rkeys[order], lkeys, "left")
+        c = np.searchsorted(rkeys[order], lkeys, "right") - lo
+        total = int(c.sum())
+        li = np.repeat(np.arange(len(lkeys)), c)
+        ri = lo[li] + np.arange(total) - (np.cumsum(c) - c)[li]
+        res = join_inner(
+            Table.from_numpy({"key": lkeys, "a": np.arange(
+                len(lkeys), dtype=np.uint32)}, dev),
+            Table.from_numpy({"key": rkeys, "b": np.arange(
+                len(rkeys), dtype=np.uint32)}, dev), out_budget=total)
+        assert int(res.num_out) == total and int(res.overflow) == 0
+        np.testing.assert_array_equal(_u32(res.table["a"]), li)
+        np.testing.assert_array_equal(_u32(res.table["b"]), order[ri])
+    ok &= _check("inner join index and slots (E3) vs numpy", c_join)
 
     def c_backends():
         keys = rng.integers(0, 1 << 64, 200_000, dtype=np.uint64)

@@ -8,7 +8,10 @@ executes on the Database's device through the operator families:
     row-level expressions      torch elementwise code (WHERE masks,
                                projected expressions, CASE WHEN)
     WHERE                      ops/filter.compact (stable partition)
-    JOIN (inner/left/full)     ops/join.join_inner / join_outer with the
+    JOIN (inner/left/full)     inner: ops/join.join_inner_index, one read
+                               of its exact totals, join_inner_rows (the
+                               left columns passed through where each row
+                               matched once); outer: join_outer with the
                                exact-count + overflow-retry budget
                                discipline (never silent truncation)
     FROM a, b, ... (commas)    sql/planner.py: the same inner joins, in the
@@ -1847,28 +1850,34 @@ class Database:
             # operator (dropped from the output below)
             lt = table.with_column("__sqlkey", _lift_key(ltv.arr, ltv.tag))
             rt2 = rt.with_column("__sqlkey", _lift_key(rtv.arr, rtv.tag))
-            budget = max(table.num_rows, rt.num_rows, 16)
             # the executor reads the output count, so it holds the span
             with span("ops.join", device=self.device,
                       rows_left=table.num_rows,
                       rows_right=rt.num_rows) as traced:
-                while True:
-                    # exact-count overflow-retry discipline: num_out is
-                    # exact even past the budget, so one readback decides
-                    # the rerun
-                    if j.how == "inner":
-                        res = J.join_inner(lt, rt2, key="__sqlkey",
-                                           out_budget=budget)
-                        matched = None
-                    else:
+                if j.how == "inner":
+                    # one read of the exact totals sizes the output before
+                    # any slot is written; where every left row matched
+                    # once the left columns pass through uncopied
+                    probe = J.join_inner_index(lt, rt2, key="__sqlkey")
+                    num, nonunit = _cpu(probe.index.totals).tolist()
+                    out, passthrough = J.join_inner_rows(
+                        lt, probe, num, nonunit, key="__sqlkey")
+                    valid_n, matched = num, None
+                    traced.count(passthrough=int(passthrough))
+                else:
+                    budget = max(table.num_rows, rt.num_rows, 16)
+                    while True:
+                        # exact-count overflow-retry discipline: num_out
+                        # is exact even past the budget, so one readback
+                        # decides the rerun
                         res = J.join_outer(lt, rt2, key="__sqlkey",
                                            how=j.how, out_budget=budget)
                         matched = res.matched
-                    num = _int(res.num_out)
-                    if num <= budget:
-                        out, valid_n = res.table.drop("__sqlkey"), num
-                        break
-                    budget = max(2 * budget, num)
+                        num = _int(res.num_out)
+                        if num <= budget:
+                            out, valid_n = res.table.drop("__sqlkey"), num
+                            break
+                        budget = max(2 * budget, num)
                 traced.count(rows_out=num)
             # merge environments; clashes become ambiguous bare names
             newnames = dict(names)
