@@ -1511,6 +1511,36 @@ def test_sql_edges_on_the_card(cuda):
     assert not out["w"].any() and not out["e__matched"].any()
 
 
+def test_subqueries_and_the_device_group_frame_on_the_card(cuda,
+                                                            monkeypatch):
+    # every query of test_torch_sql_subquery.py on the card against the
+    # CPU (floats within differs' tolerance: a float32 sum rounds by the
+    # device's order), and on the card the device group frame against
+    # the host frame, bit for bit
+    import sql_battery as bsql
+    import test_torch_sql_subquery as S
+    from tpu_qe_torch.sql import Database
+    tables = bsql.battery_tables()
+    tables["big"] = S._big_table()
+    cpu, card = Database("cpu"), Database(cuda)
+    for name, cols in tables.items():
+        cpu.register(name, cols)
+        card.register(name, cols)
+    kernels.reset_launches()
+    for name, q in {**S.SUBQUERIES, **S.GROUPED}.items():
+        assert bsql.differs(card.sql(q), cpu.sql(q)) is None, name
+    assert kernels.LAUNCHES["join_probe"] > 0
+    for name, q in S.GROUPED.items():
+        got = card.sql(q)
+        with monkeypatch.context() as m:
+            m.setattr(Database, "_partial", staticmethod(lambda *a: False))
+            want = card.sql(q)
+        assert list(got) == list(want), name
+        for c in want:
+            assert got[c].dtype == want[c].dtype, (name, c)
+            np.testing.assert_array_equal(got[c], want[c], err_msg=name)
+
+
 # ------------------------------- the out-of-core SQL tier (virtual tables)
 
 BIG_FAMILIES = sorted(importlib.import_module("sql_big_battery").FAMILIES)

@@ -44,22 +44,25 @@ Q12 = ("SELECT l_shipmode, SUM(CASE WHEN o_orderpriority = 0 OR "
 
 # the spans of each query, without the radix passes' own: one sql.sync per
 # read of a device value (the kept count, the group count, each column of
-# the group frame: a u64 sum is two planes)
+# the group frame: a u64 sum is two planes); sql.grouped holds the grouped
+# answer's reads, every group read to the host frame here
 SUM_COLS = {"q1": 7, "q6": 2, "q12": 3}
 SPANS = {
     "q1": {"sql.query": 1, "sql.parse": 1, "sql.from": 1, "sql.expr": 4,
            "ops.compact": 1, "ops.group": 1, "sort.radix": 1,
-           "sql.sync": 18, "sql.finish": 4},
+           "sql.sync": 18, "sql.finish": 4, "sql.grouped": 1},
     "q6": {"sql.query": 1, "sql.parse": 1, "sql.from": 1, "sql.expr": 2,
            "ops.compact": 1, "ops.group": 1, "sort.radix": 1,
-           "sql.sync": 6, "sql.finish": 4},
+           "sql.sync": 6, "sql.finish": 4, "sql.grouped": 1},
     "q12": {"sql.query": 1, "sql.parse": 1, "sql.from": 1, "ops.join": 1,
             "sort.radix": 2, "sql.expr": 3, "ops.compact": 1,
-            "ops.group": 1, "sql.sync": 10, "sql.finish": 4},
+            "ops.group": 1, "sql.sync": 10, "sql.finish": 4,
+            "sql.grouped": 1},
 }
 PARENTS = {"sql.parse": "sql.query", "sql.from": "sql.query",
            "sql.expr": "sql.query", "ops.compact": "sql.query",
-           "ops.group": "sql.query", "ops.join": "sql.from"}
+           "ops.group": "sql.query", "ops.join": "sql.from",
+           "sql.grouped": "sql.query"}
 
 
 @pytest.fixture(scope="module")
@@ -105,6 +108,20 @@ def _kept(li, name):
                 & (li["l_shipdate"] < li["l_commitdate"])
                 & (li["l_receiptdate"] >= 8766)
                 & (li["l_receiptdate"] < 9131)).sum())
+
+
+def _groups(li, name):
+    """numpy's count of the groups each query's GROUP BY makes."""
+    if name == "q6":
+        return 1                    # a global aggregate: one group
+    keep = li["l_shipdate"] <= 10471 if name == "q1" else (
+        np.isin(li["l_shipmode"], (2, 5))
+        & (li["l_commitdate"] < li["l_receiptdate"])
+        & (li["l_shipdate"] < li["l_commitdate"])
+        & (li["l_receiptdate"] >= 8766) & (li["l_receiptdate"] < 9131))
+    keys = (li["l_returnflag"] * 2 + li["l_linestatus"] if name == "q1"
+            else li["l_shipmode"])
+    return len(np.unique(keys[keep]))
 
 
 def _traced(db, query, how):
@@ -162,8 +179,9 @@ def test_a_query_is_one_request_with_its_span_tree(tpch, name, query, how):
             assert parent == "sort.radix"
         if s["name"] == "sql.sync":
             assert parent in ("sql.query", "sql.from", "sql.finish",
-                              "ops.compact", "ops.join")
-        if s["name"] not in ("ops.compact", "ops.join", "ops.group"):
+                              "ops.compact", "ops.join", "sql.grouped")
+        if s["name"] not in ("ops.compact", "ops.join", "ops.group",
+                             "sql.grouped"):
             assert s["counts"] == {}, s
         assert s["start_ns"] <= s["end_ns"] and s["device_ms"] is None
     (compact,) = [s["counts"] for s in spans if s["name"] == "ops.compact"]
@@ -173,6 +191,8 @@ def test_a_query_is_one_request_with_its_span_tree(tpch, name, query, how):
     # them; CPU tensors take the reduce-by-key kernel's plain twin
     (group,) = [s["counts"] for s in spans if s["name"] == "ops.group"]
     assert group == {"sum_cols": SUM_COLS[name], "sum_cols_kernel": 0}
+    (grouped,) = [s["counts"] for s in spans if s["name"] == "sql.grouped"]
+    assert grouped == {"groups_read": _groups(li, name)}
     joins = [s["counts"] for s in spans if s["name"] == "ops.join"]
     if name == "q12":       # every line finds its order, 1-7 to an order
         assert joins == [{"rows_left": N_ORDERS, "rows_right": n,
@@ -268,3 +288,33 @@ def test_records_reference_no_tensor(tpch):
             continue
         assert not callable(obj), type(obj)
         todo.extend(gc.get_referents(obj))
+
+
+Q_SUB = ("SELECT o_orderkey, COUNT(*) AS c FROM orders JOIN lineitem ON "
+         "o_orderkey = l_orderkey WHERE o_orderkey IN (SELECT l_orderkey "
+         "FROM lineitem GROUP BY l_orderkey HAVING SUM(l_quantity) > 150) "
+         "GROUP BY o_orderkey ORDER BY c DESC, o_orderkey LIMIT 3")
+
+
+def test_a_subquery_is_one_span_and_its_groups_are_not_read(tpch):
+    db, li = tpch
+    sums = np.bincount(np.unique(li["l_orderkey"], return_inverse=True)[1],
+                       weights=li["l_quantity"])
+    assert (sums > 150).sum() > 3       # the outer answer: a LIMIT below G
+    (rec,) = _traced(db, Q_SUB, "tracing")
+    spans = rec["spans"]
+
+    def under(i, j):
+        while spans[i]["parent"] is not None:
+            i = spans[i]["parent"]
+            if i == j:
+                return True
+        return False
+    (sub,) = [i for i, s in enumerate(spans) if s["name"] == "sql.subquery"]
+    assert spans[sub]["parent"] == 0 and spans[sub]["counts"] == {}
+    assert spans[sub]["device_ms"] is None          # events on the card only
+    grouped = [i for i, s in enumerate(spans) if s["name"] == "sql.grouped"]
+    assert [spans[i]["counts"] for i in grouped if under(i, sub)] == [
+        {"groups_read": 0}]                         # the IN reads none
+    assert [spans[i]["counts"] for i in grouped if not under(i, sub)] == [
+        {"groups_read": 3}]                         # the LIMIT's rows

@@ -65,14 +65,17 @@ import dataclasses
 import numpy as np
 import torch
 
-from tpu_qe_torch.bits import SIGN_BIT, U64, sortable_u32, widen
+from tpu_qe_torch.bits import SIGN_BIT, U64, narrow, sortable_u32, widen
 from tpu_qe_torch.config import resolve_device
 from tpu_qe_torch.sort.driver import signed_key
 from tpu_qe_torch.sql import parser as P
-from tpu_qe_torch.sql.grouped import (GroupFrame, _AGG_FUNCS, _PCT_FUNCS,
-                                      _auto_name, _calls, aggregate_calls,
-                                      expr_aliases, plan_aggregates)
-from tpu_qe_torch.sql.planner import has_implicit_joins, plan_query
+from tpu_qe_torch.sql.grouped import (DArray, DeviceOps, GroupFrame,
+                                      NumpyOps, _AGG_FUNCS, _I64_MIN,
+                                      _PCT_FUNCS, _auto_name, _calls,
+                                      aggregate_calls, expr_aliases,
+                                      plan_aggregates)
+from tpu_qe_torch.sql.planner import (column_refs, has_implicit_joins,
+                                      plan_query)
 from tpu_qe_torch.table import DTYPES, Table, column_to_numpy, from_plane
 from tpu_qe_torch.utils.profiling import span
 
@@ -278,6 +281,9 @@ def _unlift_key(lo: np.ndarray, tag: str) -> np.ndarray:
     raise SqlError(f"cannot invert key tag {tag}")
 
 
+_HOST_GROUPS = NumpyOps(head=_head_np, unlift=_unlift_key)
+
+
 def _shift_in(p: torch.Tensor) -> torch.Tensor:
     """p's rows shifted down one, row 0 taking ~p[0] (so it differs)."""
     return torch.cat([~p[:1], p[:-1]])
@@ -351,11 +357,13 @@ class _RowEnv:
     """Column bindings for row-level expression evaluation."""
 
     def __init__(self, table: Table, names: dict, tags: dict,
-                 device: torch.device):
+                 device: torch.device, subqueries: dict | None = None):
         self.table = table          # physical Table
         self.names = names          # ref key -> physical column name
         self.tags = tags            # physical column name -> tag
         self.device = device        # where literals are built
+        # id(InSelect) -> its subquery's column, evaluated (_InSide)
+        self.subqueries = subqueries or {}
 
     def resolve(self, col: P.Col) -> str:
         k = col.key
@@ -428,6 +436,8 @@ def _eval(e, env: _RowEnv, n: int) -> TV:
             ors = t if ors is None else P.Binary("or", ors, t)
         out = _eval(ors, env, n)
         return TV(~out.arr, "bool") if e.negated else out
+    if isinstance(e, P.InSelect):
+        return _in_select(e, env, n)
     if isinstance(e, P.Case):
         default = (_eval(e.default, env, n) if e.default is not None
                    else TV(env.lit(0, "i32"), "i32"))
@@ -644,6 +654,7 @@ class Frame:
     head rather than n."""
     cols: dict                   # name -> np array | tensor | U64
     tags: dict                   # name -> tag
+    final: bool = False          # ORDER BY / LIMIT / OFFSET applied
 
     @property
     def num_rows(self) -> int:
@@ -767,6 +778,169 @@ def _frame_order_limit(fr: Frame, order_by, limit,
     return fr
 
 
+def _sortable_f64(f: torch.Tensor) -> torch.Tensor:
+    """int64 whose order as unsigned bits is the order of the float64
+    values f (-0.0 and 0.0 alike)."""
+    b = (f + 0.0).view(torch.int64)
+    return torch.where(b < 0, ~b, b ^ _I64_MIN)
+
+
+def _order_planes(v: DArray) -> list:
+    """int32 planes whose unsigned lexicographic order is the order of a
+    device frame column's values (-0.0 and 0.0 tie, as in numpy)."""
+    t, dt = v.t, v.dtype
+    if dt.kind == "b":
+        return [t.to(torch.int32)]
+    if dt.kind == "f" and dt.itemsize == 4:
+        return [_sortable(t + 0.0, "f32")]
+    if dt.kind == "f":
+        k = _sortable_f64(t)
+    elif dt.itemsize <= 4:              # a 32-bit value in int64
+        return [narrow(t if dt.kind == "u" else t + (1 << 31))]
+    else:
+        k = t if dt.kind == "u" else t ^ _I64_MIN
+    return [narrow(k >> 32), narrow(k)]
+
+
+def _device_group_order(cols: dict, tags: dict, q: P.Query) -> dict:
+    """A device group frame's rows in q's ORDER BY (one stable sort of the
+    keys' planes: the host frame's lexsort order), then its OFFSET and
+    LIMIT, on the device."""
+    fr, planes, seen = Frame(cols, tags), [], set()
+    for item in q.order_by:
+        nm = _resolve_order_name(fr, item.col.key)
+        if nm in seen:
+            continue            # later duplicate keys cannot re-order
+        seen.add(nm)
+        ps = _order_planes(cols[nm])
+        planes += [~p for p in ps] if item.desc else ps
+    end = None if q.limit is None else q.offset + q.limit
+    if not planes:
+        return {k: DArray(v.t[q.offset:end], v.dtype)
+                for k, v in cols.items()}
+    from tpu_qe_torch.sort.planes import argsort_planes
+    idx = argsort_planes(planes)[1][q.offset:end]
+    return {k: DArray(v.t[idx], v.dtype) for k, v in cols.items()}
+
+
+def _read_rows(cols: dict) -> dict:
+    """A device frame's columns read to the host in their numpy dtypes:
+    one copy of all of them, as 64-bit words."""
+    words = torch.stack([v.t.to(torch.float64).view(torch.int64)
+                         if v.dtype.kind == "f" else v.t.to(torch.int64)
+                         for v in cols.values()])
+    out = {}
+    for row, (nm, v) in zip(_cpu(words).numpy(), cols.items()):
+        out[nm] = (row.view(np.float64).astype(v.dtype)
+                   if v.dtype.kind == "f" else row != 0
+                   if v.dtype.kind == "b" else row.astype(v.dtype))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# IN (SELECT ...): the subquery's column and the probe
+# ---------------------------------------------------------------------------
+
+_SUBQUERY_TIER = ("IN (SELECT ...) runs in the in-core tier only: {} does "
+                  "not run subqueries")
+
+
+@dataclasses.dataclass
+class _InSide:
+    """An IN's subquery, evaluated: its one column on the device (a tensor
+    or U64 under a row-expression tag, or "i64" / "f64" for the int64 and
+    float64 values of a grouped answer), and whether the column is sorted
+    (a GROUP BY's key, which its HAVING kept in order)."""
+    arr: object
+    tag: str
+    sorted: bool
+
+
+def _in_column(col, tag: str) -> tuple:
+    """A subquery frame's column as (values, tag) of _in_keys."""
+    if isinstance(col, DArray):
+        dt = col.dtype
+        if dt == np.uint64:
+            return U64(narrow(col.t), narrow(col.t >> 32)), "u64"
+        if dt.kind in "iu" and dt.itemsize == 4:
+            return narrow(col.t), "u32" if dt.kind == "u" else "i32"
+        return col.t, {"b": "bool", "i": "i64", "f": "f32"
+                       if dt.itemsize == 4 else "f64"}[dt.kind]
+    if tag in ("i64sum", "u64sum"):         # a window's exact sum
+        return (col.hi.to(torch.int64) << 32) | widen(col.lo), tag[:3]
+    return _plane(col), tag
+
+
+def _value64(arr, tag: str) -> tuple:
+    """(int64 or float64 values, kind) of an IN side of any tag."""
+    if tag == "u32":
+        return widen(arr), "uint"
+    if tag == "bool":
+        return arr.to(torch.int64), "uint"
+    if tag == "u64":
+        return (arr.hi.to(torch.int64) << 32) | widen(arr.lo), "u64"
+    if tag in ("i32", "i64"):
+        return arr.to(torch.int64), "int"
+    return arr.to(torch.float64), "float"
+
+
+def _key64(k: torch.Tensor) -> U64:
+    return U64(narrow(k), narrow(k >> 32))
+
+
+def _in_keys(outer: tuple, sub: tuple) -> tuple:
+    """u64 keys of both sides of an IN, equal where the values are (SQL's
+    =), and a mask of the outer rows that can match (None: all): the
+    lifted key where the tags agree, else each value in one domain."""
+    (a, at), (b, bt) = outer, sub
+    if at == bt and at in ("u32", "i32", "bool", "u64"):
+        return _lift_key(a, at), _lift_key(b, bt), None
+    (x, xk), (y, yk) = _value64(a, at), _value64(b, bt)
+    ok = None
+    if "float" in (xk, yk):         # as float64, -0.0 = 0.0
+        def f64(v, kind):
+            f = v.to(torch.float64)
+            if kind == "u64":
+                f = torch.where(v < 0, f + 2.0 ** 64, f)
+            return _sortable_f64(f)
+        x, y = f64(x, xk), f64(y, yk)
+    elif "u64" in (xk, yk):         # as u64 bits
+        if yk == "int":
+            raise SqlError("IN (SELECT ...) compares u64 values with a "
+                           "signed subquery column")
+        if xk == "int":
+            ok = x >= 0
+    else:                           # as int64, in order
+        x, y = x ^ _I64_MIN, y ^ _I64_MIN
+    return _key64(x), _key64(y), ok
+
+
+def _in_select(e: P.InSelect, env: _RowEnv, n: int) -> TV:
+    """The IN's mask: each row's operand probed against the subquery's
+    sorted column with E3's join index (kernels/join.join_index); a row is
+    kept where it matched at least once."""
+    from tpu_qe_torch.kernels.join import join_index
+    from tpu_qe_torch.sort.planes import argsort_planes
+    side = env.subqueries.get(id(e))
+    if side is None:
+        raise SqlError("IN (SELECT ...) is supported in WHERE only")
+    tv = _eval(e.operand, env, n)
+    if tv.tag == "bigint":
+        raise SqlError("a u64 literal is only valid in a comparison "
+                       "against a u64 column")
+    arr = tv.arr
+    if not isinstance(arr, U64) and arr.dim() == 0:
+        arr = arr.expand(n)
+    lk, rk, ok = _in_keys((arr, tv.tag), (side.arr, side.tag))
+    if not side.sorted:
+        (hi, lo), _ = argsort_planes([rk.hi, rk.lo])
+        rk = U64(lo, hi)
+    found = join_index(U64(lk.lo.contiguous(), lk.hi.contiguous()),
+                       U64(rk.lo.contiguous(), rk.hi.contiguous())
+                       ).count > 0
+    return TV(found if ok is None else found & ok, "bool")
+
+
 # ---------------------------------------------------------------------------
 # Database
 # ---------------------------------------------------------------------------
@@ -882,6 +1056,11 @@ class Database:
                 q = P.parse(query)
             q, plans = self._plan(q)
             vt = self._virtual_of(q)
+            if (vt is not None or mesh is not None) and any(
+                    P.in_selects(s) for s in q.selects):
+                raise SqlError(_SUBQUERY_TIER.format(
+                    "mesh= (the distributed tier)" if vt is None
+                    else "the out-of-core tier (virtual tables)"))
             if vt is not None:
                 if mesh is not None:
                     raise SqlError("mesh= with a virtual table is not "
@@ -894,14 +1073,18 @@ class Database:
                                   db=self)
             if mesh is not None:
                 return self._sql_distributed(q, mesh)
-            frames = [self._select(s, p)
+            # one SELECT's grouped answer may take the query's ORDER BY
+            # and LIMIT on the device (its frame is then final)
+            tail = q if len(q.selects) == 1 else None
+            frames = [self._select(s, p, tail)
                       for s, p in zip(q.selects, plans)]
             if len(frames) > 1:
                 frames = [_materialize(f) for f in frames]
             fr = frames[0]
             for (op, all_), nxt in zip(q.set_ops, frames[1:]):
                 fr = self._set_op(fr, nxt, op, all_)
-            fr = _frame_order_limit(fr, q.order_by, q.limit, q.offset)
+            if not fr.final:
+                fr = _frame_order_limit(fr, q.order_by, q.limit, q.offset)
             return dict(_materialize(fr).cols)
 
     def explain(self, query: str, mesh=None) -> str:
@@ -1934,11 +2117,23 @@ class Database:
         return table, names, tags
 
     # -- SELECT core ----------------------------------------------------------
-    def _select(self, sel: P.Select, plan=None) -> Frame:
+    def _select(self, sel: P.Select, plan=None, tail=None,
+                keep: bool = False) -> Frame:
+        """sel's answer. tail: the query, where its ORDER BY and LIMIT
+        apply to this SELECT alone; keep: sel is an IN's subquery, whose
+        answer stays on the device (DISTINCT left out: the probe ignores
+        duplicates). Each IN (SELECT ...) of the WHERE runs first, once."""
+        subqueries = {}
+        nodes = P.in_selects(sel)
+        if nodes:
+            where = P.in_selects(sel.where)
+            if len(where) != len(nodes):
+                raise SqlError("IN (SELECT ...) is supported in WHERE only")
+            subqueries = {id(nd): self._subquery(nd, sel) for nd in where}
         with span("sql.from"):
             table, names, tags = self._from_clause(
                 sel, plan.keep if plan else None)
-        env = _RowEnv(table, names, tags, self.device)
+        env = _RowEnv(table, names, tags, self.device, subqueries)
         n = table.num_rows
 
         if sel.where is not None:
@@ -1957,12 +2152,47 @@ class Database:
             n = k
 
         if sel.group_by or self._has_aggs(sel):
-            fr = self._grouped(sel, env, n)
+            fr = self._grouped(sel, env, n, None if sel.distinct else tail,
+                               keep)
         else:
             fr = self._plain(sel, env, n)
-        if sel.distinct:
+        if sel.distinct and not keep:
             fr = self._distinct_frame(fr)
         return fr
+
+    def _names_of(self, sel: P.Select) -> set:
+        """The column references sel's FROM binds (bare and qualified)."""
+        out = set()
+        for ref in [sel.table] + [j.table for j in sel.joins]:
+            t = self._tables.get(ref.name.lower())
+            for c in t.column_names if t is not None else ():
+                out |= {c, f"{ref.binding}.{c}"}
+        return out
+
+    def _subquery(self, node: P.InSelect, outer: P.Select) -> _InSide:
+        """An IN's subquery, run once through the in-core path; its one
+        column stays on the device. Traced as sql.subquery, with its device
+        time."""
+        sub = node.select
+        for ref in [sub.table] + [j.table for j in sub.joins]:
+            if ref.name.lower() in self._virtual:
+                raise SqlError(_SUBQUERY_TIER.format(
+                    "the out-of-core tier (virtual tables)"))
+        own, outer_names = self._names_of(sub), self._names_of(outer)
+        aliases = {it.alias for it in sub.items if it.alias}
+        for c in sorted(column_refs(sub), key=lambda c: c.key):
+            if c.key not in own and c.key not in aliases \
+                    and c.key in outer_names:
+                raise SqlError(f"correlated subquery: IN (SELECT ...) "
+                               f"names {c.key!r} of the outer query; only "
+                               "an uncorrelated subquery is supported")
+        q, (plan,) = self._plan(P.Query((sub,), (), (), None))
+        with span("sql.subquery", device=self.device):
+            fr = self._select(q.selects[0], plan, keep=True)
+            ((name, col),) = fr.cols.items()
+            arr, tag = _in_column(col, fr.tags[name])
+        # a lone GROUP BY column, selected, comes out in its key's order
+        return _InSide(arr, tag, sub.group_by == (sub.items[0].expr,))
 
     @staticmethod
     def _has_aggs(sel: P.Select) -> bool:
@@ -2129,7 +2359,16 @@ class Database:
         return out
 
     # -- GROUP BY / aggregates --------------------------------------------
-    def _grouped(self, sel: P.Select, env: _RowEnv, n: int) -> Frame:
+    def _grouped(self, sel: P.Select, env: _RowEnv, n: int, tail=None,
+                 keep: bool = False) -> Frame:
+        """The grouped answer of sel over env's n rows. tail: the query
+        (its ORDER BY, LIMIT, OFFSET) where they apply to this answer
+        alone; keep: the answer feeds an IN and stays on the device. Where
+        every group is read (no HAVING, no LIMIT below the groups) the
+        frame is read to the host and finished there; else HAVING, the
+        select items and tail's ORDER BY / LIMIT run on the device and
+        only the rows left are read (the frame is then final). Traced as
+        sql.grouped, with the rows read as groups_read."""
         from tpu_qe_torch.ops.aggregate import (group_aggregate,
                                                 group_aggregate_multi)
         from tpu_qe_torch.ops.quantile import (group_quantile,
@@ -2153,7 +2392,7 @@ class Database:
                 gtvs.append(env.col(c))
                 gexprs.append(c)
         # composite group key
-        gid_side = None     # dense-id side planes (3+ columns)
+        gid_side = _ng = None     # dense-id side planes (3+ columns)
         if not gcols:
             zeros = torch.zeros(n, dtype=torch.int32, device=dev)
             gkey = U64(zeros, zeros)
@@ -2200,107 +2439,132 @@ class Database:
         values = {col: args.column(col) for col in plan.aggspec}
         mres = (group_aggregate_multi(gkey, values, plan.aggspec)
                 if values else group_aggregate(gkey, aggs=("count",)))
-        g = _int(mres.num_groups)
-
-        # per-group frame of aggregate results (numpy, G-bounded: every
-        # n-row device output is head-sliced ON THE DEVICE before the
-        # readback)
-        cnt = _head_np(mres.aggs[f"{plan.count_col}_count"] if values
-                       else mres.aggs["count"], g)
-        agg_np: dict[str, np.ndarray] = {}
-        for name, arr in (mres.aggs or {}).items():
-            if isinstance(arr, U64):
-                raw = _head_np(arr, g)
-                src = name.rsplit("_", 1)[0]
-                agg_np[name] = (raw.view(np.int64)
-                                if env.tags.get(src) == "i32" else raw)
-            else:
-                v = _head_np(arr, g)
-                agg_np[name] = (v.astype(np.float64) if name.endswith("_sum")
-                                and v.dtype == np.float32 else v)
-        distinct_np: dict[str, np.ndarray] = {}
-        for col in plan.distinct:
-            tv = args.column(col)
-            if env.tags[col] == "u64":
-                # the count_distinct agg dedups ONE u32 plane riding
-                # the (key, value) sort; dropping the hi plane would
-                # undercount pairs sharing low bits. Dense-rank the
-                # u64 values instead (_dense_group_ids over the hi/lo
-                # planes — one extra sort): ranks preserve equality
-                # exactly and fit u32 (n < 2^32)
-                bits, _s, _n2 = _dense_group_ids((tv.hi, tv.lo))
-            else:
-                bits = _sortable(tv, env.tags[col])
-            dres = group_aggregate(gkey, from_plane(bits, torch.uint32),
-                                   aggs=("count_distinct",))
-            dg = _int(dres.num_groups)
-            assert dg == g, (dg, g)
-            distinct_np[col] = _head_np(dres.aggs["count_distinct"],
-                                        g).astype(np.int64)
-        # ordered-set aggregates: one group_quantile[_cont] per
-        # (value column, kind) computes every requested q in one sorted
-        # layout; readbacks are g-bounded device head slices
-        pct_np: dict[tuple, np.ndarray] = {}
-        for (col, kind), qlist in plan.pct_specs.items():
-            val = args.column(col)
-            if n == 0:      # no group: the operators take no empty input
-                for qi in range(len(qlist)):
-                    pct_np[(col, kind, qi)] = (
-                        _head_np(val, 0) if kind == "disc"
-                        else np.zeros(0, np.float32))
-                continue
-            if kind == "disc":
-                qr = group_quantile(gkey, val, qlist)
-                rows = qr.quantiles
-            else:
-                qr = group_quantile_cont(gkey, val, qlist)
-                rows = qr.value          # f32 interpolation
-            qg = _int(qr.num_groups)
-            assert qg == g, (qg, g)
-            for qi in range(len(qlist)):
-                pct_np[(col, kind, qi)] = _head_np(rows[qi], g)
-
-        # group-key output values
-        gvals: dict[str, np.ndarray] = {}
-        if gid_side is not None:
-            # dense-id path: group g's column values sit at row g of
-            # the compacted first-occurrence planes (id order == the
-            # aggregation's key order: ids 0..G-1, all present)
-            assert g == _int(_ng), (g, _ng)
-            off = 0
-            for c2, t in zip(gcols, gtvs):
-                if t.tag == "u64":
-                    hi, lo = (_head_np(from_plane(gid_side[off + i],
-                                                  torch.uint32), g)
-                              .astype(np.uint64) for i in (0, 1))
-                    gvals[c2.key] = (hi << np.uint64(32)) | lo
-                    off += 2
-                elif t.tag == "bool":
-                    gvals[c2.key] = _head_np(gid_side[off], g).astype(bool)
-                    off += 1
+        with span("sql.grouped") as traced:
+            g = _int(mres.num_groups)
+            # the answer stays on the device where only part of it is
+            # read, and where an IN reads none of it
+            on_device = keep or self._partial(sel, tail, g)
+            # the G groups as a GroupFrame: read back to numpy by the host
+            # ops (every n-row device output is head-sliced ON THE DEVICE
+            # before the read), or kept on the device by DeviceOps
+            ops = DeviceOps(dev) if on_device else _HOST_GROUPS
+            cnt = ops.head(mres.aggs[f"{plan.count_col}_count"]
+                           if plan.aggspec else mres.aggs["count"], g)
+            aggs: dict = {}
+            for name, arr in (mres.aggs or {}).items():
+                if isinstance(arr, U64):
+                    raw = ops.head(arr, g)
+                    src = name.rsplit("_", 1)[0]
+                    aggs[name] = (ops.view(raw, np.int64)
+                                  if env.tags.get(src) == "i32" else raw)
                 else:
-                    gvals[c2.key] = _unlift_key(_head_np(
-                        from_plane(gid_side[off], torch.uint32), g), t.tag)
-                    off += 1
-        elif len(gtvs) == 1:
-            t = gtvs[0]
-            if t.tag == "u64":
-                gvals[gcols[0].key] = _head_np(mres.key, g)
-            else:
-                gvals[gcols[0].key] = _unlift_key(_head_np(
-                    from_plane(mres.key.lo, torch.uint32), g), t.tag)
-        elif len(gtvs) == 2:
-            khi, klo = (_head_np(from_plane(p, torch.uint32), g)
-                        for p in (mres.key.hi, mres.key.lo))
-            gvals[gcols[0].key] = _unlift_key(khi, gtvs[0].tag)
-            gvals[gcols[1].key] = _unlift_key(klo, gtvs[1].tag)
+                    v = ops.head(arr, g)
+                    aggs[name] = (ops.astype(v, np.float64)
+                                  if name.endswith("_sum")
+                                  and ops.dtype(v) == np.float32 else v)
+            distinct: dict = {}
+            for col in plan.distinct:
+                tv = args.column(col)
+                if env.tags[col] == "u64":
+                    # the count_distinct agg dedups ONE u32 plane riding
+                    # the (key, value) sort; dropping the hi plane would
+                    # undercount pairs sharing low bits. Dense-rank the
+                    # u64 values instead (_dense_group_ids over the hi/lo
+                    # planes — one extra sort): ranks preserve equality
+                    # exactly and fit u32 (n < 2^32)
+                    bits, _s, _n2 = _dense_group_ids((tv.hi, tv.lo))
+                else:
+                    bits = _sortable(tv, env.tags[col])
+                dres = group_aggregate(gkey, from_plane(bits, torch.uint32),
+                                       aggs=("count_distinct",))
+                dg = _int(dres.num_groups)
+                assert dg == g, (dg, g)
+                distinct[col] = ops.astype(
+                    ops.head(dres.aggs["count_distinct"], g), np.int64)
+            # ordered-set aggregates: one group_quantile[_cont] per
+            # (value column, kind) computes every requested q in one sorted
+            # layout; readbacks are g-bounded device head slices
+            pct: dict = {}
+            for (col, kind), qlist in plan.pct_specs.items():
+                val = args.column(col)
+                if n == 0:      # no group: the operators take no empty input
+                    for qi in range(len(qlist)):
+                        pct[(col, kind, qi)] = (
+                            ops.head(val, 0) if kind == "disc"
+                            else ops.empty(np.float32))
+                    continue
+                if kind == "disc":
+                    qr = group_quantile(gkey, val, qlist)
+                    rows = qr.quantiles
+                else:
+                    qr = group_quantile_cont(gkey, val, qlist)
+                    rows = qr.value          # f32 interpolation
+                qg = _int(qr.num_groups)
+                assert qg == g, (qg, g)
+                for qi in range(len(qlist)):
+                    pct[(col, kind, qi)] = ops.head(rows[qi], g)
 
-        frame = GroupFrame(
-            plan, g, [(c, e, gvals[c.key]) for c, e in zip(gcols, gexprs)],
-            cnt.astype(np.int64), agg_np, distinct_np, pct_np)
-        # the numpy group frame: HAVING and the select items
-        with span("sql.finish"):
-            return Frame(*frame.select(sel))
+            # group-key output values
+            gvals: dict = {}
+
+            def word(p):
+                return ops.head(from_plane(p, torch.uint32), g)
+            if gid_side is not None:
+                # dense-id path: group g's column values sit at row g of
+                # the compacted first-occurrence planes (id order == the
+                # aggregation's key order: ids 0..G-1, all present)
+                assert g == _int(_ng), (g, _ng)
+                off = 0
+                for c2, t in zip(gcols, gtvs):
+                    if t.tag == "u64":
+                        gvals[c2.key] = ops.u64(word(gid_side[off]),
+                                                word(gid_side[off + 1]))
+                        off += 2
+                    elif t.tag == "bool":
+                        gvals[c2.key] = ops.astype(
+                            ops.head(gid_side[off], g), bool)
+                        off += 1
+                    else:
+                        gvals[c2.key] = ops.unlift(word(gid_side[off]),
+                                                   t.tag)
+                        off += 1
+            elif len(gtvs) == 1:
+                t = gtvs[0]
+                if t.tag == "u64":
+                    gvals[gcols[0].key] = ops.head(mres.key, g)
+                else:
+                    gvals[gcols[0].key] = ops.unlift(word(mres.key.lo),
+                                                     t.tag)
+            elif len(gtvs) == 2:
+                khi, klo = word(mres.key.hi), word(mres.key.lo)
+                gvals[gcols[0].key] = ops.unlift(khi, gtvs[0].tag)
+                gvals[gcols[1].key] = ops.unlift(klo, gtvs[1].tag)
+
+            frame = GroupFrame(
+                plan, g,
+                [(c, e, gvals[c.key]) for c, e in zip(gcols, gexprs)],
+                ops.astype(cnt, np.int64), aggs, distinct, pct, ops)
+            with span("sql.finish"):
+                cols, tags = frame.select(sel)
+            if not on_device:
+                traced.count(groups_read=g)
+                return Frame(cols, tags)
+            if keep:
+                traced.count(groups_read=0)
+                return Frame(cols, tags)
+            if tail is not None:
+                cols = _device_group_order(cols, tags, tail)
+            out = _read_rows(cols)
+            traced.count(groups_read=len(next(iter(out.values()))))
+            return Frame(out, tags, final=tail is not None)
+
+    @staticmethod
+    def _partial(sel: P.Select, tail, g: int) -> bool:
+        """Whether only part of a grouped answer's g groups is read: it has
+        a HAVING, or the query's LIMIT (and OFFSET) stop below g."""
+        return sel.having is not None or (
+            tail is not None and tail.limit is not None
+            and tail.limit + tail.offset < g)
 
     # -- DISTINCT / set ops -------------------------------------------------
     @staticmethod

@@ -37,6 +37,9 @@ Grammar (EBNF-ish; case-insensitive keywords):
                   and parenthesised exprs; aggregate calls may carry
                   DISTINCT; any call may carry OVER (PARTITION BY col
                   ("," col)* [ORDER BY col]).
+    in_select  := expr IN "(" SELECT item FROM ... [WHERE ...] [GROUP BY
+                  ... [HAVING ...]] ")": a cmp; the subquery has one item
+                  and names no column of the outer query (uncorrelated)
 
 No NULLs in the data model (columns are dense u32/i32/f32/u64 arrays);
 NULL appears only as outer-join fill, surfaced as the join's `matched`
@@ -158,6 +161,14 @@ class InList:
     operand: object
     items: tuple
     negated: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class InSelect:
+    """expr IN (SELECT ...): a one-column subquery, uncorrelated (the
+    executor checks that it names no column of the outer query)."""
+    operand: object
+    select: "Select"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -457,6 +468,8 @@ class _Parser:
             return Between(e, lo, hi, negated)
         if self.kw("in"):
             self.expect_op("(")
+            if self.cur.kind == "kw" and self.cur.text == "select":
+                return self.in_select(e, negated)
             items = [self.add_expr()]
             while self.op(","):
                 items.append(self.add_expr())
@@ -469,6 +482,17 @@ class _Parser:
                 op = "<>" if sym == "!=" else sym
                 return Binary(op, e, self.add_expr())
         return e
+
+    def in_select(self, operand, negated: bool) -> InSelect:
+        if negated:
+            raise SqlError("NOT IN (SELECT ...) is not supported: its NULL "
+                           "rules are not implemented")
+        sub = self.select()
+        self.expect_op(")")
+        if len(sub.items) != 1 or sub.items[0].expr == "*":
+            raise SqlError("IN (SELECT ...) takes a subquery of exactly one "
+                           "select item, not * or a list")
+        return InSelect(operand, sub)
 
     def add_expr(self):
         e = self.mul_expr()
@@ -629,6 +653,25 @@ class _Parser:
         return dataclasses.replace(
             c, window=WindowSpec(tuple(part), order, frame, follow,
                                  frange))
+
+
+def in_selects(node) -> list:
+    """The IN (SELECT ...) nodes under `node`, a parsed clause, in written
+    order; those inside a subquery are its own and are not listed."""
+    out = []
+
+    def walk(x):
+        if isinstance(x, InSelect):
+            out.append(x)
+            walk(x.operand)
+        elif dataclasses.is_dataclass(x):
+            for f in dataclasses.fields(x):
+                walk(getattr(x, f.name))
+        elif isinstance(x, tuple):
+            for y in x:
+                walk(y)
+    walk(node)
+    return out
 
 
 def parse(src: str) -> Query:

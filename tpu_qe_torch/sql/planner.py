@@ -61,16 +61,20 @@ def conjuncts(e) -> list:
     return [e]
 
 
-def _columns(node, out: set) -> set:
-    """Every column reference under `node`, a parsed clause."""
+def column_refs(node, out: set | None = None) -> set:
+    """Every column reference under `node`, a parsed clause; those inside
+    an IN (SELECT ...) are its subquery's own and are not listed."""
+    out = set() if out is None else out
     if isinstance(node, P.Col):
         out.add(node)
+    elif isinstance(node, P.InSelect):
+        column_refs(node.operand, out)
     elif dataclasses.is_dataclass(node):
         for f in dataclasses.fields(node):
-            _columns(getattr(node, f.name), out)
+            column_refs(getattr(node, f.name), out)
     elif isinstance(node, tuple):
         for x in node:
-            _columns(x, out)
+            column_refs(x, out)
     return out
 
 
@@ -141,7 +145,7 @@ def plan_select(sel: P.Select, tables: dict,
                               where=where)
     keep = None
     if all(it.expr != "*" for it in sel.items):
-        named = _columns(order_by, _columns(sel, set()))
+        named = column_refs(order_by, column_refs(sel))
         keep = {b: frozenset(c for c in cols if P.Col(c) in named
                              or P.Col(c, b) in named)
                 for b, (_, cols) in zip(bindings, schema)}
